@@ -11,7 +11,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mul2x2", "mul2x2_hr"]
+__all__ = ["mul2x2", "mul2x2_hr", "hermitian"]
+
+
+def hermitian(a: torch.Tensor) -> torch.Tensor:
+    """Conjugate transpose over the trailing (2, 2) dims."""
+    return a.transpose(-1, -2).conj()
 
 
 def mul2x2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -23,4 +28,4 @@ def mul2x2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mul2x2_hr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ bᴴ over trailing (2, 2) dims (right operand conjugate-transposed)."""
-    return mul2x2(a, b.transpose(-1, -2).conj())
+    return mul2x2(a, hermitian(b))

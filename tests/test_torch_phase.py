@@ -42,10 +42,11 @@ def test_phase_dot_cycles_bitwise(rng, convention):
         assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_reduced_phase_f32_bitwise(rng):
+@pytest.mark.parametrize("convention", ["fourier", "casa"])
+def test_reduced_phase_f32_bitwise(rng, convention):
     lm, uvw, freq = _inputs(rng, np.float32)
-    want = np.asarray(jph.reduced_phase(lm, uvw, freq))
-    got = tph.reduced_phase(*_t(lm, uvw, freq))
+    want = np.asarray(jph.reduced_phase(lm, uvw, freq, convention))
+    got = tph.reduced_phase(*_t(lm, uvw, freq), convention)
     assert_array_equal(got.numpy(), want)
     assert np.abs(want).max() <= np.pi * (1 + 1e-6)  # reduced mod 2π
 
