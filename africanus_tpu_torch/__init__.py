@@ -12,7 +12,7 @@ Public functions take and return torch tensors (complex64/complex128
 where the JAX package used split re/im pairs), with an explicit
 ``device`` wherever they create tensors.
 
-Layout (the ported slices: the flagship RIME predict, the selfcal loop)
+Layout (ported: the flagship predict, selfcal, w-stacked imaging)
 ------
 - ``calibration``  — gain corruption/correction, the phase-only
                      Gauss-Newton solver, the selfcal step module
@@ -20,13 +20,16 @@ Layout (the ported slices: the flagship RIME predict, the selfcal loop)
 - ``coordinates``  — radec ↔ lm(n) transforms
 - ``deconv``       — Hogbom CLEAN
 - ``dft``          — direct Fourier transforms (im_to_vis, vis_to_im)
+- ``gridding``     — the w-stacking gridder/degridder (wgridder: dirty,
+                     model, residual, hessian, WStackImaging), cell sizes
 - ``model``        — spectral model, Stokes ↔ correlation conversion,
                      gaussian shape
-- ``ops``          — two-float arithmetic, 2×2 Jones products, the fused
-                     K×env×B predict kernel (``cuda_predict``) and the DFT
-                     kernels (``cuda_dft``)
+- ``ops``          — two-float arithmetic, 2×2 Jones products, the ES
+                     kernel, the fused K×env×B predict kernel
+                     (``cuda_predict``), the DFT kernels (``cuda_dft``)
+                     and the w-stack grid/degrid kernels (``cuda_wgrid``)
 - ``rime``         — phase delay, predict_vis, the flagship predict module
-- ``utils``        — CASA Stokes enumerations, dtype helpers
+- ``utils``        — CASA Stokes enumerations, dtype helpers, plan caches
 """
 
 __version__ = "0.1.0"

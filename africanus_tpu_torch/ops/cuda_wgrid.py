@@ -1,0 +1,432 @@
+"""w-stacked convolutional gridding and degridding kernels.
+
+Port of the fused w-stack tile kernels of ``africanus_tpu/ops/pallas_grid.py``:
+``grid_tiles_wstack_mxu`` (Q2-5) and ``grid_tiles_wstack_pallas`` (Q2-7)
+compute one map, ``degrid_tiles_wstack_mxu`` (Q2-6) and
+``degrid_tiles_wstack_pallas`` (Q2-8) its adjoint. Here each map is one
+hand-written CUDA kernel in ``csrc/wgrid.cu`` (its header says what bounds
+them and how they are laid out):
+
+    grid:    G[p0+t, iu0+a, iv0+b] += wsc[t]·es((uf−a)/½W)·es((vf−b)/½W)·V
+    degrid:  V = Σ_t wsc[t] Σ_a Σ_b es((uf−a)/½W)·es((vf−b)/½W)·G[p0+t, iu0+a, iv0+b]
+
+over a, b < W (the support) and the sample's w-taps t < wsup (W on a
+w-stack, 1 without one); uv indices wrap mod (nu, nv), planes never wrap.
+
+Everything per sample is planned once on the host, in float64, into a
+:class:`WGridPlan` (an ``nn.Module``: ``.to()`` moves it): the window
+starts ``iu0``, ``iv0``, ``p0`` (int32), the fractional offsets ``uf``,
+``vf`` and the w-taps ``wsc`` (in the plan's dtype, float32 or float64),
+the samples' order sorted by owning uv tile, the grid kernel's launch
+layout (tile edge, planes per block) and the fold tables of its halos.
+:func:`sample_geometry` gives the float64 numbers (the formulas of the
+JAX package's ``_tile_plan``).
+
+:func:`grid_wstack` and :func:`degrid_wstack` launch the kernels on CUDA
+tensors and count their launches in ``.launches``; on CPU tensors they
+take :func:`grid_wstack_reference` and :func:`degrid_wstack_reference`,
+the plain PyTorch versions (a flat ``index_add_`` over sample chunks and
+a gather-and-sum, after the JAX package's x64 scatter path), which the
+tests hold against the Pallas kernels in interpret mode and
+``chip_smoke.py`` holds the kernels against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from africanus_tpu_torch.ops import _build
+from africanus_tpu_torch.ops.es import es_np, es_torch
+
+__all__ = ["WGridPlan", "sample_geometry", "grid_wstack", "degrid_wstack",
+           "grid_wstack_reference", "degrid_wstack_reference", "build_wgrid",
+           "SUPPORTS"]
+
+_SOURCES = ("wgrid.cu",)
+
+# the supports csrc/wgrid.cu is instantiated for: those the w-gridder's
+# _kernel_params chooses
+SUPPORTS = (4, 6, 8, 10)
+
+# The grid kernel's launch layout is decided here, on the host, and
+# passed to csrc/wgrid.cu, which only checks it at launch.
+# uv tile edge (cells): the largest in [8, 32] whose padded stack,
+# nplanes x (edge + W - 1)² complex cells, fits 32 KB of shared memory,
+# so that ~5 blocks share an SM: 16 at config 4 (W = 6, 9 planes of
+# complex64), 10 at 17 planes. Smaller tiles keep more blocks, and so
+# more samples, in flight per SM, but the fold re-reads more halo
+_TILE_MIN, _TILE_MAX, _TILE_BYTES = 8, 32, 32 * 1024
+# samples a block stages per pass (wgrid.cu's compile-time CHUNK: its
+# launch refuses another count), and the dynamic shared memory one block
+# may take: its block of planes of the padded tile plus the staged
+# samples (wgrid.cu's TILE_BUDGET, the limit its launch checks)
+_CHUNK, _SMEM_BYTES = 128, 112 * 1024
+
+# tap elements per chunk of the plain versions, which bounds their peak
+# memory (~0.5 GB of index and weight planes)
+_REF_TAPS = 1 << 24
+
+
+def build_wgrid():
+    """Compile ``csrc/wgrid.cu`` if needed: (library path, seconds spent
+    compiling, compiler log)."""
+    return _build.build("wgrid", _SOURCES)
+
+
+def _library():
+    lib = _build.load("wgrid", _SOURCES)
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    spread, fold, degrid = (lib.wgrid_spread_launch, lib.wgrid_fold_launch,
+                            lib.wgrid_degrid_launch)
+    if spread.argtypes is None:
+        # c_void_p for every pointer and the stream: ctypes would pass a
+        # bare Python int as a 32-bit int and cut the address
+        spread.argtypes = [ptr] * 10 + [i32] * 12 + [f64, i32, ptr]
+        fold.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+        degrid.argtypes = [ptr] * 9 + [i32] * 5 + [f64, i32, ptr]
+        for fn in (spread, fold, degrid, lib.wgrid_init):
+            fn.restype = ctypes.c_int
+        lib.wgrid_init.argtypes = []
+    return spread, fold, degrid
+
+
+# devices on which the grid kernel may take its shared-memory budget
+_READY = set()
+
+
+def _allow_tile_budget(device):
+    """Raise the grid kernel's dynamic shared-memory limit on ``device``
+    once, before its first launch (so never inside a CUDA-graph capture,
+    which starts after a warm-up call)."""
+    if device.index in _READY:
+        return
+    with torch.cuda.device(device):
+        rc = _build.load("wgrid", _SOURCES).wgrid_init()
+    if rc != 0:
+        raise RuntimeError(f"wgrid_init failed: CUDA error {rc}")
+    _READY.add(device.index)
+
+
+# ------------------------------------------------------------ host planning
+
+def sample_geometry(u_l, v_l, w_l, nu, nv, cellx, celly, support, beta,
+                    nplanes=1, w0=0.0, dw=1.0):
+    """Per-sample window geometry in float64 host numpy.
+
+    ``u_l``, ``v_l``, ``w_l`` are the (N,) sample coordinates in
+    wavelengths. Per sample, as ``gridding/wgridder/core.py:_tile_plan``:
+    u_pix = mod(u_λ·nu·cellx, nu), iu0 = floor(u_pix) − (W/2 − 1),
+    uf = u_pix − iu0 (the same for v); on a w-stack (``nplanes`` > 1)
+    w_pix = (w_λ − w0)/dw, p0 = floor(w_pix) − (W/2 − 1) and
+    wsc[t] = es((w_pix − p0 − t)/(W/2)), else p0 = 0 and one unit tap.
+
+    Returns a dict of iu0, iv0, p0 (int64), uf, vf (float64) and wsc
+    (wsup, N) float64.
+    """
+    u_l, v_l, w_l = (np.asarray(x, np.float64) for x in (u_l, v_l, w_l))
+    u_pix = np.mod(u_l * (nu * cellx), nu)
+    v_pix = np.mod(v_l * (nv * celly), nv)
+    iu0 = np.floor(u_pix).astype(np.int64) - (support // 2 - 1)
+    iv0 = np.floor(v_pix).astype(np.int64) - (support // 2 - 1)
+    if nplanes > 1:
+        w_pix = (w_l - w0) / dw
+        p0 = np.floor(w_pix).astype(np.int64) - (support // 2 - 1)
+        offs = np.arange(support)[:, None]
+        wsc = es_np((w_pix[None, :] - (p0[None, :] + offs)) / (support / 2.0),
+                    beta)
+    else:
+        p0 = np.zeros(u_l.shape, np.int64)
+        wsc = np.ones((1,) + u_l.shape)
+    return dict(iu0=iu0, iv0=iv0, uf=u_pix - iu0, vf=v_pix - iv0, p0=p0,
+                wsc=wsc)
+
+
+def _tile_edge(n, nplanes, support, cell_bytes):
+    """The grid kernel's tile edge along an axis of ``n`` cells."""
+    pad = int(np.sqrt(_TILE_BYTES / (nplanes * cell_bytes)))
+    return min(n, max(_TILE_MIN, min(_TILE_MAX, pad - support + 1)))
+
+
+def _plane_block(nplanes, ru, rv, support, real_bytes):
+    """Planes of an (ru, rv) padded tile that one grid-kernel block
+    holds: the fewest blocks of planes that fit ``_SMEM_BYTES`` beside
+    ``_CHUNK`` staged samples (ES taps, w-taps times V, offsets), balanced
+    (one block of all planes at config 4)."""
+    stage = _CHUNK * (4 * support * real_bytes + 8)
+    fit = (_SMEM_BYTES - stage) // (ru * rv * 2 * real_bytes)
+    nblk = -(-nplanes // fit)
+    return -(-nplanes // nblk)
+
+
+def _fold_table(n, tile, support):
+    """(n, k) int32 table of the padded-tile cells that cover each grid
+    index along one axis: entries tile_index·(tile+W−1) + local index, in
+    tile order, −1 past the end. Tile t covers local indices below its
+    height + W − 1 (its own cells and the halo its windows spill into),
+    which land at (t·tile + local) mod n."""
+    pad = tile + support - 1
+    ntile = -(-n // tile)
+    t = np.repeat(np.arange(ntile), pad)
+    local = np.tile(np.arange(pad), ntile)
+    height = np.minimum(tile, n - np.arange(ntile) * tile)
+    keep = local < height[t] + support - 1
+    t, local = t[keep], local[keep]
+    target = (t * tile + local) % n
+    order = np.argsort(target, kind="stable")
+    target, entry = target[order], (t * pad + local)[order]
+    counts = np.bincount(target, minlength=n)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    table = np.full((n, int(counts.max())), -1, np.int32)
+    table[target, np.arange(target.size) - start[target]] = entry
+    return table
+
+
+class WGridPlan(nn.Module):
+    """The per-sample geometry of one gridding problem, made once on the
+    host and held on the device.
+
+    Parameters
+    ----------
+    iu0, iv0, p0 : (N,) integer window starts (uv cells, w-plane)
+    uf, vf : (N,) float offsets of the sample from its window start
+    wsc : (wsup, N) float w-taps, wsup = ``support`` on a w-stack, else 1
+    nu, nv, nplanes : the grid, (nplanes, nu, nv)
+    support, beta : the ES kernel (support in :data:`SUPPORTS`)
+    dtype : torch.float32, or torch.float64 (the double-accumulating
+        kernels; the whole w-gridder then runs in float64)
+    device : where the buffers are made
+
+    Raises ValueError on a w-window outside the stack (the kernels index
+    planes p0 … p0+wsup−1 directly; clipping would double-deposit).
+
+    Buffers (moved by ``.to()``): ``iu0``, ``iv0``, ``p0`` int32, ``uf``,
+    ``vf``, ``wsc`` in ``dtype``, ``order`` (samples sorted stably by the
+    uv tile of their window start), ``tile_start`` (ntiles + 1 offsets
+    into it), the fold tables ``src_u``, ``src_v``. The grid kernel's
+    layout: ``tile_u`` × ``tile_v`` uv tiles (``ntu`` × ``ntv`` of them)
+    and ``plane_block`` planes of a tile per block.
+    """
+
+    def __init__(self, iu0, iv0, uf, vf, p0, wsc, nu, nv, nplanes, support,
+                 beta, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        if support not in SUPPORTS:
+            raise ValueError(f"support must be one of {SUPPORTS}, got {support}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        iu0, iv0, p0 = (np.asarray(x, np.int64).reshape(-1) for x in (iu0, iv0, p0))
+        uf, vf = (np.asarray(x, np.float64).reshape(-1) for x in (uf, vf))
+        wsc = np.asarray(wsc, np.float64)
+        n = iu0.size
+        wsup = wsc.shape[0] if wsc.ndim == 2 else 0
+        if wsup not in (1, support) or wsc.shape[1:] != (n,) or not (
+                iv0.size == p0.size == uf.size == vf.size == n):
+            raise ValueError(
+                f"WGridPlan: iu0, iv0, p0, uf, vf must be (N,) and wsc "
+                f"(1 or {support}, N); got N = {n}, wsc {wsc.shape}")
+        if n >= 2**31 or max(nu, nv) >= 2**30:
+            raise ValueError(f"{n} samples on a {nu} x {nv} grid: the kernels "
+                             "index samples and grid lines with int32")
+        if n and (p0.min() < 0 or p0.max() + wsup > nplanes):
+            raise ValueError(
+                f"w-plane window out of stack: p0 in [{p0.min()}, "
+                f"{p0.max()}], {wsup} taps, nplanes {nplanes}")
+
+        self.nsamples, self.nu, self.nv = n, int(nu), int(nv)
+        self.nplanes, self.support, self.wsup = int(nplanes), int(support), wsup
+        self.beta, self.dtype = float(beta), dtype
+        self.complex_dtype = (torch.complex64 if dtype == torch.float32
+                              else torch.complex128)
+        real_bytes = 4 if dtype == torch.float32 else 8
+        self.tile_u = _tile_edge(self.nu, self.nplanes, support, 2 * real_bytes)
+        self.tile_v = _tile_edge(self.nv, self.nplanes, support, 2 * real_bytes)
+        self.ntu, self.ntv = -(-self.nu // self.tile_u), -(-self.nv // self.tile_v)
+        self.ntiles = self.ntu * self.ntv
+        self.plane_block = _plane_block(self.nplanes, self.tile_u + support - 1,
+                                        self.tile_v + support - 1, support,
+                                        real_bytes)
+
+        tile = ((np.mod(iu0, nu) // self.tile_u) * self.ntv
+                + np.mod(iv0, nv) // self.tile_v)
+        tile_start = np.zeros(self.ntiles + 1, np.int64)
+        np.cumsum(np.bincount(tile, minlength=self.ntiles), out=tile_start[1:])
+        src_u = _fold_table(self.nu, self.tile_u, support)
+        src_v = _fold_table(self.nv, self.tile_v, support)
+
+        def buf(name, x, dt):
+            self.register_buffer(
+                name, torch.as_tensor(np.ascontiguousarray(x)).to(device=device, dtype=dt),
+                persistent=False)
+
+        for name, x in (("iu0", iu0), ("iv0", iv0), ("p0", p0),
+                        ("order", np.argsort(tile, kind="stable")),
+                        ("tile_start", tile_start), ("src_u", src_u),
+                        ("src_v", src_v)):
+            buf(name, x, torch.int32)
+        for name, x in (("uf", uf), ("vf", vf), ("wsc", wsc)):
+            buf(name, x, dtype)
+
+    @property
+    def device(self):
+        return self.iu0.device
+
+
+def _check(name, plan, x, shape):
+    if not isinstance(plan, WGridPlan):
+        raise ValueError(f"{name} takes a WGridPlan")
+    if x.dtype != plan.complex_dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: expected {plan.complex_dtype} {shape} as "
+                         f"planned, got {x.dtype} {tuple(x.shape)}")
+    if x.device != plan.device:
+        raise ValueError(f"{name}: the plan and the values must be on one device")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the values must be contiguous")
+
+
+def _launch(fn, name, plan, *args):
+    """Call a ``wgrid.cu`` entry point on the plan's device and stream."""
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*args, int(plan.dtype == torch.float64), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+# ------------------------------------------------------------ grid
+
+def _spread(plan, vis):
+    """The grid kernel: padded tiles (ntiles, nplanes, tile_u+W−1,
+    tile_v+W−1), each sample's window in the tile of its start."""
+    w = plan.support
+    tiles = torch.empty((plan.ntiles, plan.nplanes, plan.tile_u + w - 1,
+                         plan.tile_v + w - 1), dtype=plan.complex_dtype,
+                        device=vis.device)
+    spread, _, _ = _library()
+    _allow_tile_budget(vis.device)
+    _launch(spread, "grid_wstack", plan, plan.order.data_ptr(),
+            plan.tile_start.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
+            plan.p0.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
+            plan.wsc.data_ptr(), vis.data_ptr(), tiles.data_ptr(),
+            plan.nsamples, plan.nu, plan.nv, plan.nplanes, w, plan.wsup,
+            plan.tile_u, plan.tile_v, plan.ntiles, plan.ntv, plan.plane_block,
+            _CHUNK, plan.beta)
+    return tiles
+
+
+def _fold(plan, tiles):
+    """The fold kernel: each grid cell sums the padded-tile cells that
+    cover it, in the fixed order of the plan's fold tables."""
+    grid = torch.empty((plan.nplanes, plan.nu, plan.nv),
+                       dtype=plan.complex_dtype, device=tiles.device)
+    _, fold, _ = _library()
+    _launch(fold, "grid_wstack", plan, tiles.data_ptr(), plan.src_u.data_ptr(),
+            plan.src_v.data_ptr(), grid.data_ptr(), plan.nplanes, plan.nu,
+            plan.nv, plan.src_u.shape[1], plan.src_v.shape[1], plan.ntv,
+            tiles.shape[2], tiles.shape[3])
+    return grid
+
+
+def grid_wstack(plan, vis):
+    """Grid (N,) visibilities onto the (nplanes, nu, nv) w-stack.
+
+    ``vis`` is complex in the plan's dtype (complex64 or complex128),
+    already weighted, on the plan's device. CUDA tensors launch
+    ``csrc/wgrid.cu`` (the grid kernel, then the halo fold: deterministic,
+    no atomics); CPU tensors take :func:`grid_wstack_reference`.
+    """
+    _check("grid_wstack", plan, vis, (plan.nsamples,))
+    if vis.device.type == "cpu":
+        return grid_wstack_reference(plan, vis)
+    grid = _fold(plan, _spread(plan, vis))
+    grid_wstack.launches += 1
+    return grid
+
+
+grid_wstack.launches = 0
+
+
+def _chunk_taps(plan, lo, hi):
+    """Flat grid indices and tap weights ((wsup·W·W), n) of samples
+    lo … hi−1, as the JAX package's scatter path forms them
+    (``core.py:543-572``): weight = wsc·ku·kv."""
+    w, wsup = plan.support, plan.wsup
+    dev = plan.device
+    offs = torch.arange(w, device=dev)
+    half = w / 2.0
+    ku = es_torch((plan.uf[lo:hi, None] - offs) / half, plan.beta)  # (n, W)
+    kv = es_torch((plan.vf[lo:hi, None] - offs) / half, plan.beta)
+    rows = torch.remainder(plan.iu0[lo:hi, None].long() + offs, plan.nu)
+    cols = torch.remainder(plan.iv0[lo:hi, None].long() + offs, plan.nv)
+    planes = plan.p0[lo:hi, None].long() + torch.arange(wsup, device=dev)
+    idx = ((planes.T[:, None, None, :] * plan.nu + rows.T[None, :, None, :])
+           * plan.nv + cols.T[None, None, :, :]).reshape(wsup * w * w, -1)
+    wj = (plan.wsc[:, lo:hi][:, None, None, :] * ku.T[None, :, None, :]
+          * kv.T[None, None, :, :]).reshape(wsup * w * w, -1)
+    return idx, wj
+
+
+def _chunks(plan):
+    step = max(1, _REF_TAPS // (plan.wsup * plan.support ** 2))
+    return ((lo, min(lo + step, plan.nsamples))
+            for lo in range(0, plan.nsamples, step))
+
+
+def grid_wstack_reference(plan, vis):
+    """The plain PyTorch version of :func:`grid_wstack` (same operands): a
+    flat ``index_add_`` of every tap, over sample chunks."""
+    _check("grid_wstack", plan, vis, (plan.nsamples,))
+    size = plan.nplanes * plan.nu * plan.nv
+    re = torch.zeros(size, dtype=plan.dtype, device=vis.device)
+    im = torch.zeros_like(re)
+    for lo, hi in _chunks(plan):
+        idx, wj = _chunk_taps(plan, lo, hi)
+        v = vis[lo:hi]
+        re.index_add_(0, idx.reshape(-1), (v.real[None, :] * wj).reshape(-1))
+        im.index_add_(0, idx.reshape(-1), (v.imag[None, :] * wj).reshape(-1))
+    return torch.complex(re, im).reshape(plan.nplanes, plan.nu, plan.nv)
+
+
+# ------------------------------------------------------------ degrid
+
+def degrid_wstack(plan, grid):
+    """Degrid the (nplanes, nu, nv) w-stack at the plan's N samples.
+
+    ``grid`` is complex in the plan's dtype, on the plan's device. CUDA
+    tensors launch ``csrc/wgrid.cu`` (one thread per sample, a fixed sum
+    order: deterministic); CPU tensors take
+    :func:`degrid_wstack_reference`. Returns (N,) complex visibilities.
+    """
+    _check("degrid_wstack", plan, grid, (plan.nplanes, plan.nu, plan.nv))
+    if grid.device.type == "cpu":
+        return degrid_wstack_reference(plan, grid)
+    out = torch.empty(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
+    if plan.nsamples == 0:
+        return out
+    _, _, degrid = _library()
+    _launch(degrid, "degrid_wstack", plan, plan.order.data_ptr(),
+            plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.p0.data_ptr(),
+            plan.uf.data_ptr(), plan.vf.data_ptr(), plan.wsc.data_ptr(),
+            grid.data_ptr(), out.data_ptr(), plan.nsamples, plan.nu, plan.nv,
+            plan.support, plan.wsup, plan.beta)
+    degrid_wstack.launches += 1
+    return out
+
+
+degrid_wstack.launches = 0
+
+
+def degrid_wstack_reference(plan, grid):
+    """The plain PyTorch version of :func:`degrid_wstack` (same operands):
+    a gather of every tap and a sum, over sample chunks
+    (``core.py:710-739``)."""
+    _check("degrid_wstack", plan, grid, (plan.nplanes, plan.nu, plan.nv))
+    flat = grid.reshape(-1)
+    out = torch.empty(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
+    for lo, hi in _chunks(plan):
+        idx, wj = _chunk_taps(plan, lo, hi)
+        out[lo:hi] = (flat[idx] * wj).sum(dim=0)
+    return out

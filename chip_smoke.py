@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths — the flagship RIME predict at a MeerKAT-64
-full-band size, and one config-5 selfcal step at SKA-mid width — and
-checks them, in nine phases that each print one line:
+Drives the port's three paths — the flagship RIME predict at a MeerKAT-64
+full-band size, one config-5 selfcal step at SKA-mid width, and config-4
+w-stacked imaging — and checks them, in twelve phases that each print
+one line:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles csrc/predict_kb.cu and csrc/dft.cu with nvcc into
-   build/ (first use), both at once;
+2. build: compiles csrc/predict_kb.cu, csrc/dft.cu and csrc/wgrid.cu
+   with nvcc into build/ (first use), all at once;
 3. predict kernel vs plain: predict_kb against its plain PyTorch version
    on the card (four modes × corr 1/2/4 at a ragged shape), and against
    a float64 oracle at 1e4 rad phases;
@@ -37,7 +38,22 @@ checks them, in nine phases that each print one line:
    and replayed, so that no host work is timed), of vis_to_im and
    im_to_vis as the step calls them, of the solve, of CLEAN and of the
    whole step (and the step's host-clock median: it is host-bound), one
-   run of each plain version, and the step's rate in Mvis-iter/s.
+   run of each plain version, and the step's rate in Mvis-iter/s;
+10. wgrid kernels vs plain: grid_wstack and degrid_wstack against their
+   plain versions on the card (supports 4/6/8/10 × 1 plane and a stack ×
+   float32 and float64 × square, odd and tiny grids, ragged sample
+   counts, windows that wrap), and two launches bitwise equal;
+11. config-4 imaging (bench.py:879-1013): WStackImaging at 100,000 rows ×
+   8 channels, a 512² image over 1°, ε = 1e-4, w-stacking on — the plan
+   cold and cached, the launches through dirty and degrid, kernel vs
+   plain on the whole dirty image and the degridded visibilities,
+   adjointness, and the bench's explicit-DFT check;
+12. imaging times: CUDA-graph replays of the grid, fold and degrid
+   kernels, CUDA-event medians of dirty and degrid (Mvis/s), the FFTs'
+   share, one run of each plain version, peak device memory, a
+   torch.profiler breakdown, and dirty and degrid again at a larger cell
+   (1,000,000 rows × 8 channels, a 1024² image, w extent widened to
+   ≥ 16 planes), its kernels held against their plain versions first.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -64,8 +80,31 @@ JAX_CONFIG2_ERR = 2.30e-6  # the JAX package's f32 accuracy at config 2 (BENCH_r
 SELFCAL = dict(nant=197, ntime=2, nchan=16, nsrc=20, ncorr=2)
 SELFCAL_SEED, SELFCAL_NPX, SELFCAL_GN_ITERS = 5, 64, 10
 DFT_BOUND = 3e-6  # tests/test_dft.py:322,363, relative to max|out|
-BURST = 10  # launches of a DFT kernel per timed CUDA-graph replay
-PHASES = 9
+BURST = 10  # launches of a kernel per timed CUDA-graph replay
+
+# config 4 (bench.py:879-1013) and the larger cell of ROADMAP item 14:
+# 1M rows x 8 chan, 1024², the w extent widened from umax/20 to umax/2
+# so that the stack holds >= 16 planes
+IMAGING = dict(nrow=100_000, nchan=8, nx=512, seed=4)
+IMAGING_LARGE = dict(nrow=1_000_000, nchan=8, nx=1024, seed=4, w_div=2)
+IMAGING_EPS = 1e-4
+# wgrid kernels vs plain, relative to max|out|: f32 sums in another order
+# than index_add_'s
+WGRID_BOUND = 1e-5
+PHASES = 12
+
+# the least time of a kernel (bound_ms): the larger of its compulsory bytes
+# over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
+# (132 SMs x 128 lanes x 1.98 GHz = 3.35e13/s, i.e. 67 TFLOP/s as FMAs);
+# the instruction counts per work item are the kernels' own estimates
+# (the csrc/*.cu headers, PERF.md)
+HBM_RATE, FP32_RATE = 3.35e12, 3.35e13
+PREDICT_INSTR = 65   # per (source, row, channel) term
+DFT_ADJ_INSTR = 330  # per (pixel, row, channel group of 8)
+DFT_FWD_INSTR = 220  # per (source, row, channel group of 2)
+ES_INSTR = 20        # per ES tap evaluation (sqrt, exp); 2W per sample
+GRID_TAP_INSTR = 3   # per grid tap (ku*kv, 2 FMAs)
+DEGRID_TAP_INSTR = 2  # per degrid tap (2 FMAs)
 
 
 def check(ok, what):
@@ -140,6 +179,26 @@ def cuda_once_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def nbytes(*xs):
+    """Bytes of the tensors in ``xs`` (nested tuples and None allowed)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif x is not None:
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound(moved, instructions):
+    """bound_ms and bound_by of a kernel that must move ``moved`` bytes
+    and issue ``instructions`` FP32 instructions."""
+    t_bytes = moved / HBM_RATE * 1e3
+    t_ops = instructions / FP32_RATE * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def kernel_problem(rng, S, R, F, C, compensated, env, device):
     """Random predict_kb operands on ``device``, made with numpy (also used
     by tests/test_torch_cuda.py)."""
@@ -191,6 +250,40 @@ def dft_problem(rng, S, P, R, F, C, grid, device):
             t(rng.uniform(-0.01, 0.01, (P, 2)).astype(f32)),
             t(rng.uniform(-4000, 4000, (R, 3)).astype(f32)),
             t(freq), t(cplx((S, F, C))), t(cplx((R, F, C))))
+
+
+def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device):
+    """A random WGridPlan of ``n`` samples on ``device`` (the first few
+    with windows that wrap past the grid edges) and operands for it, made
+    with numpy (also used by tests/test_torch_cuda.py): (plan, vis (n,),
+    grid (nplanes, nu, nv)), complex in the plan's dtype. A stack
+    (``nplanes`` > 1) needs nplanes ≥ support + 2."""
+    import torch
+    from africanus_tpu_torch.ops.cuda_wgrid import WGridPlan
+    from africanus_tpu_torch.ops.es import es_np
+
+    w = support
+    upos, vpos = rng.uniform(0, nu, n), rng.uniform(0, nv, n)
+    upos[:3] = [0.01, nu - 0.3, nu - 0.9][:n]
+    vpos[1:4] = [nv - 0.2, 0.4, nv - 1.1][:max(n - 1, 0)]
+    iu0 = np.floor(upos).astype(np.int64) - (w // 2 - 1)
+    iv0 = np.floor(vpos).astype(np.int64) - (w // 2 - 1)
+    if nplanes > 1:
+        wpos = rng.uniform(w / 2, nplanes - w / 2 - 1, n)
+        p0 = np.floor(wpos).astype(np.int64) - (w // 2 - 1)
+        wsc = es_np((wpos[None, :] - (p0[None, :] + np.arange(w)[:, None]))
+                    / (w / 2), 2.3 * w)
+    else:
+        p0, wsc = np.zeros(n, np.int64), np.ones((1, n))
+    plan = WGridPlan(iu0, iv0, upos - iu0, vpos - iv0, p0, wsc, nu, nv,
+                     nplanes, w, 2.3 * w, dtype=dtype, device=device)
+    cplx = plan.complex_dtype
+
+    def t(shape):
+        x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(x).to(device=device, dtype=cplx)
+
+    return plan, t(n), t((nplanes, nu, nv))
 
 
 def phase_kernel_checks(device):
@@ -415,6 +508,8 @@ def flagship(device, card):
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        **bound(nbytes(ops, got), NSRC * nrow * NCHAN * PREDICT_INSTR),
+        "library_ms": None,
     }
 
 
@@ -551,18 +646,311 @@ def selfcal(device, card):
           f"the kernels line shows the per-launch times; kernel vs plain max "
           f"abs err adjoint {adj_abs:.3e} (max {adj_scale:.3e}), forward "
           f"{fwd_abs:.3e} (max {fwd_scale:.3e})", flush=True)
+    fwd_plan = (fwd.l, fwd.m, fwd.n1h, fwd.n1l, fwd.fsm_dev, fwd.usm_dev)
+    adj_plan = (adj.l, adj.m, adj.n1h, adj.n1l, adj.fsm_dev, adj.usm_dev)
+    nsrc = step.lm.shape[0]
     return [
         {"name": "dft_forward", "route": "cuda",
          "source": "africanus_tpu_torch/csrc/dft.cu",
          "replaces": "africanus_tpu/ops/pallas_dft.py:661",
          "launches": launches["dft_forward"], "max_abs_err": fwd_abs,
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms},
+         "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+         **bound(nbytes(fwd_plan, step.uvw, step.image, got),
+                 nsrc * nrow * fwd.ngroups * DFT_FWD_INSTR),
+         "library_ms": None},
         {"name": "dft_adjoint", "route": "cuda",
          "source": "africanus_tpu_torch/csrc/dft.cu",
          "replaces": "africanus_tpu/ops/pallas_dft.py:445",
          "launches": launches["dft_adjoint"], "max_abs_err": adj_abs,
-         "ms": adj_ms, "plain_ms": adj_plain_ms},
+         "ms": adj_ms, "plain_ms": adj_plain_ms,
+         **bound(nbytes(adj_plan, step.uvw, resid) + npx * npx * nchan * 4,
+                 npx * npx * nrow * adj.ngroups * DFT_ADJ_INSTR),
+         "library_ms": None},
     ]
+
+
+def wgrid_kernel_checks(device):
+    """Phase 10: both wgrid kernels against their plain versions."""
+    import torch
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+
+    rng = np.random.default_rng(SEED + 2)
+    worst = {}
+    cases = 0
+    for support in cw.SUPPORTS:
+        for nplanes in (1, support + 6):
+            for nu, nv, n in ((64, 64, 1007), (70, 45, 333), (12, 10, 50)):
+                for dtype in (torch.float32, torch.float64):
+                    plan, vis, grid = wgrid_problem(rng, n, nu, nv, nplanes,
+                                                    support, dtype, device)
+                    before = (cw.grid_wstack.launches, cw.degrid_wstack.launches)
+                    got_g = cw.grid_wstack(plan, vis)
+                    got_d = cw.degrid_wstack(plan, grid)
+                    torch.cuda.synchronize()
+                    check((cw.grid_wstack.launches, cw.degrid_wstack.launches)
+                          == (before[0] + 1, before[1] + 1), "wgrid launches")
+                    tol = WGRID_BOUND if dtype == torch.float32 else 1e-12
+                    prec = "f32" if dtype == torch.float32 else "f64"
+                    for key, got, want in (
+                            ("grid", got_g, cw.grid_wstack_reference(plan, vis)),
+                            ("degrid", got_d, cw.degrid_wstack_reference(plan, grid))):
+                        err = float((got - want).abs().max() / want.abs().max())
+                        k = f"{key}/{prec}"
+                        worst[k] = max(worst.get(k, 0.0), err)
+                        check(err <= tol, f"{k} W={support} planes={nplanes} "
+                                          f"{nu}x{nv}: {err:.3e} > {tol}")
+                    cases += 1
+
+    # two launches give bitwise-equal outputs
+    plan, vis, grid = wgrid_problem(rng, 200_000, 1024, 1024, 9, 6,
+                                    torch.float32, device)
+    check(torch.equal(cw.grid_wstack(plan, vis), cw.grid_wstack(plan, vis)),
+          "grid_wstack is not deterministic")
+    check(torch.equal(cw.degrid_wstack(plan, grid), cw.degrid_wstack(plan, grid)),
+          "degrid_wstack is not deterministic")
+    print(f"[10/{PHASES}] wgrid kernels vs plain on the card ({cases} cases: "
+          f"W {'/'.join(map(str, cw.SUPPORTS))} x 1 plane and W+6 x f32/f64 x "
+          "64², 70x45, 12x10 grids, 1007/333/50 samples with edge-wrapping "
+          "windows; rel to max|out|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + "; deterministic (200k samples, 9 x 1024²)", flush=True)
+
+
+def _l2(got, want):
+    return float(np.sqrt(np.sum(np.abs(got - want) ** 2) / np.sum(np.abs(want) ** 2)))
+
+
+def _profile(fn, reps=3):
+    """(host ms of ``reps`` calls of ``fn`` to an idle card, device ms,
+    [(kernel name, launches, device ms)] by device time) from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    return wall, sum(r[2] for r in rows), rows
+
+
+def imaging(device, card):
+    """Phases 11-12: config-4 w-stacked imaging. Returns the grid_wstack
+    and degrid_wstack entries of the kernels line."""
+    import torch
+    from africanus_tpu_torch.gridding.wgridder import make_plan
+    from africanus_tpu_torch.gridding.wgridder.core import (
+        grid_to_image, image_to_grid,
+    )
+    from africanus_tpu_torch.gridding.wgridder.imaging import (
+        WStackImaging, dirty_oracle_f64, from_numpy, imaging_inputs,
+    )
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+
+    args = imaging_inputs(**IMAGING)
+    nx, cell = args["nx"], args["cell"]
+    # the API's cached plan, cold and then cached (bench.py:941-951)
+    plan_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        make_plan(args["uvw"], args["freq"], nx, nx, cell, cell, IMAGING_EPS,
+                  True, device=device)
+        torch.cuda.synchronize()
+        plan_s.append(time.perf_counter() - t0)
+    module, vis, image = from_numpy(args, device)
+    iplan, plan = module.plan, module.plan.wgrid
+    nrow, nchan = vis.shape
+    nvis = nrow * nchan
+    torch.cuda.synchronize()
+
+    # 11. the path once, through the kernels
+    cw.grid_wstack.launches = cw.degrid_wstack.launches = 0
+    t0 = time.perf_counter()
+    dirty = module(vis)
+    model = module.degrid(image)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"grid_wstack": cw.grid_wstack.launches,
+                "degrid_wstack": cw.degrid_wstack.launches}
+    check(launches == {"grid_wstack": 1, "degrid_wstack": 1},
+          f"imaging launches {launches}")
+    check(tuple(dirty.shape) == (nx, nx) and dirty.dtype == torch.float32,
+          f"dirty {tuple(dirty.shape)} {dirty.dtype}")
+    check(tuple(model.shape) == (nrow, nchan) and model.dtype == torch.complex64,
+          f"model {tuple(model.shape)} {model.dtype}")
+    check(bool(torch.isfinite(dirty).all())
+          and bool(torch.isfinite(torch.view_as_real(model)).all()),
+          "non-finite dirty image or model")
+
+    # kernels against their plain versions at the full shape, on the card
+    v = vis.reshape(-1)
+    grid = cw.grid_wstack(plan, v)
+    grid_p, grid_plain_ms = cuda_once_ms(lambda: cw.grid_wstack_reference(plan, v))
+    grid_abs = float((grid - grid_p).abs().max())
+    grid_scale = float(grid_p.abs().max())
+    check(grid_abs <= WGRID_BOUND * grid_scale,
+          f"grid kernel vs plain: {grid_abs:.3e} > 1e-5 x {grid_scale:.3e}")
+    dirty_p = grid_to_image(iplan, grid_p)
+    dirty_err = float((dirty - dirty_p).abs().max() / dirty_p.abs().max())
+    check(dirty_err <= WGRID_BOUND, f"dirty vs plain: {dirty_err:.3e}")
+    del grid_p, dirty_p
+    g = image_to_grid(iplan, image)
+    model_p, degrid_plain_ms = cuda_once_ms(lambda: cw.degrid_wstack_reference(plan, g))
+    degrid_abs = float((model.reshape(-1) - model_p).abs().max())
+    degrid_scale = float(model_p.abs().max())
+    check(degrid_abs <= WGRID_BOUND * degrid_scale,
+          f"degrid vs plain: {degrid_abs:.3e} > 1e-5 x {degrid_scale:.3e}")
+    del model_p
+
+    # adjointness: <x, grid(y)> = Re <degrid(x), y>
+    lhs = float((dirty.double() * image.double()).sum())
+    rhs = float((model.real.double() * vis.real.double()
+                 + model.imag.double() * vis.imag.double()).sum())
+    adjoint = abs(lhs - rhs) / abs(lhs)
+    check(adjoint <= 1e-5, f"adjointness {adjoint:.3e} > 1e-5")
+
+    # the bench's accuracy check against the explicit w-aware DFT
+    chk = args["check"]
+    small = WStackImaging(chk["uvw"].astype(np.float32),
+                          chk["freq"].astype(np.float32), chk["nx"], chk["nx"],
+                          chk["cell"], epsilon=IMAGING_EPS).to(device)
+    got = small(torch.as_tensor(chk["vis"].astype(np.complex64), device=device))
+    l2 = _l2(got.cpu().numpy().astype(np.float64),
+             dirty_oracle_f64(chk["uvw"], chk["freq"], chk["vis"], chk["nx"],
+                              chk["cell"]))
+    check(l2 <= IMAGING_EPS, f"explicit-DFT l2 {l2:.3e} > {IMAGING_EPS}")
+    print(f"[11/{PHASES}] imaging (config 4): {nrow} rows x {nchan} chan, "
+          f"{nx}² image, eps {IMAGING_EPS}, W {plan.support}, {plan.nplanes} "
+          f"w-planes ({plan.nu}² grid, {plan.ntiles} tiles); plan cold "
+          f"{plan_s[0]:.3f} s, cached {plan_s[1]:.4f} s; dirty + degrid in "
+          f"{wall:.3f} s wall (first call); launches {launches}; kernel vs "
+          f"plain: grid max abs {grid_abs:.3e} (max {grid_scale:.3e}), dirty "
+          f"{dirty_err:.2e} rel, degrid max abs {degrid_abs:.3e} (max "
+          f"{degrid_scale:.3e}); adjointness {adjoint:.2e}; explicit-DFT l2 "
+          f"{l2:.3e} (400 rows, 32², 2 chan; bound {IMAGING_EPS})", flush=True)
+
+    # 12. times
+    grid_ms = kernel_median_ms(lambda: cw.grid_wstack(plan, v))
+    tiles = cw._spread(plan, v)
+    spread_ms = kernel_median_ms(lambda: cw._spread(plan, v))
+    fold_ms = kernel_median_ms(lambda: cw._fold(plan, tiles))
+    del tiles
+    degrid_ms = kernel_median_ms(lambda: cw.degrid_wstack(plan, g))
+    dirty_ms, dirty_runs = cuda_median_ms(lambda: module(vis))
+    model_ms, model_runs = cuda_median_ms(lambda: module.degrid(image))
+    ifft_ms, _ = cuda_median_ms(lambda: torch.fft.ifft2(grid, norm="forward"))
+    fft_ms, _ = cuda_median_ms(lambda: torch.fft.fft2(grid))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    module(vis)
+    module.degrid(image)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof_wall, prof_busy, rows = _profile(lambda: (module(vis), module.degrid(image)))
+    top = "; ".join(f"{name[:48]} x{count // 3} {ms / 3:.3f} ms"
+                    for name, count, ms in rows[:8])
+    print(f"[12/{PHASES}] imaging times on {card}: dirty {dirty_ms:.3f} ms "
+          f"(runs {', '.join(f'{t:.3f}' for t in dirty_runs)}) = "
+          f"{nvis / dirty_ms / 1e3:.1f} Mvis/s, degrid {model_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.3f}' for t in model_runs)}) = "
+          f"{nvis / model_ms / 1e3:.1f} Mvis/s; kernels (CUDA graph of {BURST}): "
+          f"grid_wstack {grid_ms:.4f} ms = spread {spread_ms:.4f} + fold "
+          f"{fold_ms:.4f}, degrid_wstack {degrid_ms:.4f} ms; FFTs: ifft2 "
+          f"{ifft_ms:.4f} ms = {ifft_ms / dirty_ms:.1%} of dirty, fft2 "
+          f"{fft_ms:.4f} ms = {fft_ms / model_ms:.1%} of degrid; plain "
+          f"grid_wstack_reference {grid_plain_ms:.1f} ms, "
+          f"degrid_wstack_reference {degrid_plain_ms:.1f} ms; peak device "
+          f"memory {peak:.2f} GiB; profiler over 3 x (dirty + degrid): host "
+          f"{prof_wall / 3:.3f} ms, device busy {prof_busy / 3:.3f} ms "
+          f"(idle {1 - prof_busy / prof_wall:.1%}), per iteration: {top}",
+          flush=True)
+
+    # the map's own operands (the window starts, offsets and w-taps of
+    # the Pallas kernels), not the port's tile order and fold tables
+    geometry = (plan.iu0, plan.iv0, plan.p0, plan.uf, plan.vf, plan.wsc)
+    taps = nvis * plan.wsup * plan.support ** 2
+    es = nvis * 2 * plan.support * ES_INSTR
+    entries = [
+        {"name": "grid_wstack", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/wgrid.cu",
+         "replaces": "africanus_tpu/ops/pallas_grid.py:2243, "
+                     "africanus_tpu/ops/pallas_grid.py:1807",
+         "launches": launches["grid_wstack"], "max_abs_err": grid_abs,
+         "ms": grid_ms, "plain_ms": grid_plain_ms,
+         **bound(nbytes(geometry, v, grid),
+                 taps * GRID_TAP_INSTR + es),
+         "library_ms": None},
+        {"name": "degrid_wstack", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/wgrid.cu",
+         "replaces": "africanus_tpu/ops/pallas_grid.py:2380, "
+                     "africanus_tpu/ops/pallas_grid.py:1981",
+         "launches": launches["degrid_wstack"], "max_abs_err": degrid_abs,
+         "ms": degrid_ms, "plain_ms": degrid_plain_ms,
+         **bound(nbytes(geometry, g, model), taps * DEGRID_TAP_INSTR + es),
+         "library_ms": None},
+    ]
+    del module, vis, image, grid, g, dirty, model, plan, iplan, small
+    torch.cuda.empty_cache()
+
+    # the larger cell (ROADMAP item 14), dirty and degrid alone
+    t0 = time.perf_counter()
+    args = imaging_inputs(**IMAGING_LARGE)
+    module, vis, image = from_numpy(args, device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    iplan, plan = module.plan, module.plan.wgrid
+    check(plan.nplanes >= 16, f"large cell: {plan.nplanes} planes < 16")
+    nvis = vis.numel()
+    torch.cuda.reset_peak_memory_stats()
+    dirty = module(vis)
+    model = module.degrid(image)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(dirty).all())
+          and bool(torch.isfinite(torch.view_as_real(model)).all()),
+          "large cell: non-finite dirty image or model")
+    # kernels against their plain versions at this set-up too (17 planes,
+    # 10-cell tiles of a 2048² grid), as in phase 11
+    v = vis.reshape(-1)
+    grid = cw.grid_wstack(plan, v)
+    grid_p = cw.grid_wstack_reference(plan, v)
+    grid_l_abs = float((grid - grid_p).abs().max())
+    grid_l_scale = float(grid_p.abs().max())
+    check(grid_l_abs <= WGRID_BOUND * grid_l_scale,
+          f"large cell: grid kernel vs plain {grid_l_abs:.3e} > 1e-5 x "
+          f"{grid_l_scale:.3e}")
+    del grid, grid_p
+    g = image_to_grid(iplan, image)
+    model_p = cw.degrid_wstack_reference(plan, g)
+    degrid_l_abs = float((cw.degrid_wstack(plan, g) - model_p).abs().max())
+    degrid_l_scale = float(model_p.abs().max())
+    check(degrid_l_abs <= WGRID_BOUND * degrid_l_scale,
+          f"large cell: degrid kernel vs plain {degrid_l_abs:.3e} > 1e-5 x "
+          f"{degrid_l_scale:.3e}")
+    del model_p
+    grid_l_ms = kernel_median_ms(lambda: cw.grid_wstack(plan, v))
+    degrid_l_ms = kernel_median_ms(lambda: cw.degrid_wstack(plan, g))
+    dirty_ms, _ = cuda_median_ms(lambda: module(vis), reps=5, warmup=1)
+    model_ms, _ = cuda_median_ms(lambda: module.degrid(image), reps=5, warmup=1)
+    print(f"[12/{PHASES}] larger cell on {card}: {args['nx']}² image, "
+          f"{vis.shape[0]} rows x {vis.shape[1]} chan, w extent umax/"
+          f"{IMAGING_LARGE['w_div']}, {plan.nplanes} w-planes ({plan.nu}² grid, "
+          f"{plan.ntiles} tiles, {plan.plane_block} planes per block), set-up "
+          f"with plan {setup:.1f} s; kernel vs plain: grid max abs "
+          f"{grid_l_abs:.3e} (max {grid_l_scale:.3e}), degrid max abs "
+          f"{degrid_l_abs:.3e} (max {degrid_l_scale:.3e}); dirty "
+          f"{dirty_ms:.3f} ms = {nvis / dirty_ms / 1e3:.1f} Mvis/s, degrid "
+          f"{model_ms:.3f} ms = {nvis / model_ms / 1e3:.1f} Mvis/s; kernels "
+          f"grid_wstack {grid_l_ms:.4f} ms, degrid_wstack {degrid_l_ms:.4f} ms "
+          f"(CUDA graph of {BURST}); peak device memory {peak:.2f} GiB",
+          flush=True)
+    return entries
 
 
 def main():
@@ -575,6 +963,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from africanus_tpu_torch.ops.cuda_dft import build_dft
     from africanus_tpu_torch.ops.cuda_predict import build_predict_kb
+    from africanus_tpu_torch.ops.cuda_wgrid import build_wgrid
 
     # full-f32 references: no TF32 in any matmul or convolution
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -593,9 +982,10 @@ def main():
     print(smi, flush=True)
 
     # 2. build, one nvcc per source, started together
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [f.result() for f in [pool.submit(build_predict_kb),
-                                       pool.submit(build_dft)]]
+                                       pool.submit(build_dft),
+                                       pool.submit(build_wgrid)]]
     for lib, seconds, log in builds:
         ptxas = "; ".join(ln.split("ptxas info    : ")[-1]
                           for ln in log.splitlines() if "Used" in ln)
@@ -606,8 +996,12 @@ def main():
     phase_kernel_checks(device)
     dft_kernel_checks(device)
 
-    # 5-9. the two paths
+    # 5-9. the first two paths
     kernels = [flagship(device, card)] + selfcal(device, card)
+
+    # 10-12. the wgrid kernels against their plain versions, then imaging
+    wgrid_kernel_checks(device)
+    kernels += imaging(device, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

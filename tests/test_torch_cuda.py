@@ -1,6 +1,6 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-versions, and the flagship predict and the selfcal step on the card
-against the same modules on the CPU.
+versions, and the flagship predict, the selfcal step and w-stacked
+imaging on the card against the same modules on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX (the card's machine has none), so it also runs there on its own:
@@ -13,7 +13,10 @@ kernel and the plain version differ in cos/sin/exp rounding and in the
 order of the f32 source sum). The DFT kernels 3e-6·max|out|, the bound
 of tests/test_dft.py:322,363, for the same reasons. The selfcal step
 takes the bounds and the two cases (converged, and a model that lacks a
-source) of tests/test_torch_selfcal.py.
+source) of tests/test_torch_selfcal.py. The wgrid kernels 1e-5·max|out| in
+float32 and 1e-12 in float64 (sums in another order than the plain
+versions' index_add_ and gather-sum); w-stacked imaging on the card
+1e-5·max against the CPU.
 """
 
 import os
@@ -25,13 +28,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import dft_problem, kernel_problem  # noqa: E402
+from chip_smoke import dft_problem, kernel_problem, wgrid_problem  # noqa: E402
 
 from africanus_tpu_torch.calibration.selfcal import (  # noqa: E402
     from_numpy as selfcal_from_numpy, make_data, selfcal_inputs,
 )
+from africanus_tpu_torch.gridding.wgridder import dirty, model  # noqa: E402
+from africanus_tpu_torch.gridding.wgridder.imaging import (  # noqa: E402
+    from_numpy as imaging_from_numpy, imaging_inputs,
+)
 from africanus_tpu_torch.ops import cuda_dft as cd  # noqa: E402
 from africanus_tpu_torch.ops import cuda_predict as cp  # noqa: E402
+from africanus_tpu_torch.ops import cuda_wgrid as cw  # noqa: E402
 from africanus_tpu_torch.rime.flagship import (  # noqa: E402
     flagship_inputs, from_numpy,
 )
@@ -201,3 +209,82 @@ def test_selfcal_step_does_not_sync(device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [4, 6, 8, 10])
+@pytest.mark.parametrize("stack", [False, True], ids=["one-plane", "stack"])
+@pytest.mark.parametrize("nu,nv,n", [(64, 64, 1007), (70, 45, 333), (12, 10, 50)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_wgrid_kernels_match_plain(device, support, stack, nu, nv, n, dtype):
+    nplanes = support + 6 if stack else 1
+    rng = np.random.default_rng(support * 1000 + n)
+    plan, vis, grid = wgrid_problem(rng, n, nu, nv, nplanes, support, dtype,
+                                    device)
+    before = (cw.grid_wstack.launches, cw.degrid_wstack.launches)
+    got_g = cw.grid_wstack(plan, vis)
+    got_d = cw.degrid_wstack(plan, grid)
+    torch.cuda.synchronize()
+    assert (cw.grid_wstack.launches, cw.degrid_wstack.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got_g.shape == (nplanes, nu, nv) and got_d.shape == (n,)
+    assert got_g.dtype == got_d.dtype == plan.complex_dtype
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    _assert_close(got_g, cw.grid_wstack_reference(plan, vis), bound)
+    _assert_close(got_d, cw.degrid_wstack_reference(plan, grid), bound)
+
+
+@pytest.mark.cuda
+def test_wgrid_kernels_no_samples(device):
+    plan, vis, grid = wgrid_problem(np.random.default_rng(0), 0, 40, 40, 12,
+                                    6, torch.float32, device)
+    assert not cw.grid_wstack(plan, vis).abs().any()
+    assert cw.degrid_wstack(plan, grid).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_wgrid_kernels_are_deterministic(device):
+    plan, vis, grid = wgrid_problem(np.random.default_rng(9), 50_000, 512, 512,
+                                    9, 6, torch.float32, device)
+    assert torch.equal(cw.grid_wstack(plan, vis), cw.grid_wstack(plan, vis))
+    assert torch.equal(cw.degrid_wstack(plan, grid), cw.degrid_wstack(plan, grid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wstack", [True, False])
+def test_wstack_imaging_on_card_matches_cpu(device, wstack):
+    """WStackImaging on the card (kernels) against the same module on the
+    CPU (plain versions), same inputs."""
+    args = imaging_inputs(nrow=3000, nchan=4, nx=64, seed=4)
+    m_cpu, vis_cpu, img_cpu = imaging_from_numpy(args, "cpu", do_wstacking=wstack)
+    m_gpu, vis_gpu, img_gpu = imaging_from_numpy(args, device, do_wstacking=wstack)
+    before = (cw.grid_wstack.launches, cw.degrid_wstack.launches)
+    d = m_gpu(vis_gpu)
+    mv = m_gpu.degrid(img_gpu)
+    torch.cuda.synchronize()
+    assert (cw.grid_wstack.launches, cw.degrid_wstack.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_close(d.cpu(), m_cpu(vis_cpu), 1e-5)
+    _assert_close(mv.cpu(), m_cpu.degrid(img_cpu), 1e-5)
+
+
+@pytest.mark.cuda
+def test_wgridder_api_on_card_matches_cpu(device):
+    """dirty (float64 accumulation) and model (float32) through the API,
+    on the card against the CPU."""
+    args = imaging_inputs(nrow=2000, nchan=4, nx=48, seed=6)
+    uvw, freq, cell = args["uvw"], args["freq"], args["cell"]
+    bands = (np.array([0, 2]), np.array([2, 2]))
+    vis = torch.as_tensor(args["vis"])
+    want = dirty(uvw, freq, vis, *bands, 48, 48, cell, epsilon=1e-6,
+                 double_accum=True)
+    got = dirty(uvw, freq, vis.to(device), *bands, 48, 48, cell, epsilon=1e-6,
+                double_accum=True)
+    assert got.dtype == torch.float64 and got.device.type == "cuda"
+    _assert_close(got.cpu(), want, 1e-12)
+    image = torch.as_tensor(np.stack([args["image"][:48, :48]] * 2))
+    want = model(uvw, freq, image, *bands, cell, epsilon=1e-4)
+    got = model(uvw, freq, image.to(device), *bands, cell, epsilon=1e-4)
+    assert got.dtype == torch.complex64
+    _assert_close(got.cpu(), want, 1e-5)
