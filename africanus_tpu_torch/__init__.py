@@ -12,7 +12,8 @@ Public functions take and return torch tensors (complex64/complex128
 where the JAX package used split re/im pairs), with an explicit
 ``device`` wherever they create tensors.
 
-Layout (ported: the flagship predict, selfcal, w-stacked imaging)
+Layout (ported: the flagship predict, selfcal, w-stacked imaging, the
+beam DDE chain)
 ------
 - ``calibration``  — gain corruption/correction, the phase-only
                      Gauss-Newton solver, the selfcal step module
@@ -26,10 +27,15 @@ Layout (ported: the flagship predict, selfcal, w-stacked imaging)
                      gaussian shape
 - ``ops``          — two-float arithmetic, 2×2 Jones products, the ES
                      kernel, the fused K×env×B predict kernel
-                     (``cuda_predict``), the DFT kernels (``cuda_dft``)
-                     and the w-stack grid/degrid kernels (``cuda_wgrid``)
-- ``rime``         — phase delay, predict_vis, the flagship predict module
-- ``utils``        — CASA Stokes enumerations, dtype helpers, plan caches
+                     (``cuda_predict``), the DFT kernels (``cuda_dft``),
+                     the w-stack grid/degrid kernels (``cuda_wgrid``) and
+                     the beam-cube kernels (``cuda_beam``)
+- ``rime``         — phase delay, predict_vis, the flagship predict module,
+                     beam cube DDEs, feed rotation, source transforms,
+                     parallactic angles, the config-3 beam chain module
+- ``testing``      — FITS beam-cube factory
+- ``utils``        — CASA Stokes enumerations, dtype helpers, plan caches,
+                     FITS IO, beam headers, astrometry
 """
 
 __version__ = "0.1.0"

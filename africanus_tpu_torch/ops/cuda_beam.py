@@ -1,0 +1,386 @@
+"""Beam-cube interpolation kernels (the E Jones of a direction-dependent
+predict).
+
+Port of ``africanus_tpu/ops/pallas_beam.py``. Its three Pallas TPU
+kernels become three hand-written CUDA kernels for Hopper in
+``csrc/beam.cu`` (its header says what bounds them and how they are laid
+out):
+
+``beam_interp`` (Q2-13, ``beam_interp_pallas``)
+    per (sample, row): blend two frequency slabs, then bilinear in l and
+    m; the 3C raw sums (re, im, |v|) or the C amplitude-normalised
+    complex values.
+``beam_blend`` (Q2-14, ``beam_blend_fr_pallas``)
+    per (sample, channel): the two-hot frequency blend of per-slab raw
+    sums, the normalisation, optionally E·F with a 2×2 feed rotation.
+``beam_blend_cell`` (Q2-15, ``beam_blend_cell_fr_pallas``)
+    the same on the four bilinear cell coefficients of each slab, each
+    channel rebuilt from its in-cell offsets first.
+
+The cube is held as slabs, :func:`beam_slabs`: (nud, lw, mh, 3C) real
+values, each (l, m) cell of a slab laid out [re·C | im·C | |v|·C] (the
+counterpart of ``prepare_beam_slabs``, without the TPU's 8 × 128
+padding). Outputs are written in the layout the caller wants, sample
+major: (nsamp, rows, 3C) raw sums, or (nsamp, rows or channels, C)
+complex.
+
+Each wrapper launches its kernel on CUDA tensors (float32, or float64 for
+the double instances) and counts the launches in ``.launches``; on CPU
+tensors it takes the plain PyTorch version (``*_reference``), which the
+tests hold against the Pallas kernels in interpret mode and
+``chip_smoke.py`` holds the kernels against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from africanus_tpu_torch.ops import _build
+from africanus_tpu_torch.ops.jones import mul2x2
+
+__all__ = ["beam_slabs", "beam_interp", "beam_blend", "beam_blend_cell",
+           "apply_feed", "beam_interp_reference", "beam_blend_reference",
+           "beam_blend_cell_reference", "build_beam", "CORRS"]
+
+_SOURCES = ("beam.cu",)
+
+# correlation counts csrc/beam.cu is instantiated for (feed rotation: 4)
+CORRS = (1, 2, 4)
+# a blend block's shared memory, at most (beam.cu's BLEND_SMEM): one
+# sample's nud x 3C raw sums, four times over for the cell route
+_BLEND_SMEM = 48 * 1024
+
+
+def build_beam():
+    """Compile ``csrc/beam.cu`` if needed: (library path, seconds spent
+    compiling, compiler log)."""
+    return _build.build("beam", _SOURCES)
+
+
+def _library():
+    lib = _build.load("beam", _SOURCES)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    interp, blend, cell = (lib.beam_interp_launch, lib.beam_blend_launch,
+                           lib.beam_blend_cell_launch)
+    if interp.argtypes is None:
+        # c_void_p for every pointer and the stream: ctypes would pass a
+        # bare Python int as a 32-bit int and cut the address
+        interp.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+        blend.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        cell.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        for fn in (interp, blend, cell):
+            fn.restype = ctypes.c_int
+    return interp, blend, cell
+
+
+def _complex(dtype):
+    return torch.complex64 if dtype == torch.float32 else torch.complex128
+
+
+def _check(name, dtype, device, **tensors):
+    """Every tensor contiguous on ``device``; real ones in ``dtype``,
+    index tables int32, feed rotations complex of ``dtype``."""
+    for key, x in tensors.items():
+        if x is None:
+            continue
+        want = (torch.int32 if key.startswith("gc") else
+                _complex(dtype) if key == "feed" else dtype)
+        if x.dtype != want:
+            raise ValueError(f"{name}: {key} must be {want}, got {x.dtype}")
+        if x.device != device:
+            raise ValueError(f"{name}: {key} is on {x.device}, the rest on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _launch(fn, name, device, *args):
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _aligned(name, **tensors):
+    # the kernels move 16 bytes at a time where the layout allows
+    for key, x in tensors.items():
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+# ------------------------------------------------------------ slabs
+
+def beam_slabs(beam):
+    """The cube as kernel slabs.
+
+    ``beam`` is a complex (lw, mh, nud, corr…) tensor (C = prod(corr) in
+    :data:`CORRS`). Returns (nud, lw, mh, 3C) real values of its dtype,
+    each cell [re·C | im·C | |v|·C] with |v| = sqrt(re² + im²).
+    """
+    if not beam.is_complex() or beam.ndim < 3:
+        raise ValueError("beam_slabs: beam must be a complex (lw, mh, nud, corr…) tensor")
+    lw, mh, nud = beam.shape[:3]
+    ncorr = beam[0, 0, 0].numel()
+    if ncorr not in CORRS:
+        raise ValueError(f"beam_slabs: {ncorr} correlations, not one of {CORRS}")
+    b = beam.reshape(lw, mh, nud, ncorr).permute(2, 0, 1, 3)
+    re, im = b.real, b.imag
+    return torch.cat([re, im, torch.sqrt(re * re + im * im)], dim=-1).contiguous()
+
+
+def _normalise(sums, ncorr):
+    """The reference's amplitude-preserving normalisation: phase from the
+    complex interpolant, amplitude from the interpolated |v|
+    (fast_beam_cubes.py:224-233). (…, 3C) → (…, C) complex."""
+    re, im = sums[..., :ncorr], sums[..., ncorr:2 * ncorr]
+    amp = sums[..., 2 * ncorr:]
+    div = torch.sqrt(re * re + im * im)
+    norm = torch.where(div == 0, amp, amp / torch.where(div == 0, 1.0, div))
+    return torch.complex(re * norm, im * norm)
+
+
+def apply_feed(e, feed):
+    """E·F as torch ops: e (nsamp, nchan, 4) complex, feed (ntime, nant,
+    2, 2), sample s taking feed row s mod (ntime·nant) — samples ordered
+    (…, time, ant), antenna fastest."""
+    nsamp, nchan = e.shape[:2]
+    f = feed.reshape(-1, 2, 2)
+    f = f.repeat(nsamp // f.shape[0], 1, 1)[:, None]
+    return mul2x2(e.reshape(nsamp, nchan, 2, 2), f).reshape(nsamp, nchan, 4)
+
+
+# ------------------------------------------------------------ beam_interp
+
+def _interp_args(name, slabs, vl, vm, gc0, gc1, wlo):
+    if slabs.ndim != 4 or slabs.shape[-1] % 3 or slabs.shape[-1] // 3 not in CORRS:
+        raise ValueError(f"{name}: slabs must be (nud, lw, mh, 3C), C in {CORRS}")
+    if slabs.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: slabs must be float32 or float64, got {slabs.dtype}")
+    _check(name, slabs.dtype, slabs.device, slabs=slabs, vl=vl, vm=vm, gc0=gc0,
+           gc1=gc1, wlo=wlo)
+    if vl.ndim != 2 or vm.shape != vl.shape:
+        raise ValueError(f"{name}: vl and vm must be (nsamp, ncol), got "
+                         f"{tuple(vl.shape)} and {tuple(vm.shape)}")
+    nrows = gc0.shape[0]
+    if gc0.shape != (nrows,) or gc1.shape != (nrows,) or wlo.shape != (nrows,):
+        raise ValueError(f"{name}: gc0, gc1 and wlo must be (nrows,)")
+    if vl.shape[1] == 0 or nrows % vl.shape[1]:
+        raise ValueError(f"{name}: {nrows} rows over {vl.shape[1]} coordinate "
+                         "columns: rows must be a positive multiple of columns")
+    return vl.shape[0], nrows, slabs.shape[-1] // 3
+
+
+def beam_interp(slabs, vl, vm, gc0, gc1, wlo, normalize=True):
+    """Interpolate the slabs at (sample, row) coordinates.
+
+    Parameters
+    ----------
+    slabs : (nud, lw, mh, 3C) from :func:`beam_slabs`, float32 or float64.
+    vl, vm : (nsamp, ncol) cube coordinates, already clamped to [0, lw−1]
+        and [0, mh−1]. Row k reads column k // (nrows // ncol).
+    gc0, gc1 : (nrows,) int32 lower and upper slab of each row.
+    wlo : (nrows,) weight of slab gc0 (slab gc1 takes 1 − wlo).
+    normalize : apply the amplitude-preserving normalisation.
+
+    Returns
+    -------
+    (nsamp, nrows, C) complex values, or with ``normalize=False`` the
+    (nsamp, nrows, 3C) raw sums [re·C | im·C | |v|·C].
+    """
+    nsamp, nrows, ncorr = _interp_args("beam_interp", slabs, vl, vm, gc0, gc1, wlo)
+    if slabs.device.type == "cpu":
+        return beam_interp_reference(slabs, vl, vm, gc0, gc1, wlo, normalize)
+    _aligned("beam_interp", slabs=slabs)
+    nud, lw, mh = slabs.shape[:3]
+    if normalize:
+        out = torch.empty((nsamp, nrows, ncorr), dtype=_complex(slabs.dtype),
+                          device=slabs.device)
+    else:
+        out = torch.empty((nsamp, nrows, 3 * ncorr), dtype=slabs.dtype,
+                          device=slabs.device)
+    if out.numel() == 0:
+        return out
+    interp, _, _ = _library()
+    _launch(interp, "beam_interp", slabs.device, slabs.data_ptr(), vl.data_ptr(),
+            vm.data_ptr(), gc0.data_ptr(), gc1.data_ptr(), wlo.data_ptr(),
+            out.data_ptr(), nsamp, nrows, vl.shape[1], nud, lw, mh, ncorr,
+            int(normalize), int(slabs.dtype == torch.float64))
+    beam_interp.launches += 1
+    return out
+
+
+beam_interp.launches = 0
+
+
+def beam_interp_reference(slabs, vl, vm, gc0, gc1, wlo, normalize=True):
+    """The plain PyTorch version of :func:`beam_interp` (same operands,
+    same order of operations): gathers of the 8 corners."""
+    nsamp, nrows, ncorr = _interp_args("beam_interp", slabs, vl, vm, gc0, gc1, wlo)
+    nud, lw, mh, k3 = slabs.shape
+    per = nrows // vl.shape[1]
+    l = vl.repeat_interleave(per, dim=1)  # noqa: E741  (nsamp, nrows)
+    m = vm.repeat_interleave(per, dim=1)
+    lf, mf = torch.floor(l), torch.floor(m)
+    ld, md = (l - lf)[..., None], (m - mf)[..., None]
+    l0 = lf.long().clamp(0, lw - 1)
+    m0 = mf.long().clamp(0, mh - 1)
+    l1, m1 = (l0 + 1).clamp(max=lw - 1), (m0 + 1).clamp(max=mh - 1)
+    g0 = gc0.long().clamp(0, nud - 1) * (lw * mh)
+    g1 = gc1.long().clamp(0, nud - 1) * (lw * mh)
+    w0 = wlo[:, None]
+    w1 = 1 - w0
+    flat = slabs.reshape(-1, k3)
+
+    def blend(li, mi):
+        cell = li * mh + mi
+        return w0 * flat[g0 + cell] + w1 * flat[g1 + cell]
+
+    t0 = (1 - ld) * blend(l0, m0) + ld * blend(l1, m0)
+    t1 = (1 - ld) * blend(l0, m1) + ld * blend(l1, m1)
+    sums = (1 - md) * t0 + md * t1
+    return _normalise(sums, ncorr) if normalize else sums
+
+
+# ------------------------------------------------------------ beam_blend
+
+def _blend_args(name, coef, nterms, lda, mda, gc0, wlo, feed):
+    if coef.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: coefficients must be float32 or float64, "
+                         f"got {coef.dtype}")
+    _check(name, coef.dtype, coef.device, coef=coef, lda=lda, mda=mda, gc0=gc0,
+           wlo=wlo, feed=feed)
+    shape = "(nsamp, nud, 3C)" if nterms == 1 else "(nsamp, 4, nud, 3C)"
+    if (coef.ndim != (3 if nterms == 1 else 4) or coef.shape[-1] % 3
+            or coef.shape[-1] // 3 not in CORRS or (nterms == 4 and coef.shape[1] != 4)):
+        raise ValueError(f"{name}: coefficients must be {shape}, C in {CORRS}; "
+                         f"got {tuple(coef.shape)}")
+    nsamp, nud, ncorr = coef.shape[0], coef.shape[-2], coef.shape[-1] // 3
+    nchan = gc0.shape[0]
+    if nud < 2:
+        raise ValueError(f"{name}: {nud} frequency slabs; the blend needs 2")
+    if gc0.shape != (nchan,) or wlo.shape != (nchan,):
+        raise ValueError(f"{name}: gc0 and wlo must be (nchan,)")
+    if nterms * nud * 3 * ncorr * coef.element_size() > _BLEND_SMEM:
+        raise ValueError(f"{name}: {nud} slabs do not fit a block's "
+                         f"{_BLEND_SMEM} bytes of shared memory")
+    if lda is not None and (lda.shape != (nsamp, nchan) or mda.shape != (nsamp, nchan)):
+        raise ValueError(f"{name}: lda and mda must be (nsamp, nchan) = ({nsamp}, {nchan})")
+    nta = 1
+    if feed is not None:
+        if ncorr != 4 or feed.ndim != 4 or feed.shape[-2:] != (2, 2):
+            raise ValueError(f"{name}: feed rotation needs 2x2 (C = 4) beams and a "
+                             "(time, ant, 2, 2) feed")
+        nta = feed.shape[0] * feed.shape[1]
+        if nta == 0 or nsamp % nta:
+            raise ValueError(f"{name}: {nsamp} samples are not a whole number of "
+                             f"(time, ant) = {tuple(feed.shape[:2])} blocks")
+    return nsamp, nud, nchan, ncorr, nta
+
+
+def _blend_out(coef, nsamp, nchan, ncorr):
+    return torch.empty((nsamp, nchan, ncorr), dtype=_complex(coef.dtype),
+                       device=coef.device)
+
+
+def beam_blend(raw, gc0, wlo, feed=None):
+    """Frequency blend + normalisation [+ feed rotation] of per-slab raw
+    sums.
+
+    Parameters
+    ----------
+    raw : (nsamp, nud, 3C) per-slab raw sums (:func:`beam_interp` with
+        ``normalize=False``, one row per slab).
+    gc0 : (nchan,) int32 lower slab of each channel (clamped to
+        [0, nud−2]); wlo : (nchan,) its weight, slab gc0 + 1 taking
+        1 − wlo.
+    feed : None, or a (time, ant, 2, 2) complex feed rotation F (C = 4):
+        the output is then E·F, sample s taking F[(s mod (time·ant))] —
+        samples ordered (…, time, ant), antenna fastest.
+
+    Returns
+    -------
+    (nsamp, nchan, C) complex.
+    """
+    nsamp, nud, nchan, ncorr, nta = _blend_args("beam_blend", raw, 1, None, None,
+                                                gc0, wlo, feed)
+    if raw.device.type == "cpu":
+        return beam_blend_reference(raw, gc0, wlo, feed)
+    _aligned("beam_blend", feed=feed)
+    out = _blend_out(raw, nsamp, nchan, ncorr)
+    if out.numel() == 0:
+        return out
+    _, blend, _ = _library()
+    _launch(blend, "beam_blend", raw.device, raw.data_ptr(), gc0.data_ptr(),
+            wlo.data_ptr(), _ptr(feed), out.data_ptr(), nsamp, nud, nchan, ncorr,
+            nta, int(raw.dtype == torch.float64))
+    beam_blend.launches += 1
+    return out
+
+
+beam_blend.launches = 0
+
+
+def beam_blend_reference(raw, gc0, wlo, feed=None):
+    """The plain PyTorch version of :func:`beam_blend` (same operands)."""
+    nsamp, nud, nchan, ncorr, _ = _blend_args("beam_blend", raw, 1, None, None,
+                                              gc0, wlo, feed)
+    g = gc0.long().clamp(0, nud - 2)
+    w0 = wlo[:, None]
+    e = _normalise(w0 * raw[:, g] + (1 - w0) * raw[:, g + 1], ncorr)
+    return e if feed is None else apply_feed(e, feed)
+
+
+def beam_blend_cell(bterms, lda, mda, gc0, wlo, feed=None):
+    """Frequency blend + per-channel cell reconstruction + normalisation
+    [+ feed rotation].
+
+    Parameters
+    ----------
+    bterms : (nsamp, 4, nud, 3C) bilinear cell coefficients of each slab,
+        term-major: [c00 | c10−c00 | c01−c00 | c11−c10−c01+c00].
+    lda, mda : (nsamp, nchan) each channel's offsets inside the sample's
+        cube cell (the value is exact while 0 ≤ lda, mda ≤ 1).
+    gc0, wlo, feed : as :func:`beam_blend`.
+
+    Returns
+    -------
+    (nsamp, nchan, C) complex: per channel the blended terms give
+    b0 + lda·b1 + mda·b2 + lda·mda·b3, then the normalisation.
+    """
+    nsamp, nud, nchan, ncorr, nta = _blend_args("beam_blend_cell", bterms, 4, lda,
+                                                mda, gc0, wlo, feed)
+    if bterms.device.type == "cpu":
+        return beam_blend_cell_reference(bterms, lda, mda, gc0, wlo, feed)
+    _aligned("beam_blend_cell", feed=feed)
+    out = _blend_out(bterms, nsamp, nchan, ncorr)
+    if out.numel() == 0:
+        return out
+    _, _, cell = _library()
+    _launch(cell, "beam_blend_cell", bterms.device, bterms.data_ptr(),
+            lda.data_ptr(), mda.data_ptr(), gc0.data_ptr(), wlo.data_ptr(),
+            _ptr(feed), out.data_ptr(), nsamp, nud, nchan, ncorr, nta,
+            int(bterms.dtype == torch.float64))
+    beam_blend_cell.launches += 1
+    return out
+
+
+beam_blend_cell.launches = 0
+
+
+def beam_blend_cell_reference(bterms, lda, mda, gc0, wlo, feed=None):
+    """The plain PyTorch version of :func:`beam_blend_cell` (same
+    operands)."""
+    nsamp, nud, nchan, ncorr, _ = _blend_args("beam_blend_cell", bterms, 4, lda,
+                                              mda, gc0, wlo, feed)
+    g = gc0.long().clamp(0, nud - 2)
+    w0 = wlo[:, None]
+    b = w0 * bterms[:, :, g] + (1 - w0) * bterms[:, :, g + 1]  # (nsamp, 4, nchan, 3C)
+    la, ma = lda[..., None], mda[..., None]
+    val = b[:, 0] + la * b[:, 1] + ma * b[:, 2] + (la * ma) * b[:, 3]
+    e = _normalise(val, ncorr)
+    return e if feed is None else apply_feed(e, feed)

@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths — the flagship RIME predict at a MeerKAT-64
-full-band size, one config-5 selfcal step at SKA-mid width, and config-4
-w-stacked imaging — and checks them, in twelve phases that each print
-one line:
+Drives the port's four paths — the flagship RIME predict at a MeerKAT-64
+full-band size, one config-5 selfcal step at SKA-mid width, config-4
+w-stacked imaging and the config-3 beam DDE chain — and checks them, in
+fifteen phases that each print one line (some two):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles csrc/predict_kb.cu, csrc/dft.cu and csrc/wgrid.cu
-   with nvcc into build/ (first use), all at once;
+2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu and
+   csrc/beam.cu with nvcc into build/ (first use), all at once;
 3. predict kernel vs plain: predict_kb against its plain PyTorch version
    on the card (four modes × corr 1/2/4 at a ragged shape), and against
    a float64 oracle at 1e4 rad phases;
@@ -53,7 +53,23 @@ one line:
    share, one run of each plain version, peak device memory, a
    torch.profiler breakdown, and dirty and degrid again at a larger cell
    (1,000,000 rows × 8 channels, a 1024² image, w extent widened to
-   ≥ 16 planes), its kernels held against their plain versions first.
+   ≥ 16 planes), its kernels held against their plain versions first;
+13. beam kernels vs plain: beam_interp, beam_blend and beam_blend_cell
+   against their plain versions on the card (corr 1/2/4 × float32 and
+   float64 × normalised and raw × no, linear and circular feeds, ragged
+   sample and channel counts, frequencies outside the cube), corner
+   values exact, and two launches bitwise equal;
+14. config 3 (bench.py:677-875) at full width through BeamDDEChain:
+   MeerKAT-64, 4096 channels, 8 sources, 1 time, a 129² × 8 × 4 cube —
+   the chan-invariant E·F leg against the bench's float64 oracle, the
+   time-varying-pointing leg against the general route, and the
+   per-channel pointing legs on the general and cell-residual routes
+   (their difference, and the cell route on in-cell samples), each leg's
+   launches counted;
+15. beam times: CUDA-graph replays of the three kernels at the legs'
+   shapes with their bounds and the grid_sample yardstick, CUDA-event
+   medians of each leg (Msamples/s), one run of each plain version, peak
+   device memory and a torch.profiler breakdown of each leg.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -91,7 +107,14 @@ IMAGING_EPS = 1e-4
 # wgrid kernels vs plain, relative to max|out|: f32 sums in another order
 # than index_add_'s
 WGRID_BOUND = 1e-5
-PHASES = 12
+# config 3 (bench.py:677-875): MeerKAT-64, 4096 channels, the bench's draws
+BEAM = dict(nant=64, nchan=4096, seed=3)
+# beam kernels vs plain, relative to max|out|: f32 operations in another
+# order (FMA contraction); the chain vs the f64 oracle: the bench's bar
+BEAM_BOUND, BEAM_BOUND_F64 = 1e-5, 1e-12
+BEAM_ORACLE_CHANS = 256  # the oracle's channel window (all 512 samples)
+JAX_CONFIG3 = "4.51e-7 vs f64, cell-vs-general 6.4e-3"  # TPU v5e, BENCH_r05.json
+PHASES = 15
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
 # over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
@@ -105,6 +128,13 @@ DFT_FWD_INSTR = 220  # per (source, row, channel group of 2)
 ES_INSTR = 20        # per ES tap evaluation (sqrt, exp); 2W per sample
 GRID_TAP_INSTR = 3   # per grid tap (ku*kv, 2 FMAs)
 DEGRID_TAP_INSTR = 2  # per degrid tap (2 FMAs)
+# beam kernels at C = 4 (csrc/beam.cu): per (sample, row) the slab blends
+# of 4 corners, the l and m interpolations and the normalisation; per
+# (sample, channel) the blend, normalisation and E·F, and for the cell
+# route the 4 terms' blends and the reconstruction
+BEAM_INTERP_INSTR = 340
+BEAM_BLEND_INSTR = 100
+BEAM_CELL_INSTR = 280
 
 
 def check(ok, what):
@@ -284,6 +314,52 @@ def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device):
         return torch.as_tensor(x).to(device=device, dtype=cplx)
 
     return plan, t(n), t((nplanes, nu, nv))
+
+
+def beam_problem(rng, nsamp, nchan, ncorr, dtype, device, lw=17, mh=13, nud=8):
+    """Random operands of the three beam kernels on ``device``, made with
+    numpy (also used by tests/test_torch_cuda.py): a dict of ``slabs`` of
+    a random (lw, mh, nud, C) cube; (nsamp, nchan) coordinates ``vl``,
+    ``vm`` (clamped, a few on integers and the cube's edges); per channel
+    ``gc0``, ``gc1``, ``wlo`` from freq_grid_interp of frequencies that
+    run out of the cube at both ends; per-slab raw sums ``raw`` (nsamp,
+    nud, 3C); cell terms ``bt`` (nsamp, 4, nud, 3C) with in-cell offsets
+    ``lda``, ``mda``; and (time, ant) parallactic angles ``pa`` that
+    divide the samples."""
+    import torch
+    from africanus_tpu_torch.ops.cuda_beam import beam_slabs
+    from africanus_tpu_torch.rime.fast_beam_cubes import freq_grid_interp
+
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device=device, dtype=dt)
+
+    cube = (rng.normal(size=(lw, mh, nud, ncorr))
+            + 1j * rng.normal(size=(lw, mh, nud, ncorr)))
+    vl = rng.uniform(0, lw - 1, (nsamp, nchan))
+    vm = rng.uniform(0, mh - 1, (nsamp, nchan))
+    vl.flat[:4] = [0.0, lw - 1, 3.0, lw - 1][:vl.size]
+    vm.flat[:4] = [mh - 1, 0.0, 5.0, mh - 1][:vm.size]
+    fmap = np.linspace(0.9e9, 1.6e9, nud)
+    fd = freq_grid_interp(torch.as_tensor(np.linspace(0.8e9, 1.7e9, nchan)),
+                          torch.as_tensor(fmap))
+    gc0 = fd[:, 2].numpy().astype(np.int32)
+
+    def raw(shape):
+        re, im = rng.normal(size=shape + (ncorr,)), rng.normal(size=shape + (ncorr,))
+        amp = np.abs(re + 1j * im) * rng.uniform(0.8, 1.2, re.shape)
+        return np.concatenate([re, im, amp], -1)
+
+    bt = raw((nsamp, 4, nud))
+    bt[:, 1:] *= 0.1
+    nta = 10 if nsamp % 10 == 0 else 1
+    return dict(slabs=beam_slabs(t(cube, cdtype)), vl=t(vl), vm=t(vm),
+                gc0=t(gc0, torch.int32), gc1=t(gc0 + 1, torch.int32),
+                wlo=t(fd[:, 1].numpy()), raw=t(raw((nsamp, nud))), bt=t(bt),
+                lda=t(rng.uniform(0, 1, (nsamp, nchan))),
+                mda=t(rng.uniform(0, 1, (nsamp, nchan))),
+                pa=t(rng.uniform(-np.pi, np.pi, (nta // 5 or 1, nta // 2 or 1))))
 
 
 def phase_kernel_checks(device):
@@ -723,8 +799,10 @@ def _l2(got, want):
 def _profile(fn, reps=3):
     """(host ms of ``reps`` calls of ``fn`` to an idle card, device ms,
     [(kernel name, launches, device ms)] by device time) from
-    torch.profiler."""
+    torch.profiler. Only the device's own (kernel and copy) events count:
+    an operator's row repeats the time of the kernels it launched."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -735,7 +813,8 @@ def _profile(fn, reps=3):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     return wall, sum(r[2] for r in rows), rows
 
@@ -953,6 +1032,293 @@ def imaging(device, card):
     return entries
 
 
+def _tensors(ops):
+    return [x for x in ops if hasattr(x, "numel")]
+
+
+def _beam_counts():
+    from africanus_tpu_torch.ops import cuda_beam as cb
+
+    return {"beam_interp": cb.beam_interp.launches,
+            "beam_blend": cb.beam_blend.launches,
+            "beam_blend_cell": cb.beam_blend_cell.launches}
+
+
+def _zero_beam_counts():
+    from africanus_tpu_torch.ops import cuda_beam as cb
+
+    cb.beam_interp.launches = cb.beam_blend.launches = 0
+    cb.beam_blend_cell.launches = 0
+
+
+def beam_kernel_checks(device):
+    """Phase 13: the three beam kernels against their plain versions."""
+    import torch
+    from africanus_tpu_torch.ops import cuda_beam as cb
+    from africanus_tpu_torch.rime.feeds import feed_rotation
+
+    rng = np.random.default_rng(SEED + 3)
+    worst = {}
+    cases = 0
+
+    def compare(key, fn, reference, args, tol):
+        before = _beam_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        after = _beam_counts()
+        check(after[fn.__name__] == before[fn.__name__] + 1, f"{key}: no launch")
+        want = reference(*args)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{key}: {tuple(got.shape)} {got.dtype}")
+        err = float((got - want).abs().max() / want.abs().max())
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(err <= tol, f"{key}: {err:.3e} > {tol}")
+
+    for dtype in (torch.float32, torch.float64):
+        tol = BEAM_BOUND if dtype == torch.float32 else BEAM_BOUND_F64
+        prec = "f32" if dtype == torch.float32 else "f64"
+        for ncorr in cb.CORRS:
+            for nsamp, nchan in ((1000, 300), (37, 5)):
+                p = beam_problem(rng, nsamp, nchan, ncorr, dtype, device)
+                slabs, nud = p["slabs"], p["slabs"].shape[0]
+                for norm in (True, False):
+                    compare(f"interp/{prec}", cb.beam_interp, cb.beam_interp_reference,
+                            (slabs, p["vl"], p["vm"], p["gc0"], p["gc1"], p["wlo"],
+                             norm), tol)
+                for ncol in (1, 4):  # rows sharing coordinate columns
+                    rows = torch.arange(nud, dtype=torch.int32,
+                                        device=device).repeat(ncol)
+                    ones = torch.ones(rows.shape[0], dtype=dtype, device=device)
+                    compare(f"interp/{prec}", cb.beam_interp, cb.beam_interp_reference,
+                            (slabs, p["vl"][:, :ncol].contiguous(),
+                             p["vm"][:, :ncol].contiguous(), rows, rows, ones,
+                             False), tol)
+                feeds = [None]
+                if ncorr == 4:
+                    feeds += [feed_rotation(p["pa"], ft).contiguous()
+                              for ft in ("linear", "circular")]
+                for feed in feeds:
+                    compare(f"blend/{prec}", cb.beam_blend, cb.beam_blend_reference,
+                            (p["raw"], p["gc0"], p["wlo"], feed), tol)
+                    compare(f"blend_cell/{prec}", cb.beam_blend_cell,
+                            cb.beam_blend_cell_reference,
+                            (p["bt"], p["lda"], p["mda"], p["gc0"], p["wlo"], feed),
+                            tol)
+                cases += 1
+
+        # corners: integer coordinates, one slab per row, exact
+        li = torch.as_tensor(rng.integers(0, 17, 500), device=device)
+        mi = torch.as_tensor(rng.integers(0, 13, 500), device=device)
+        rows = torch.arange(nud, dtype=torch.int32, device=device)
+        raw = cb.beam_interp(slabs, li[:, None].to(dtype), mi[:, None].to(dtype),
+                             rows, rows, torch.ones(nud, dtype=dtype, device=device),
+                             False)
+        check(torch.equal(raw, slabs.permute(1, 2, 0, 3)[li, mi]),
+              f"interp/{prec}: corner values not exact")
+
+    # two launches give bitwise-equal outputs (config 3's shapes)
+    p = beam_problem(rng, 512, 4096, 4, torch.float32, device, lw=129, mh=129)
+    feed = feed_rotation(p["pa"], "linear").contiguous()
+    for fn, args in ((cb.beam_interp, (p["slabs"], p["vl"], p["vm"], p["gc0"],
+                                       p["gc1"], p["wlo"], True)),
+                     (cb.beam_blend, (p["raw"], p["gc0"], p["wlo"], feed)),
+                     (cb.beam_blend_cell, (p["bt"], p["lda"], p["mda"], p["gc0"],
+                                           p["wlo"], feed))):
+        check(torch.equal(fn(*args), fn(*args)), f"{fn.__name__} is not deterministic")
+    print(f"[13/{PHASES}] beam kernels vs plain on the card ({cases} problems: "
+          "C 1/2/4 x f32/f64 x (1000 samples x 300 chan, 37 x 5), interp "
+          "normalised, raw and on shared columns, blend and blend_cell with no, "
+          "linear and circular feeds, out-of-cube frequencies; rel to max|out|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + "; corners exact; deterministic (512 x 4096, 129² cube)", flush=True)
+
+
+def beam_chain(device, card):
+    """Phases 14-15: the config-3 beam DDE chain. Returns the beam_interp,
+    beam_blend and beam_blend_cell entries of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from africanus_tpu_torch.ops import cuda_beam as cb
+    from africanus_tpu_torch.rime.beam_chain import (
+        beam_inputs, beam_oracle_f64, from_numpy,
+    )
+
+    t0 = time.perf_counter()
+    args = beam_inputs(**BEAM)
+    legs = {
+        "fast": from_numpy(args, device),
+        "tvar": from_numpy(dict(args, pe=args["pe_tvar"]), device, feed_type=None),
+        "general": from_numpy(dict(args, pe=args["pe_pc"]), device, feed_type=None,
+                              chan_invariant=False, cell_residual=False),
+        "cell": from_numpy(dict(args, pe=args["pe_pc"]), device, feed_type=None,
+                           chan_invariant=False, cell_residual=True),
+    }
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    chain, pa = legs["fast"]
+    nsrc, ntime, nant, nchan = 8, 1, BEAM["nant"], BEAM["nchan"]
+    nsamp = nsrc * ntime * nant * nchan
+
+    # 14. each leg once, through its kernels
+    outs, counts, walls = {}, {}, {}
+    for name, (module, pa_) in legs.items():
+        _zero_beam_counts()
+        t0 = time.perf_counter()
+        outs[name] = module(pa_)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = _beam_counts()
+    expect = {"fast": (1, 1, 0), "tvar": (1, 1, 0), "general": (1, 0, 0),
+              "cell": (1, 0, 1)}
+    for name, n in expect.items():
+        check(tuple(counts[name].values()) == n, f"{name} leg launches {counts[name]}")
+        out = outs[name]
+        check(tuple(out.shape) == (nsrc, ntime, nant, nchan, 2, 2)
+              and out.dtype == torch.complex64, f"{name}: {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"{name}: non-finite")
+    launches = {k: sum(c[k] for c in counts.values()) for k in counts["fast"]}
+
+    chans = np.unique(np.linspace(0, nchan - 1, BEAM_ORACLE_CHANS).round().astype(int))
+    t0 = time.perf_counter()
+    want = beam_oracle_f64(args, chans)
+    oracle_s = time.perf_counter() - t0
+    got = outs["fast"][:, :, :, torch.as_tensor(chans, device=device)].cpu().numpy()
+    fast_err = rel_err(got, want)
+    check(fast_err <= BEAM_BOUND, f"fast path vs f64 oracle: {fast_err:.3e}")
+    # time-varying pointing is chan-invariant: the general route agrees
+    tvar_general = from_numpy(dict(args, pe=args["pe_tvar"]), device, feed_type=None,
+                              chan_invariant=False, cell_residual=False)[0](pa)
+    tvar_err = float((outs["tvar"] - tvar_general).abs().max()
+                     / tvar_general.abs().max())
+    check(tvar_err <= BEAM_BOUND, f"time-varying leg vs general route: {tvar_err:.3e}")
+    del tvar_general
+    # per-channel pointing: on the bench's draws (σ 1e-4 against a 3.1e-4
+    # cube cell) the cell route extrapolates the cell polynomial on samples
+    # whose channels straddle cells, a property of the data; with the
+    # errors cut 100-fold most samples stay in one cell, and there the cell
+    # route equals the general route
+    def in_cell(ops):
+        lda, mda = ops["beam_blend_cell"][1:3]
+        return ((lda.amax(dim=1) <= 1) & (mda.amax(dim=1) <= 1)).reshape(
+            nsrc, ntime, nant)
+
+    _, cell_ops = legs["cell"][0].kernel_operands(pa)
+    straddle = 1 - float(in_cell(cell_ops).float().mean())
+    cell_err = float((outs["cell"] - outs["general"]).abs().max()
+                     / outs["general"].abs().max())
+    small = dict(args, pe=args["pe_pc"] / 100)
+    m_cell = from_numpy(small, device, feed_type=None, chan_invariant=False,
+                        cell_residual=True)[0]
+    m_gen = from_numpy(small, device, feed_type=None, chan_invariant=False,
+                       cell_residual=False)[0]
+    inside = in_cell(m_cell.kernel_operands(pa)[1])
+    check(bool(inside.any()), "no in-cell sample at pe / 100")
+    want_gen = m_gen(pa)
+    cell_in_err = float((m_cell(pa) - want_gen).abs()[inside].max()
+                        / want_gen.abs().max())
+    check(cell_in_err <= BEAM_BOUND, f"cell route on in-cell samples: {cell_in_err:.3e}")
+    inside_share = float(inside.float().mean())
+    del m_cell, m_gen, want_gen
+    print(f"[14/{PHASES}] beam chain (config 3): {nsrc} src x {ntime} time x {nant} "
+          f"ant x {nchan} chan = {nsamp} samples x 4 corr, 129² x 8 x 4 cube; set-up "
+          f"{setup:.1f} s; first calls (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; launches {counts}; fast E·F vs f64 oracle ({chans.size} chan) "
+          f"{fast_err:.2e} (bound {BEAM_BOUND}; oracle {oracle_s:.1f} s); "
+          f"time-varying vs general route {tvar_err:.2e}; cell vs general "
+          f"{cell_err:.2e} ({straddle:.1%} of (src, time, ant) samples straddle a "
+          f"cell); with pe / 100 ({inside_share:.1%} in-cell) cell vs general on "
+          f"in-cell samples {cell_in_err:.2e} (JAX package, TPU: {JAX_CONFIG3})",
+          flush=True)
+    del outs
+
+    # 15. times: each kernel at the legs' shapes, against its plain version
+    _, gen_ops = legs["general"][0].kernel_operands(pa)
+    _, fast_ops = chain.kernel_operands(pa)
+    entries = []
+    times = {}
+    for name, ops, plain, instr in (
+            ("beam_interp", gen_ops["beam_interp"], cb.beam_interp_reference,
+             nsamp * BEAM_INTERP_INSTR),
+            ("beam_blend", fast_ops["beam_blend"], cb.beam_blend_reference,
+             nsamp * BEAM_BLEND_INSTR),
+            ("beam_blend_cell", cell_ops["beam_blend_cell"],
+             cb.beam_blend_cell_reference, nsamp * BEAM_CELL_INSTR)):
+        fn = getattr(cb, name)
+        got = fn(*ops)
+        want, plain_ms = cuda_once_ms(lambda: plain(*ops))
+        max_abs = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(max_abs <= BEAM_BOUND * scale,
+              f"{name} vs plain at config 3: {max_abs:.3e} > 1e-5 x {scale:.3e}")
+        ms = kernel_median_ms(lambda: fn(*ops))
+        times[name] = (ms, plain_ms, max_abs, scale)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "africanus_tpu_torch/csrc/beam.cu",
+            "replaces": {"beam_interp": "africanus_tpu/ops/pallas_beam.py:228",
+                         "beam_blend": "africanus_tpu/ops/pallas_beam.py:538",
+                         "beam_blend_cell": "africanus_tpu/ops/pallas_beam.py:450"}[name],
+            "launches": launches[name], "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, **bound(nbytes(_tensors(ops), got), instr),
+            "library_ms": None})
+        del got, want
+    fast_interp_ms = kernel_median_ms(lambda: cb.beam_interp(*fast_ops["beam_interp"]))
+    cell_interp_ms = kernel_median_ms(lambda: cb.beam_interp(*cell_ops["beam_interp"]))
+
+    # the library yardstick of beam_interp: grid_sample's trilinear
+    # interpolation of the (1, 3C, nud, mh, lw) volume at the general
+    # route's coordinates and fractional slab gc0 + 1 - wlo
+    slabs, vl, vm, gc0, _, wlo, _ = gen_ops["beam_interp"]
+    nud, lw, mh, k3 = slabs.shape
+    vol = slabs.permute(3, 0, 2, 1)[None].contiguous()
+    z = ((gc0 + 1 - wlo) / (nud - 1) * 2 - 1).expand_as(vl)
+    grid = torch.stack([vl / (lw - 1) * 2 - 1, vm / (mh - 1) * 2 - 1, z],
+                       dim=-1)[None, None].contiguous()
+
+    def sample():
+        return F.grid_sample(vol, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    library_ms, _ = cuda_median_ms(sample)
+    raw = cb.beam_interp(*gen_ops["beam_interp"][:6], False)
+    lib_err = float((sample()[0, :, 0].permute(1, 2, 0) - raw).abs().max()
+                    / raw.abs().max())
+    entries[0]["library_ms"] = library_ms
+    del vol, grid, raw
+
+    leg_ms = {name: cuda_median_ms(lambda m=m, p=p: m(p))[0]
+              for name, (m, p) in legs.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m, p in legs.values():
+        m(p)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profiles = {name: _profile(lambda m=m, p=p: m(p)) for name, (m, p) in legs.items()}
+    print(f"[15/{PHASES}] beam times on {card}: legs (CUDA-event medians) "
+          + ", ".join(f"{k} {v:.3f} ms = {nsamp / v / 1e3:.1f} Msamples/s"
+                      for k, v in leg_ms.items())
+          + f"; kernels (CUDA graph of {BURST}): beam_interp general "
+          f"{times['beam_interp'][0]:.4f} ms (bound {entries[0]['bound_ms']:.4f}), "
+          f"chan-invariant {fast_interp_ms:.4f} ms, cell corners {cell_interp_ms:.4f} "
+          f"ms; beam_blend {times['beam_blend'][0]:.4f} ms (bound "
+          f"{entries[1]['bound_ms']:.4f}); beam_blend_cell "
+          f"{times['beam_blend_cell'][0]:.4f} ms (bound {entries[2]['bound_ms']:.4f}); "
+          f"grid_sample {library_ms:.4f} ms (vs raw interp {lib_err:.1e}); plain "
+          + ", ".join(f"{k} {v[1]:.1f} ms" for k, v in times.items())
+          + "; kernel vs plain max abs "
+          + ", ".join(f"{k} {v[2]:.2e} (max {v[3]:.2e})" for k, v in times.items())
+          + f"; peak device memory {peak:.2f} GiB", flush=True)
+    for name, (wall, busy, rows) in profiles.items():
+        top = "; ".join(f"{k[:40]} x{count // 3} {ms / 3:.4f} ms"
+                        for k, count, ms in rows[:5])
+        print(f"[15/{PHASES}] profiler, {name} leg, per call of 3: host {wall / 3:.3f} "
+              f"ms, device busy {busy / 3:.4f} ms (idle {1 - busy / wall:.1%}), "
+              f"by device time: {top}", flush=True)
+    return entries
+
+
 def main():
     import torch
 
@@ -961,6 +1327,7 @@ def main():
               "main path runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from africanus_tpu_torch.ops.cuda_beam import build_beam
     from africanus_tpu_torch.ops.cuda_dft import build_dft
     from africanus_tpu_torch.ops.cuda_predict import build_predict_kb
     from africanus_tpu_torch.ops.cuda_wgrid import build_wgrid
@@ -982,10 +1349,11 @@ def main():
     print(smi, flush=True)
 
     # 2. build, one nvcc per source, started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [f.result() for f in [pool.submit(build_predict_kb),
                                        pool.submit(build_dft),
-                                       pool.submit(build_wgrid)]]
+                                       pool.submit(build_wgrid),
+                                       pool.submit(build_beam)]]
     for lib, seconds, log in builds:
         ptxas = "; ".join(ln.split("ptxas info    : ")[-1]
                           for ln in log.splitlines() if "Used" in ln)
@@ -1002,6 +1370,10 @@ def main():
     # 10-12. the wgrid kernels against their plain versions, then imaging
     wgrid_kernel_checks(device)
     kernels += imaging(device, card)
+
+    # 13-15. the beam kernels against their plain versions, then config 3
+    beam_kernel_checks(device)
+    kernels += beam_chain(device, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-versions, and the flagship predict, the selfcal step and w-stacked
-imaging on the card against the same modules on the CPU.
+versions, and the flagship predict, the selfcal step, w-stacked imaging
+and the beam DDE chain on the card against the same modules on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX (the card's machine has none), so it also runs there on its own:
@@ -16,7 +16,9 @@ takes the bounds and the two cases (converged, and a model that lacks a
 source) of tests/test_torch_selfcal.py. The wgrid kernels 1e-5·max|out| in
 float32 and 1e-12 in float64 (sums in another order than the plain
 versions' index_add_ and gather-sum); w-stacked imaging on the card
-1e-5·max against the CPU.
+1e-5·max against the CPU. The beam kernels 1e-5·max|out| in float32 and
+1e-12 in float64 (the same operations, contracted into FMAs by nvcc);
+the beam chain's routes on the card 1e-5·max against the CPU.
 """
 
 import os
@@ -28,7 +30,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import dft_problem, kernel_problem, wgrid_problem  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    beam_problem, dft_problem, kernel_problem, wgrid_problem,
+)
 
 from africanus_tpu_torch.calibration.selfcal import (  # noqa: E402
     from_numpy as selfcal_from_numpy, make_data, selfcal_inputs,
@@ -37,9 +41,17 @@ from africanus_tpu_torch.gridding.wgridder import dirty, model  # noqa: E402
 from africanus_tpu_torch.gridding.wgridder.imaging import (  # noqa: E402
     from_numpy as imaging_from_numpy, imaging_inputs,
 )
+from africanus_tpu_torch.ops import cuda_beam as cb  # noqa: E402
 from africanus_tpu_torch.ops import cuda_dft as cd  # noqa: E402
 from africanus_tpu_torch.ops import cuda_predict as cp  # noqa: E402
 from africanus_tpu_torch.ops import cuda_wgrid as cw  # noqa: E402
+from africanus_tpu_torch.rime.beam_chain import (  # noqa: E402
+    beam_inputs, from_numpy as beam_from_numpy,
+)
+from africanus_tpu_torch.rime.fast_beam_cubes import (  # noqa: E402
+    beam_cube_dde as cb_dde, beam_cube_dde_fr as cb_dde_fr,
+)
+from africanus_tpu_torch.rime.feeds import feed_rotation  # noqa: E402
 from africanus_tpu_torch.rime.flagship import (  # noqa: E402
     flagship_inputs, from_numpy,
 )
@@ -288,3 +300,136 @@ def test_wgridder_api_on_card_matches_cpu(device):
     got = model(uvw, freq, image.to(device), *bands, cell, epsilon=1e-4)
     assert got.dtype == torch.complex64
     _assert_close(got.cpu(), want, 1e-5)
+
+
+def _launched(fn, *args):
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncorr", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("nsamp,nchan", [(1000, 300), (37, 5)])
+def test_beam_kernels_match_plain(device, ncorr, dtype, nsamp, nchan):
+    """Phase 13's grid: interp normalised, raw and on shared coordinate
+    columns; blend and blend_cell without a feed and, at C = 4, with
+    linear and circular feeds; frequencies outside the cube."""
+    p = beam_problem(np.random.default_rng(ncorr * 100 + nsamp), nsamp, nchan,
+                     ncorr, dtype, device)
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    slabs, nud = p["slabs"], p["slabs"].shape[0]
+    for norm in (True, False):
+        args = (slabs, p["vl"], p["vm"], p["gc0"], p["gc1"], p["wlo"], norm)
+        got = _launched(cb.beam_interp, *args)
+        assert got.shape == (nsamp, nchan, ncorr if norm else 3 * ncorr)
+        _assert_close(got, cb.beam_interp_reference(*args), bound)
+    for ncol in (1, 4):
+        rows = torch.arange(nud, dtype=torch.int32, device=device).repeat(ncol)
+        args = (slabs, p["vl"][:, :ncol].contiguous(), p["vm"][:, :ncol].contiguous(),
+                rows, rows, torch.ones(rows.shape[0], dtype=dtype, device=device),
+                False)
+        _assert_close(_launched(cb.beam_interp, *args),
+                      cb.beam_interp_reference(*args), bound)
+    feeds = [None] + ([feed_rotation(p["pa"], ft).contiguous()
+                       for ft in ("linear", "circular")] if ncorr == 4 else [])
+    for feed in feeds:
+        args = (p["raw"], p["gc0"], p["wlo"], feed)
+        got = _launched(cb.beam_blend, *args)
+        assert got.shape == (nsamp, nchan, ncorr) and got.dtype == slabs.dtype.to_complex()
+        _assert_close(got, cb.beam_blend_reference(*args), bound)
+        args = (p["bt"], p["lda"], p["mda"], p["gc0"], p["wlo"], feed)
+        _assert_close(_launched(cb.beam_blend_cell, *args),
+                      cb.beam_blend_cell_reference(*args), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_beam_interp_corners_are_exact(device, dtype):
+    rng = np.random.default_rng(3)
+    p = beam_problem(rng, 8, 2, 4, dtype, device)
+    slabs, nud = p["slabs"], p["slabs"].shape[0]
+    li = torch.as_tensor(rng.integers(0, 17, 300), device=device)
+    mi = torch.as_tensor(rng.integers(0, 13, 300), device=device)
+    rows = torch.arange(nud, dtype=torch.int32, device=device)
+    raw = cb.beam_interp(slabs, li[:, None].to(dtype), mi[:, None].to(dtype), rows,
+                         rows, torch.ones(nud, dtype=dtype, device=device), False)
+    assert torch.equal(raw, slabs.permute(1, 2, 0, 3)[li, mi])
+
+
+@pytest.mark.cuda
+def test_beam_kernels_are_deterministic(device):
+    p = beam_problem(np.random.default_rng(4), 256, 2048, 4, torch.float32, device,
+                     lw=129, mh=129)
+    feed = feed_rotation(p["pa"], "circular").contiguous()
+    for fn, args in ((cb.beam_interp, (p["slabs"], p["vl"], p["vm"], p["gc0"],
+                                       p["gc1"], p["wlo"], True)),
+                     (cb.beam_blend, (p["raw"], p["gc0"], p["wlo"], feed)),
+                     (cb.beam_blend_cell, (p["bt"], p["lda"], p["mda"], p["gc0"],
+                                           p["wlo"], feed))):
+        assert torch.equal(fn(*args), fn(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg,pe,flags,launches", [
+    ("fast", "pe", dict(chan_invariant=True), (1, 1, 0)),
+    ("time_varying", "pe_tvar", dict(feed_type=None, chan_invariant=True), (1, 1, 0)),
+    ("general", "pe_pc", dict(feed_type=None, chan_invariant=False,
+                              cell_residual=False), (1, 0, 0)),
+    ("general_feed", "pe_pc", dict(chan_invariant=False, cell_residual=False),
+     (1, 0, 0)),
+    ("cell", "pe_pc", dict(chan_invariant=False, cell_residual=True), (1, 0, 1)),
+])
+def test_beam_chain_on_card_matches_cpu(device, leg, pe, flags, launches):
+    """Each config-3 leg (8 antennas, 256 channels) on the card (kernels)
+    against the same module on the CPU (plain versions), and the kernels
+    each route launches."""
+    args = beam_inputs(nant=8, nchan=256)
+    args = dict(args, pe=args[pe])
+    m_cpu, pa_cpu = beam_from_numpy(args, "cpu", **flags)
+    m_gpu, pa_gpu = beam_from_numpy(args, device, **flags)
+    want = m_cpu(pa_cpu)
+    before = (cb.beam_interp.launches, cb.beam_blend.launches,
+              cb.beam_blend_cell.launches)
+    got = m_gpu(pa_gpu)
+    torch.cuda.synchronize()
+    after = (cb.beam_interp.launches, cb.beam_blend.launches,
+             cb.beam_blend_cell.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == launches
+    assert got.shape == want.shape == (8, 1, 8, 256, 2, 2)
+    _assert_close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed_type", [None, "linear", "circular"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
+def test_beam_cube_dde_out_of_cube_on_card_matches_cpu(device, feed_type, dtype):
+    """beam_cube_dde(_fr) on the general route with per-channel pointing
+    errors and frequencies below and above the cube (scaled lm), on the
+    card against the CPU."""
+    rng = np.random.default_rng(8)
+    nsrc, ntime, nant, nchan = 3, 2, 3, 7
+    beam = torch.as_tensor(rng.normal(size=(10, 10, 8, 2, 2))
+                           + 1j * rng.normal(size=(10, 10, 8, 2, 2))).to(dtype)
+    rest = [torch.as_tensor(x) for x in (
+        np.array([[-0.02, 0.02], [-0.02, 0.02]]), np.linspace(0.9e9, 1.6e9, 8),
+        rng.uniform(-0.015, 0.015, (nsrc, 2)), rng.uniform(-np.pi, np.pi, (ntime, nant)),
+        rng.normal(scale=5e-3, size=(ntime, nant, nchan, 2)),
+        rng.uniform(0.9, 1.1, (nant, nchan, 2)), np.linspace(0.5e9, 2.2e9, nchan))]
+
+    def run(dev):
+        args = (beam.to(dev), *rest)
+        if feed_type is None:
+            return cb_dde(*args)
+        return cb_dde_fr(*args, feed_type=feed_type)
+
+    want = run("cpu")
+    before = cb.beam_interp.launches
+    got = run(device)
+    torch.cuda.synchronize()
+    assert cb.beam_interp.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == (nsrc, ntime, nant, nchan, 2, 2)
+    _assert_close(got.cpu(), want, 1e-5 if dtype == torch.complex64 else 1e-12)
