@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each kernel source under ``africanus_tpu_torch/csrc/`` has a plain C
 interface. At first use it is compiled with ``nvcc`` for Hopper
@@ -20,7 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "init_once",
+           "launch"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -87,3 +88,38 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
     lib, _, _ = build(name, sources)
     return ctypes.CDLL(str(lib))
+
+
+# (library, device index) pairs whose ``<name>_init()`` has run
+_READY = set()
+
+
+def init_once(name: str, sources: tuple[str, ...], device) -> None:
+    """Call the library's ``<name>_init()`` (which raises its kernels'
+    dynamic shared-memory limits) once per device, before the first
+    launch — so never inside a CUDA-graph capture, which starts after a
+    warm-up call."""
+    import torch
+
+    if (name, device.index) in _READY:
+        return
+    fn = getattr(load(name, sources), f"{name}_init")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn()
+    if rc != 0:
+        raise RuntimeError(f"{name}_init failed: CUDA error {rc}")
+    _READY.add((name, device.index))
+
+
+def launch(fn, name: str, plan, *args) -> None:
+    """Call a kernel entry point on the plan's device and current stream,
+    appending ``is_double`` (the plan's dtype is float64) and the stream;
+    raise if it returns a CUDA error (a refused launch never runs)."""
+    import torch
+
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*args, int(plan.dtype == torch.float64), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

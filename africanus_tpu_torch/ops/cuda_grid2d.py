@@ -1,0 +1,197 @@
+"""Multi-correlation 2D convolutional gridding and degridding kernels.
+
+Port of the 2D tile kernels of ``africanus_tpu/ops/pallas_grid.py`` that
+the nifty-API gridder runs: ``grid_tiles_pallas`` (Q2-9) and
+``grid_tiles_mxu`` (Q2-11a) compute one map, ``degrid_tiles_pallas``
+(Q2-10) and ``degrid_tiles_mxu`` (Q2-11b) its adjoint. Here each map is
+one hand-written CUDA kernel in ``csrc/grid2d.cu`` (its header says what
+bounds them and how they are laid out), the grid's halo fold the fold
+kernel of ``csrc/wgrid.cu``:
+
+    grid:    G[c, iu0+a, iv0+b] += es((uf−a)/½W)·es((vf−b)/½W)·V[c]
+    degrid:  V[c] = Σ_a Σ_b es((uf−a)/½W)·es((vf−b)/½W)·G[c, iu0+a, iv0+b]
+
+over a, b < W and the correlations c, uv indices wrapping mod (nu, nv).
+The ES window of a sample is computed once and applied to every
+correlation inside the kernel.
+
+The plan is the w-gridder's one-plane
+:class:`~africanus_tpu_torch.ops.cuda_wgrid.WGridPlan` (``nplanes`` 1,
+one unit w-tap), which ``gridding/wgridder/core.make_plan(...,
+do_wstacking=False)`` builds: window starts, offsets, the tile order and
+the fold tables, planned in float64 on the host.
+
+:func:`grid_2d` and :func:`degrid_2d` launch the kernels on CUDA tensors
+and count their launches in ``.launches``; on CPU tensors they take
+:func:`grid_2d_reference` and :func:`degrid_2d_reference`, the plain
+PyTorch versions (an ``index_add_`` over sample chunks and a
+gather-and-sum), which the tests hold against the Pallas kernels in
+interpret mode and ``chip_smoke.py`` holds the kernels against on the
+card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from africanus_tpu_torch.ops import _build
+from africanus_tpu_torch.ops import cuda_wgrid as cw
+
+__all__ = ["grid_2d", "degrid_2d", "grid_2d_reference", "degrid_2d_reference",
+           "build_grid2d", "CORRS"]
+
+_SOURCES = ("grid2d.cu",)
+
+# the correlation counts csrc/grid2d.cu is instantiated for (its supports
+# are cuda_wgrid.SUPPORTS). Its launch refuses a tile whose NC planes and
+# staged samples exceed its shared-memory BUDGET, which the one-plane
+# WGridPlan's ≤ 32-cell tiles never do
+CORRS = (1, 2, 4)
+
+
+def build_grid2d():
+    """Compile ``csrc/grid2d.cu`` if needed: (library path, seconds spent
+    compiling, compiler log)."""
+    return _build.build("grid2d", _SOURCES)
+
+
+def _library():
+    lib = _build.load("grid2d", _SOURCES)
+    ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    spread, degrid = lib.grid2d_spread_launch, lib.grid2d_degrid_launch
+    if spread.argtypes is None:
+        # c_void_p for every pointer and the stream: ctypes would pass a
+        # bare Python int as a 32-bit int and cut the address
+        spread.argtypes = [ptr] * 7 + [i64, i64, ptr] + [i32] * 8 + [f64, i32, ptr]
+        degrid.argtypes = [ptr] * 7 + [i32] * 5 + [f64, i32, ptr]
+        for fn in (spread, degrid):
+            fn.restype = ctypes.c_int
+    return spread, degrid
+
+
+def _check_plan(name, plan):
+    if not isinstance(plan, cw.WGridPlan):
+        raise ValueError(f"{name} takes a WGridPlan")
+    if plan.nplanes != 1 or plan.wsup != 1:
+        raise ValueError(f"{name}: the plan must have one plane and one w-tap "
+                         f"(make_plan(..., do_wstacking=False)); got "
+                         f"{plan.nplanes} planes, {plan.wsup} w-taps")
+
+
+def _check(name, plan, x, ndim, shape_tail):
+    _check_plan(name, plan)
+    if (x.dtype != plan.complex_dtype or x.dim() != ndim
+            or tuple(x.shape[1:]) != shape_tail or x.shape[0] not in CORRS):
+        raise ValueError(
+            f"{name}: expected {plan.complex_dtype} (ncorr, "
+            f"{', '.join(map(str, shape_tail))}) with ncorr in {CORRS}, got "
+            f"{x.dtype} {tuple(x.shape)}")
+    if x.device != plan.device:
+        raise ValueError(f"{name}: the plan and the values must be on one device")
+
+
+# ------------------------------------------------------------ grid
+
+def _spread(plan, vis):
+    """The grid kernel: padded tiles (ntiles, ncorr, tile_u+W−1,
+    tile_v+W−1), each sample's window in the tile of its start."""
+    w, ncorr = plan.support, vis.shape[0]
+    tiles = torch.empty((plan.ntiles, ncorr, plan.tile_u + w - 1,
+                         plan.tile_v + w - 1), dtype=plan.complex_dtype,
+                        device=vis.device)
+    spread, _ = _library()
+    _build.init_once("grid2d", _SOURCES, vis.device)
+    _build.launch(spread, "grid_2d", plan, plan.order.data_ptr(),
+                  plan.tile_start.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
+                  plan.uf.data_ptr(), plan.vf.data_ptr(), vis.data_ptr(),
+                  vis.stride(0), vis.stride(1), tiles.data_ptr(), plan.nu, plan.nv, w,
+                  ncorr, plan.tile_u, plan.tile_v, plan.ntiles, plan.ntv, plan.beta)
+    return tiles
+
+
+def grid_2d(plan, vis):
+    """Grid (ncorr, N) visibilities onto (ncorr, nu, nv) grids.
+
+    ``plan`` is a one-plane :class:`~africanus_tpu_torch.ops.cuda_wgrid.
+    WGridPlan`; ``vis`` is complex in its dtype (complex64 or
+    complex128), already weighted, on its device, ncorr in :data:`CORRS`,
+    any strides (a (N, ncorr) tensor's transpose is read in place). CUDA
+    tensors launch ``csrc/grid2d.cu`` (all correlations in one pass) and
+    fold the halos with ``csrc/wgrid.cu``'s fold kernel (deterministic, no
+    atomics); CPU tensors take :func:`grid_2d_reference`.
+    """
+    _check("grid_2d", plan, vis, 2, (plan.nsamples,))
+    if vis.device.type == "cpu":
+        return grid_2d_reference(plan, vis)
+    grid = cw.fold_tiles(_spread(plan, vis), plan.src_u, plan.src_v, plan.ntv)
+    grid_2d.launches += 1
+    return grid
+
+
+grid_2d.launches = 0
+
+
+def grid_2d_reference(plan, vis):
+    """The plain PyTorch version of :func:`grid_2d` (same operands): a
+    flat ``index_add_`` of every tap of every correlation, over sample
+    chunks."""
+    _check("grid_2d", plan, vis, 2, (plan.nsamples,))
+    ncorr, size = vis.shape[0], plan.nu * plan.nv
+    re = torch.zeros(ncorr * size, dtype=plan.dtype, device=vis.device)
+    im = torch.zeros_like(re)
+    offs = torch.arange(ncorr, device=vis.device)[:, None, None] * size
+    for lo, hi in cw._chunks(plan):
+        idx, wj = cw._chunk_taps(plan, lo, hi)  # (W·W, n)
+        v = vis[:, None, lo:hi]
+        flat = (offs + idx[None]).reshape(-1)
+        re.index_add_(0, flat, (v.real * wj[None]).reshape(-1))
+        im.index_add_(0, flat, (v.imag * wj[None]).reshape(-1))
+    return torch.complex(re, im).reshape(ncorr, plan.nu, plan.nv)
+
+
+# ------------------------------------------------------------ degrid
+
+def degrid_2d(plan, grid):
+    """Degrid (ncorr, nu, nv) grids at the plan's N samples.
+
+    ``grid`` is complex in the plan's dtype, on its device. CUDA tensors
+    launch ``csrc/grid2d.cu`` (one thread per sample, the ES window once
+    for all correlations, a fixed sum order: deterministic); CPU tensors
+    take :func:`degrid_2d_reference`. Returns (ncorr, N) complex: on the
+    card the transpose of an (N, ncorr) tensor, so that a caller wanting
+    correlations last reads it without a copy.
+    """
+    _check("degrid_2d", plan, grid, 3, (plan.nu, plan.nv))
+    if grid.device.type == "cpu":
+        return degrid_2d_reference(plan, grid)
+    grid = grid.contiguous()
+    ncorr = grid.shape[0]
+    out = torch.empty((plan.nsamples, ncorr), dtype=plan.complex_dtype,
+                      device=grid.device)
+    if plan.nsamples:
+        _, degrid = _library()
+        _build.launch(degrid, "degrid_2d", plan, plan.order.data_ptr(),
+                      plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.uf.data_ptr(),
+                      plan.vf.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                      plan.nsamples, plan.nu, plan.nv, plan.support, ncorr, plan.beta)
+        degrid_2d.launches += 1
+    return out.T
+
+
+degrid_2d.launches = 0
+
+
+def degrid_2d_reference(plan, grid):
+    """The plain PyTorch version of :func:`degrid_2d` (same operands): a
+    gather of every tap of every correlation and a sum, over sample
+    chunks (``nifty/gridder.py:296-299``)."""
+    _check("degrid_2d", plan, grid, 3, (plan.nu, plan.nv))
+    flat = grid.reshape(grid.shape[0], -1)
+    out = torch.empty((grid.shape[0], plan.nsamples), dtype=plan.complex_dtype,
+                      device=grid.device)
+    for lo, hi in cw._chunks(plan):
+        idx, wj = cw._chunk_taps(plan, lo, hi)
+        out[:, lo:hi] = (flat[:, idx] * wj[None]).sum(dim=1)
+    return out

@@ -1,0 +1,307 @@
+"""Table-mode convolutional gridding and degridding kernels.
+
+Port of the table-mode tile kernels of ``africanus_tpu/ops/pallas_grid.py``
+that the Perley-polyhedron facet gridder runs: ``grid_tiles_table_pallas``
+(Q2-12a) and ``degrid_tiles_table_pallas`` (Q2-12b). Here each is one
+hand-written CUDA kernel in ``csrc/gridtab.cu`` (its header says what
+bounds them and how they are laid out), the grid's halo fold the fold
+kernel of ``csrc/wgrid.cu`` with tables that clip:
+
+    grid:    G[band, ir0+a, ic0+b] += K[(a+1)·os + fr]·K[(b+1)·os + fc]·S
+    degrid:  S = Σ_a Σ_b K[(a+1)·os + fr]·K[(b+1)·os + fc]·G[band, ir0+a, ic0+b]
+
+over a, b < W (odd) and the cells inside [0, npix)² only: windows that
+hang off the grid are cut, never wrapped. Rows are v, columns u.
+
+Every integer is planned once on the host into a :class:`TableGridPlan`
+(an ``nn.Module``: ``.to()`` moves it) — by
+``gridding/perleypolyhedron/gridder.pp_tile_plan`` from float64
+coordinates — so the kernels never round.
+
+:func:`grid_table` and :func:`degrid_table` launch the kernels on CUDA
+tensors and count their launches in ``.launches``; on CPU tensors they
+take :func:`grid_table_reference` and :func:`degrid_table_reference`, the
+plain PyTorch versions (an ``index_add_`` over sample chunks and a
+gather-and-sum), which the tests hold against the Pallas kernels in
+interpret mode and ``chip_smoke.py`` holds the kernels against on the
+card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from africanus_tpu_torch.ops import _build
+from africanus_tpu_torch.ops import cuda_wgrid as cw
+
+__all__ = ["TableGridPlan", "grid_table", "degrid_table", "grid_table_reference",
+           "degrid_table_reference", "build_gridtab", "SUPPORTS"]
+
+_SOURCES = ("gridtab.cu",)
+
+# the odd supports csrc/gridtab.cu is instantiated for
+SUPPORTS = (3, 5, 7, 9, 11, 13, 15)
+
+# gridtab.cu's samples staged per pass and shared-memory budget per
+# block (its CHUNK and BUDGET): the plan refuses a table that would not
+# fit beside the padded tile
+_CHUNK, _SMEM_BYTES = 64, 96 * 1024
+
+
+def build_gridtab():
+    """Compile ``csrc/gridtab.cu`` if needed: (library path, seconds spent
+    compiling, compiler log)."""
+    return _build.build("gridtab", _SOURCES)
+
+
+def _library():
+    lib = _build.load("gridtab", _SOURCES)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    spread, degrid = lib.gridtab_spread_launch, lib.gridtab_degrid_launch
+    if spread.argtypes is None:
+        # c_void_p for every pointer and the stream: ctypes would pass a
+        # bare Python int as a 32-bit int and cut the address
+        spread.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+        degrid.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+        for fn in (spread, degrid):
+            fn.restype = ctypes.c_int
+    return spread, degrid
+
+
+class TableGridPlan(nn.Module):
+    """The quantised tap geometry of one table-mode gridding problem,
+    made once on the host and held on the device.
+
+    Parameters
+    ----------
+    ir0, ic0 : (N,) integer window starts of every sample: rows (v) and
+        columns (u), disc − W//2
+    fr, fc : (N,) integer table fractions of the row and column taps:
+        tap t reads ``table[(t+1)·oversample + f]``, |f| < oversample
+    band : (N,) integer grid (band) of every sample, < nband
+    npix, nband : the grids, (nband, npix, npix)
+    support, oversample : W (odd, in :data:`SUPPORTS`) and the table's
+        oversampling: a table has oversample·(W+2) values
+    dtype : torch.float32, or torch.float64 (the double-accumulating
+        kernels)
+    device : where the buffers are made
+
+    Samples whose window has no cell in the grid are kept in the
+    per-sample buffers (the gridder's weight sums read them) but never
+    reach the kernels.
+
+    Buffers (moved by ``.to()``): ``ir0``, ``ic0``, ``fr``, ``fc``,
+    ``band`` (N,) int32; ``order`` (the kept samples sorted stably by the
+    (uv tile, band) of their window start on the grid shifted by W − 1);
+    ``tile_start`` (ntr·ntc·nband + 1 offsets into it); the clipping fold
+    tables ``src_r``, ``src_c``. ``tile`` × ``tile`` uv tiles, ``ntr`` ×
+    ``ntc`` of them.
+    """
+
+    def __init__(self, ir0, ic0, fr, fc, band, npix, nband, support, oversample,
+                 dtype=torch.float32, device="cpu"):
+        super().__init__()
+        if support not in SUPPORTS:
+            raise ValueError(f"support must be one of {SUPPORTS}, got {support}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        ir0, ic0, fr, fc, band = (np.asarray(x, np.int64).reshape(-1)
+                                  for x in (ir0, ic0, fr, fc, band))
+        n = ir0.size
+        if not (ic0.size == fr.size == fc.size == band.size == n):
+            raise ValueError("TableGridPlan: ir0, ic0, fr, fc and band must be (N,)")
+        if n >= 2**31 or npix >= 2**30:
+            raise ValueError(f"{n} samples on a {npix}² grid: the kernels index "
+                             "samples and grid lines with int32")
+        if n and (np.abs(np.concatenate([fr, fc])).max() >= oversample
+                  or band.min() < 0 or band.max() >= nband):
+            raise ValueError(f"TableGridPlan: table fractions must lie in "
+                             f"(−{oversample}, {oversample}) and bands in "
+                             f"[0, {nband})")
+        real_bytes = 4 if dtype == torch.float32 else 8
+        ntab = oversample * (support + 2)
+        self.nsamples, self.npix, self.nband = n, int(npix), int(nband)
+        self.support, self.oversample, self.ntab = int(support), int(oversample), ntab
+        self.dtype = dtype
+        self.complex_dtype = (torch.complex64 if dtype == torch.float32
+                              else torch.complex128)
+        span = self.npix + support - 1  # the grid shifted by W − 1
+        self.tile = cw._tile_edge(span, 1, support, 2 * real_bytes)
+        self.ntr = self.ntc = -(-span // self.tile)
+        pad = self.tile + support - 1
+        smem = (pad * pad * 2 * real_bytes + _CHUNK * 2 * real_bytes
+                + (ntab + 2 * _CHUNK * support) * real_bytes + _CHUNK * 4)
+        if smem > _SMEM_BYTES:
+            raise ValueError(f"a {ntab}-value table beside a {pad}² tile takes "
+                             f"{smem} bytes of shared memory > {_SMEM_BYTES}")
+
+        keep = ((ir0 + support - 1 >= 0) & (ir0 < npix)
+                & (ic0 + support - 1 >= 0) & (ic0 < npix))
+        kept = np.nonzero(keep)[0]
+        block = (((ir0[kept] + support - 1) // self.tile) * self.ntc
+                 + (ic0[kept] + support - 1) // self.tile) * self.nband + band[kept]
+        nblocks = self.ntr * self.ntc * self.nband
+        tile_start = np.zeros(nblocks + 1, np.int64)
+        np.cumsum(np.bincount(block, minlength=nblocks), out=tile_start[1:])
+        self.nkeep = int(kept.size)
+        fold = cw._fold_table(self.npix, self.tile, support, clip=True)
+
+        for name, x in (("ir0", ir0), ("ic0", ic0), ("fr", fr), ("fc", fc),
+                        ("band", band),
+                        ("order", kept[np.argsort(block, kind="stable")]),
+                        ("tile_start", tile_start), ("src_r", fold),
+                        ("src_c", fold)):
+            self.register_buffer(
+                name, torch.as_tensor(np.ascontiguousarray(x)).to(
+                    device=device, dtype=torch.int32), persistent=False)
+
+    @property
+    def device(self):
+        return self.ir0.device
+
+
+def _check(name, plan, table, x, shape):
+    if not isinstance(plan, TableGridPlan):
+        raise ValueError(f"{name} takes a TableGridPlan")
+    if x.dtype != plan.complex_dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: expected {plan.complex_dtype} {shape} as "
+                         f"planned, got {x.dtype} {tuple(x.shape)}")
+    if table.dtype != plan.dtype or tuple(table.shape) != (plan.ntab,):
+        raise ValueError(f"{name}: expected a {plan.dtype} table of "
+                         f"{plan.ntab} values, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if x.device != plan.device or table.device != plan.device:
+        raise ValueError(f"{name}: the plan, the table and the values must be "
+                         "on one device")
+    if not (x.is_contiguous() and table.is_contiguous()):
+        raise ValueError(f"{name}: the values and the table must be contiguous")
+
+
+# ------------------------------------------------------------ grid
+
+def _spread(plan, table, values):
+    """The grid kernel: padded tiles (ntr·ntc·nband, tile+W−1, tile+W−1),
+    each kept sample's window in the tile of its shifted start."""
+    pad = plan.tile + plan.support - 1
+    tiles = torch.empty((plan.ntr * plan.ntc, plan.nband, pad, pad),
+                        dtype=plan.complex_dtype, device=values.device)
+    spread, _ = _library()
+    _build.init_once("gridtab", _SOURCES, values.device)
+    _build.launch(spread, "grid_table", plan, plan.order.data_ptr(),
+                  plan.tile_start.data_ptr(), plan.ir0.data_ptr(), plan.ic0.data_ptr(),
+                  plan.fr.data_ptr(), plan.fc.data_ptr(), table.data_ptr(),
+                  values.data_ptr(), tiles.data_ptr(), plan.support, plan.ntab,
+                  plan.oversample, plan.tile, plan.tile, plan.ntr * plan.ntc, plan.ntc,
+                  plan.nband)
+    return tiles
+
+
+def grid_table(plan, table, values):
+    """Grid (N,) values onto (nband, npix, npix) grids.
+
+    ``table`` is the (oversample·(W+2),) kernel table in the plan's dtype,
+    ``values`` (N,) complex in its complex dtype, both on its device. CUDA
+    tensors launch ``csrc/gridtab.cu`` and fold the halos with
+    ``csrc/wgrid.cu``'s fold kernel, dropping off-grid cells
+    (deterministic, no atomics); CPU tensors take
+    :func:`grid_table_reference`.
+    """
+    _check("grid_table", plan, table, values, (plan.nsamples,))
+    if values.device.type == "cpu":
+        return grid_table_reference(plan, table, values)
+    grid = cw.fold_tiles(_spread(plan, table, values), plan.src_r, plan.src_c,
+                         plan.ntc)
+    grid_table.launches += 1
+    return grid
+
+
+grid_table.launches = 0
+
+
+def _chunks(plan):
+    sel = plan.order.long()
+    step = max(1, cw._REF_TAPS // plan.support ** 2)
+    return (sel[lo:lo + step] for lo in range(0, plan.nkeep, step))
+
+
+def _chunk_taps(plan, table, s):
+    """Flat grid indices and masked tap weights ((W·W), n) of the samples
+    ``s``, as the JAX package's scatter path forms them
+    (``perleypolyhedron/gridder.py:228-272``): weight = K_v·K_u, zero off
+    the grid, the index clipped into it."""
+    w, os_, npix = plan.support, plan.oversample, plan.npix
+    t = torch.arange(w, device=s.device)
+    rows = plan.ir0[s, None].long() + t          # (n, W)
+    cols = plan.ic0[s, None].long() + t
+    kr = table[(t + 1) * os_ + plan.fr[s, None].long()]
+    kc = table[(t + 1) * os_ + plan.fc[s, None].long()]
+    kr = kr * ((rows >= 0) & (rows < npix)).to(kr.dtype)
+    kc = kc * ((cols >= 0) & (cols < npix)).to(kc.dtype)
+    idx = ((plan.band[s].long()[None, None, :] * npix
+            + rows.clamp(0, npix - 1).T[:, None, :]) * npix
+           + cols.clamp(0, npix - 1).T[None, :, :]).reshape(w * w, -1)
+    wj = (kr.T[:, None, :] * kc.T[None, :, :]).reshape(w * w, -1)
+    return idx, wj
+
+
+def grid_table_reference(plan, table, values):
+    """The plain PyTorch version of :func:`grid_table` (same operands): a
+    flat ``index_add_`` of every masked tap of the kept samples, over
+    sample chunks."""
+    _check("grid_table", plan, table, values, (plan.nsamples,))
+    size = plan.nband * plan.npix * plan.npix
+    re = torch.zeros(size, dtype=plan.dtype, device=values.device)
+    im = torch.zeros_like(re)
+    for s in _chunks(plan):
+        idx, wj = _chunk_taps(plan, table, s)
+        v = values[s]
+        re.index_add_(0, idx.reshape(-1), (v.real[None, :] * wj).reshape(-1))
+        im.index_add_(0, idx.reshape(-1), (v.imag[None, :] * wj).reshape(-1))
+    return torch.complex(re, im).reshape(plan.nband, plan.npix, plan.npix)
+
+
+# ------------------------------------------------------------ degrid
+
+def degrid_table(plan, table, grid):
+    """Degrid (nband, npix, npix) grids at the plan's N samples.
+
+    ``table`` and ``grid`` in the plan's (complex) dtype on its device.
+    CUDA tensors launch ``csrc/gridtab.cu`` (one thread per kept sample, a
+    fixed sum order: deterministic); CPU tensors take
+    :func:`degrid_table_reference`. Returns (N,) complex values, 0 at the
+    samples with no in-grid tap.
+    """
+    _check("degrid_table", plan, table, grid, (plan.nband, plan.npix, plan.npix))
+    if grid.device.type == "cpu":
+        return degrid_table_reference(plan, table, grid)
+    out = torch.zeros(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
+    if plan.nkeep:
+        _, degrid = _library()
+        _build.init_once("gridtab", _SOURCES, grid.device)
+        _build.launch(degrid, "degrid_table", plan, plan.order.data_ptr(),
+                      plan.ir0.data_ptr(), plan.ic0.data_ptr(), plan.fr.data_ptr(),
+                      plan.fc.data_ptr(), plan.band.data_ptr(), table.data_ptr(),
+                      grid.data_ptr(), out.data_ptr(), plan.support, plan.ntab,
+                      plan.oversample, plan.nkeep, plan.npix)
+        degrid_table.launches += 1
+    return out
+
+
+degrid_table.launches = 0
+
+
+def degrid_table_reference(plan, table, grid):
+    """The plain PyTorch version of :func:`degrid_table` (same operands):
+    a gather of every masked tap of the kept samples and a sum, over
+    sample chunks (``perleypolyhedron/gridder.py:366-384``)."""
+    _check("degrid_table", plan, table, grid, (plan.nband, plan.npix, plan.npix))
+    flat = grid.reshape(-1)
+    out = torch.zeros(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
+    for s in _chunks(plan):
+        idx, wj = _chunk_taps(plan, table, s)
+        out[s] = (flat[idx] * wj).sum(dim=0)
+    return out

@@ -44,7 +44,7 @@ from africanus_tpu_torch.ops.es import es_np, es_torch
 
 __all__ = ["WGridPlan", "sample_geometry", "grid_wstack", "degrid_wstack",
            "grid_wstack_reference", "degrid_wstack_reference", "build_wgrid",
-           "SUPPORTS"]
+           "fold_tiles", "SUPPORTS"]
 
 _SOURCES = ("wgrid.cu",)
 
@@ -88,27 +88,9 @@ def _library():
         spread.argtypes = [ptr] * 10 + [i32] * 12 + [f64, i32, ptr]
         fold.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         degrid.argtypes = [ptr] * 9 + [i32] * 5 + [f64, i32, ptr]
-        for fn in (spread, fold, degrid, lib.wgrid_init):
+        for fn in (spread, fold, degrid):
             fn.restype = ctypes.c_int
-        lib.wgrid_init.argtypes = []
     return spread, fold, degrid
-
-
-# devices on which the grid kernel may take its shared-memory budget
-_READY = set()
-
-
-def _allow_tile_budget(device):
-    """Raise the grid kernel's dynamic shared-memory limit on ``device``
-    once, before its first launch (so never inside a CUDA-graph capture,
-    which starts after a warm-up call)."""
-    if device.index in _READY:
-        return
-    with torch.cuda.device(device):
-        rc = _build.load("wgrid", _SOURCES).wgrid_init()
-    if rc != 0:
-        raise RuntimeError(f"wgrid_init failed: CUDA error {rc}")
-    _READY.add(device.index)
 
 
 # ------------------------------------------------------------ host planning
@@ -162,20 +144,30 @@ def _plane_block(nplanes, ru, rv, support, real_bytes):
     return -(-nplanes // nblk)
 
 
-def _fold_table(n, tile, support):
+def _fold_table(n, tile, support, clip=False):
     """(n, k) int32 table of the padded-tile cells that cover each grid
     index along one axis: entries tile_index·(tile+W−1) + local index, in
     tile order, −1 past the end. Tile t covers local indices below its
     height + W − 1 (its own cells and the halo its windows spill into),
-    which land at (t·tile + local) mod n."""
+    which land at (t·tile + local) mod n.
+
+    With ``clip`` (windows that hang off the grid are cut, never wrapped:
+    the table gridder of ``ops/cuda_gridtab.py``) the tiles cover the
+    axis shifted by W − 1, n + W − 1 cells, so that a window starting up
+    to W − 1 cells before the grid starts inside a tile; local index l of
+    tile t lands at t·tile + l − (W − 1) and is dropped off [0, n)."""
     pad = tile + support - 1
-    ntile = -(-n // tile)
+    span = n + support - 1 if clip else n
+    ntile = -(-span // tile)
     t = np.repeat(np.arange(ntile), pad)
     local = np.tile(np.arange(pad), ntile)
-    height = np.minimum(tile, n - np.arange(ntile) * tile)
+    height = np.minimum(tile, span - np.arange(ntile) * tile)
     keep = local < height[t] + support - 1
+    if clip:
+        keep &= ((t * tile + local >= support - 1)
+                 & (t * tile + local < n + support - 1))
     t, local = t[keep], local[keep]
-    target = (t * tile + local) % n
+    target = t * tile + local - (support - 1) if clip else (t * tile + local) % n
     order = np.argsort(target, kind="stable")
     target, entry = target[order], (t * pad + local)[order]
     counts = np.bincount(target, minlength=n)
@@ -287,15 +279,6 @@ def _check(name, plan, x, shape):
         raise ValueError(f"{name}: the values must be contiguous")
 
 
-def _launch(fn, name, plan, *args):
-    """Call a ``wgrid.cu`` entry point on the plan's device and stream."""
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, int(plan.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
 # ------------------------------------------------------------ grid
 
 def _spread(plan, vis):
@@ -306,28 +289,43 @@ def _spread(plan, vis):
                          plan.tile_v + w - 1), dtype=plan.complex_dtype,
                         device=vis.device)
     spread, _, _ = _library()
-    _allow_tile_budget(vis.device)
-    _launch(spread, "grid_wstack", plan, plan.order.data_ptr(),
-            plan.tile_start.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
-            plan.p0.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
-            plan.wsc.data_ptr(), vis.data_ptr(), tiles.data_ptr(),
-            plan.nsamples, plan.nu, plan.nv, plan.nplanes, w, plan.wsup,
-            plan.tile_u, plan.tile_v, plan.ntiles, plan.ntv, plan.plane_block,
-            _CHUNK, plan.beta)
+    _build.init_once("wgrid", _SOURCES, vis.device)
+    _build.launch(spread, "grid_wstack", plan, plan.order.data_ptr(),
+                  plan.tile_start.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
+                  plan.p0.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
+                  plan.wsc.data_ptr(), vis.data_ptr(), tiles.data_ptr(),
+                  plan.nsamples, plan.nu, plan.nv, plan.nplanes, w, plan.wsup,
+                  plan.tile_u, plan.tile_v, plan.ntiles, plan.ntv, plan.plane_block,
+                  _CHUNK, plan.beta)
     return tiles
+
+
+def fold_tiles(tiles, src_u, src_v, ntv):
+    """The fold kernel of ``csrc/wgrid.cu``: the (nplanes, nu, nv) grid
+    whose every cell sums, in the fixed order of the fold tables ``src_u``
+    (nu, ku) and ``src_v`` (nv, kv) (:func:`_fold_table`), the cells of
+    the padded tiles (ntiles, nplanes, ru, rv) that cover it; tile index
+    tu·ntv + tv. Complex64 or complex128 tiles on a CUDA device. Also the
+    fold of ``ops/cuda_grid2d.py`` (planes = correlations) and
+    ``ops/cuda_gridtab.py`` (planes = bands, clipping tables)."""
+    nplanes, nu, nv = tiles.shape[1], src_u.shape[0], src_v.shape[0]
+    grid = torch.empty((nplanes, nu, nv), dtype=tiles.dtype, device=tiles.device)
+    _, fold, _ = _library()
+    with torch.cuda.device(tiles.device):
+        rc = fold(tiles.data_ptr(), src_u.data_ptr(), src_v.data_ptr(),
+                  grid.data_ptr(), nplanes, nu, nv, src_u.shape[1],
+                  src_v.shape[1], ntv, tiles.shape[2], tiles.shape[3],
+                  int(tiles.dtype == torch.complex128),
+                  torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wgrid fold launch failed: CUDA error {rc}")
+    return grid
 
 
 def _fold(plan, tiles):
     """The fold kernel: each grid cell sums the padded-tile cells that
     cover it, in the fixed order of the plan's fold tables."""
-    grid = torch.empty((plan.nplanes, plan.nu, plan.nv),
-                       dtype=plan.complex_dtype, device=tiles.device)
-    _, fold, _ = _library()
-    _launch(fold, "grid_wstack", plan, tiles.data_ptr(), plan.src_u.data_ptr(),
-            plan.src_v.data_ptr(), grid.data_ptr(), plan.nplanes, plan.nu,
-            plan.nv, plan.src_u.shape[1], plan.src_v.shape[1], plan.ntv,
-            tiles.shape[2], tiles.shape[3])
-    return grid
+    return fold_tiles(tiles, plan.src_u, plan.src_v, plan.ntv)
 
 
 def grid_wstack(plan, vis):
@@ -407,11 +405,11 @@ def degrid_wstack(plan, grid):
     if plan.nsamples == 0:
         return out
     _, _, degrid = _library()
-    _launch(degrid, "degrid_wstack", plan, plan.order.data_ptr(),
-            plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.p0.data_ptr(),
-            plan.uf.data_ptr(), plan.vf.data_ptr(), plan.wsc.data_ptr(),
-            grid.data_ptr(), out.data_ptr(), plan.nsamples, plan.nu, plan.nv,
-            plan.support, plan.wsup, plan.beta)
+    _build.launch(degrid, "degrid_wstack", plan, plan.order.data_ptr(),
+                  plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.p0.data_ptr(),
+                  plan.uf.data_ptr(), plan.vf.data_ptr(), plan.wsc.data_ptr(),
+                  grid.data_ptr(), out.data_ptr(), plan.nsamples, plan.nu, plan.nv,
+                  plan.support, plan.wsup, plan.beta)
     degrid_wstack.launches += 1
     return out
 

@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths — the flagship RIME predict at a MeerKAT-64
+Drives the port's six paths — the flagship RIME predict at a MeerKAT-64
 full-band size, one config-5 selfcal step at SKA-mid width, config-4
-w-stacked imaging and the config-3 beam DDE chain — and checks them, in
-fifteen phases that each print one line (some two):
+w-stacked imaging, the config-3 beam DDE chain, the nifty-API gridder and
+the Perley-polyhedron facet gridder — and checks them, in eighteen phases
+that each print one line (some several):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu and
-   csrc/beam.cu with nvcc into build/ (first use), all at once;
+2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu,
+   csrc/beam.cu, csrc/grid2d.cu and csrc/gridtab.cu with nvcc into build/
+   (first use), all at once;
 3. predict kernel vs plain: predict_kb against its plain PyTorch version
    on the card (four modes × corr 1/2/4 at a ragged shape), and against
    a float64 oracle at 1e4 rad phases;
@@ -69,7 +71,26 @@ fifteen phases that each print one line (some two):
 15. beam times: CUDA-graph replays of the three kernels at the legs'
    shapes with their bounds and the grid_sample yardstick, CUDA-event
    medians of each leg (Msamples/s), one run of each plain version, peak
-   device memory and a torch.profiler breakdown of each leg.
+   device memory and a torch.profiler breakdown of each leg;
+16. gridder kernels vs plain: grid_2d and degrid_2d (supports 4/6/8/10 ×
+   corr 1/2/4 × square, odd and tiny grids, edge-wrapping windows) and
+   grid_table and degrid_table (odd supports 3/5/7/15 × oversampling 5
+   and 63 × 2 bands, windows off every edge, samples with no in-grid
+   tap) against their plain versions in float32 and float64, and two
+   launches bitwise equal;
+17. both gridders at full width: nifty grid → dirty and model → degrid
+   at config 4's draws (100,000 rows × 8 channels × 4 correlations, a
+   1024² image, 2048² grids, ε 1e-5: W = 8), launches counted, kernels
+   vs plain on the whole outputs, adjointness, and the float64 dirty of
+   tests/test_nifty.py's problem against the explicit DFT; the PP facet
+   gridder and degridder (the draws at 2048², 2 correlations into 2
+   bands, kbsinc W 7 × 63 packed, the image centre 0.5° off, rotate +
+   phase_rotate) on plans made once, launches counted, kernels vs plain
+   and the table pair's adjoint identity;
+18. gridder times: CUDA-graph replays of the four kernels with their
+   bounds, CUDA-event medians of nifty grid + dirty and model + degrid
+   and of the PP gridder and degridder (Mvis/s), one run of each plain
+   version, peak device memory and a torch.profiler breakdown of each.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -114,7 +135,19 @@ BEAM = dict(nant=64, nchan=4096, seed=3)
 BEAM_BOUND, BEAM_BOUND_F64 = 1e-5, 1e-12
 BEAM_ORACLE_CHANS = 256  # the oracle's channel window (all 512 samples)
 JAX_CONFIG3 = "4.51e-7 vs f64, cell-vs-general 6.4e-3"  # TPU v5e, BENCH_r05.json
-PHASES = 15
+# the nifty-API gridder at full width: config 4's draws at a 1024² image
+# (2048² grids), 4 correlations, eps 1e-5 (W = 8, the JAX package's MXU
+# route); the Perley-polyhedron facet gridder: the draws at 2048², 2
+# correlations into 2 bands of 4 channels, the image centre 0.5 deg from
+# the phase centre
+NIFTY = dict(nrow=100_000, nchan=8, nx=1024, seed=4)
+NIFTY_NCORR, NIFTY_EPS = 4, 1e-5
+FACET = dict(nrow=100_000, nchan=8, nx=2048, seed=4)
+FACET_BANDS, FACET_DEC, FACET_OFFSET_DEG = 2, -np.pi / 6, 0.5
+# gridder kernels vs plain, relative to max|out|: f32 sums in another
+# order than index_add_'s and the gather-sum's
+GRIDDER_BOUND = 1e-5
+PHASES = 18
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
 # over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
@@ -360,6 +393,54 @@ def beam_problem(rng, nsamp, nchan, ncorr, dtype, device, lw=17, mh=13, nud=8):
                 lda=t(rng.uniform(0, 1, (nsamp, nchan))),
                 mda=t(rng.uniform(0, 1, (nsamp, nchan))),
                 pa=t(rng.uniform(-np.pi, np.pi, (nta // 5 or 1, nta // 2 or 1))))
+
+
+def grid2d_problem(rng, n, nu, nv, ncorr, support, dtype, device):
+    """A random one-plane WGridPlan of ``n`` samples on ``device`` (the
+    first few windows wrapping past the grid edges) and operands of the
+    2D multi-correlation kernels, made with numpy (also used by
+    tests/test_torch_cuda.py): (plan, vis (ncorr, n) — the transpose of an
+    (n, ncorr) tensor, as the nifty API hands it over —, grid (ncorr, nu,
+    nv)), complex in the plan's dtype."""
+    import torch
+
+    plan, _, _ = wgrid_problem(rng, n, nu, nv, 1, support, dtype, device)
+
+    def t(shape):
+        x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(x).to(device=device, dtype=plan.complex_dtype)
+
+    return plan, t((n, ncorr)).T, t((ncorr, nu, nv))
+
+
+def table_problem(rng, n, npix, nband, support, oversample, dtype, device):
+    """A random TableGridPlan of ``n`` samples on ``device`` whose windows
+    hang off every grid edge (some with no cell in the grid) and operands
+    of the table kernels, made with numpy (also used by
+    tests/test_torch_cuda.py): (plan, table (kbsinc of the support),
+    values (n,), grid (nband, npix, npix))."""
+    import torch
+    from africanus_tpu_torch.gridding.perleypolyhedron.kernels import kbsinc
+    from africanus_tpu_torch.ops.cuda_gridtab import TableGridPlan
+
+    ir0 = rng.integers(-support - 1, npix + 1, n)
+    ic0 = rng.integers(-support - 1, npix + 1, n)
+    ir0[:4] = [-(support - 1), npix - 1, 3, -support][:n]
+    ic0[:4] = [npix - 1, -(support - 1), -support, 2][:n]
+    half = oversample // 2
+    fr, fc = (rng.integers(-half, half + 1, n) for _ in range(2))
+    band = rng.integers(0, nband, n)
+    plan = TableGridPlan(ir0, ic0, fr, fc, band, npix, nband, support, oversample,
+                         dtype=dtype, device=device)
+    cplx = plan.complex_dtype
+
+    def t(shape):
+        x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(x).to(device=device, dtype=cplx)
+
+    table = torch.as_tensor(kbsinc(support, oversample=oversample)).to(
+        device=device, dtype=dtype)
+    return plan, table, t(n), t((nband, npix, npix))
 
 
 def phase_kernel_checks(device):
@@ -1319,6 +1400,392 @@ def beam_chain(device, card):
     return entries
 
 
+def gridder_kernel_checks(device):
+    """Phase 16: the 2D multi-correlation and table kernels against their
+    plain versions."""
+    import torch
+    from africanus_tpu_torch.ops import cuda_grid2d as g2
+    from africanus_tpu_torch.ops import cuda_gridtab as gt
+    from africanus_tpu_torch.ops.cuda_wgrid import SUPPORTS
+
+    rng = np.random.default_rng(SEED + 4)
+    worst = {}
+    cases = 0
+
+    def compare(key, fn, plain, args, tol):
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1, f"{key}: no launch")
+        want = plain(*args)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{key}: {tuple(got.shape)} {got.dtype}")
+        err = float((got - want).abs().max() / want.abs().max())
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(err <= tol, f"{key}: {err:.3e} > {tol}")
+
+    for dtype in (torch.float32, torch.float64):
+        tol = GRIDDER_BOUND if dtype == torch.float32 else 1e-12
+        prec = "f32" if dtype == torch.float32 else "f64"
+        for support in SUPPORTS:
+            for ncorr in g2.CORRS:
+                for nu, nv, n in ((64, 64, 1007), (70, 45, 333), (12, 10, 50)):
+                    plan, vis, grid = grid2d_problem(rng, n, nu, nv, ncorr, support,
+                                                     dtype, device)
+                    compare(f"grid_2d/{prec}", g2.grid_2d, g2.grid_2d_reference,
+                            (plan, vis), tol)
+                    compare(f"degrid_2d/{prec}", g2.degrid_2d,
+                            g2.degrid_2d_reference, (plan, grid), tol)
+                    cases += 1
+        for support in (3, 5, 7, 15):
+            for oversample in (5, 63):
+                for npix, n in ((64, 1007), (37, 333), (5, 40)):
+                    plan, table, vals, grid = table_problem(
+                        rng, n, npix, 2, support, oversample, dtype, device)
+                    compare(f"grid_table/{prec}", gt.grid_table,
+                            gt.grid_table_reference, (plan, table, vals), tol)
+                    compare(f"degrid_table/{prec}", gt.degrid_table,
+                            gt.degrid_table_reference, (plan, table, grid), tol)
+                    cases += 1
+
+    # two launches give bitwise-equal outputs
+    plan, vis, grid = grid2d_problem(rng, 200_000, 1024, 1024, 4, 8, torch.float32,
+                                     device)
+    check(torch.equal(g2.grid_2d(plan, vis), g2.grid_2d(plan, vis)),
+          "grid_2d is not deterministic")
+    check(torch.equal(g2.degrid_2d(plan, grid), g2.degrid_2d(plan, grid)),
+          "degrid_2d is not deterministic")
+    plan, table, vals, grid = table_problem(rng, 200_000, 1024, 2, 7, 63,
+                                            torch.float32, device)
+    check(torch.equal(gt.grid_table(plan, table, vals),
+                      gt.grid_table(plan, table, vals)),
+          "grid_table is not deterministic")
+    check(torch.equal(gt.degrid_table(plan, table, grid),
+                      gt.degrid_table(plan, table, grid)),
+          "degrid_table is not deterministic")
+    print(f"[16/{PHASES}] gridder kernels vs plain on the card ({cases} problems: "
+          f"2D W {'/'.join(map(str, SUPPORTS))} x corr 1/2/4 x 64², 70x45, 12x10 "
+          "grids with edge-wrapping windows; table W 3/5/7/15 x os 5/63 x 2 bands "
+          "x 64², 37², 5² grids with windows off every edge; f32/f64; rel to "
+          "max|out|): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + "; deterministic (200k samples, 1024²)", flush=True)
+
+
+def _mvis(n, ms):
+    return n / ms / 1e3
+
+
+def gridders(device, card):
+    """Phases 17-18: the nifty-API gridder and the Perley-polyhedron facet
+    gridder at full width. Returns the grid_2d, degrid_2d, grid_table and
+    degrid_table entries of the kernels line."""
+    import torch
+    from africanus_tpu_torch.constants import ARCSEC2RAD
+    from africanus_tpu_torch.gridding import nifty
+    from africanus_tpu_torch.gridding import perleypolyhedron as pp
+    from africanus_tpu_torch.gridding.nifty.gridder import _plan as nifty_plan
+    from africanus_tpu_torch.gridding.perleypolyhedron import policies as pol
+    from africanus_tpu_torch.gridding.perleypolyhedron.kernels import (
+        kbsinc, pack_kernel,
+    )
+    from africanus_tpu_torch.gridding.wgridder.imaging import imaging_inputs
+    from africanus_tpu_torch.ops import cuda_grid2d as g2
+    from africanus_tpu_torch.ops import cuda_gridtab as gt
+
+    # 17a. nifty: config-4 draws at 1024², 4 correlations, eps 1e-5 (W = 8)
+    t0 = time.perf_counter()
+    args = imaging_inputs(**NIFTY)
+    nx, cell_as = args["nx"], args["cell"] / ARCSEC2RAD
+    uvw, freq = args["uvw"], args["freq"]
+    nrow, nchan = uvw.shape[0], freq.shape[0]
+    rng = np.random.default_rng(SEED)
+    shape = (nrow, nchan, NIFTY_NCORR)
+    vis = torch.as_tensor((rng.normal(size=shape) + 1j * rng.normal(size=shape))
+                          .astype(np.complex64)).to(device)
+    image = torch.as_tensor(rng.normal(size=(nx, nx, NIFTY_NCORR)).astype(
+        np.float32)).to(device)
+    flags = torch.zeros(shape, dtype=torch.uint8, device=device)
+    gc = nifty.grid_config(nx, nx, NIFTY_EPS, cell_as, cell_as)
+    plan_s = []
+    for _ in range(2):  # the plan cold, then cached
+        t1 = time.perf_counter()
+        wplan = nifty_plan(uvw, freq, gc, torch.complex64, device).wgrid
+        torch.cuda.synchronize()
+        plan_s.append(time.perf_counter() - t1)
+    setup = time.perf_counter() - t0
+    nvis = nrow * nchan * NIFTY_NCORR
+
+    g2.grid_2d.launches = g2.degrid_2d.launches = 0
+    t0 = time.perf_counter()
+    grid = nifty.grid(vis, uvw, flags, None, freq, gc)
+    dirty = nifty.dirty(grid, gc)
+    mgrid = nifty.model(image, gc)
+    model = nifty.degrid(mgrid, uvw, flags, None, freq, gc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"grid_2d": g2.grid_2d.launches, "degrid_2d": g2.degrid_2d.launches}
+    check(launches == {"grid_2d": 1, "degrid_2d": 1}, f"nifty launches {launches}")
+    nu = 2 * nx
+    check(tuple(grid.shape) == (nu, nu, NIFTY_NCORR) and grid.dtype == torch.complex64
+          and tuple(dirty.shape) == (nx, nx, NIFTY_NCORR)
+          and dirty.dtype == torch.float32 and tuple(model.shape) == shape
+          and model.dtype == torch.complex64, "nifty output shapes")
+    for name, x in (("grid", grid), ("dirty", dirty), ("model", model)):
+        real = torch.view_as_real(x) if x.is_complex() else x
+        check(bool(torch.isfinite(real).all()), f"nifty: non-finite {name}")
+
+    # the kernels against their plain versions on the whole outputs
+    vals = vis.reshape(-1, NIFTY_NCORR).T
+    grid_p, grid2d_plain_ms = cuda_once_ms(lambda: g2.grid_2d_reference(wplan, vals))
+    grid2d_abs = float((grid.permute(2, 0, 1) - grid_p).abs().max())
+    grid2d_scale = float(grid_p.abs().max())
+    check(grid2d_abs <= GRIDDER_BOUND * grid2d_scale,
+          f"nifty grid_2d vs plain: {grid2d_abs:.3e} > 1e-5 x {grid2d_scale:.3e}")
+    del grid_p
+    mg = mgrid.permute(2, 0, 1)
+    model_p, degrid2d_plain_ms = cuda_once_ms(lambda: g2.degrid_2d_reference(wplan, mg))
+    degrid2d_abs = float((model.reshape(-1, NIFTY_NCORR).T - model_p).abs().max())
+    degrid2d_scale = float(model_p.abs().max())
+    check(degrid2d_abs <= GRIDDER_BOUND * degrid2d_scale,
+          f"nifty degrid_2d vs plain: {degrid2d_abs:.3e} > 1e-5 x {degrid2d_scale:.3e}")
+    del model_p
+    # adjointness: <dirty(grid(V)), I> = Re <degrid(model(I)), V>
+    lhs = float((dirty.double() * image.double()).sum())
+    rhs = float((model.real.double() * vis.real.double()
+                 + model.imag.double() * vis.imag.double()).sum())
+    nifty_adj = abs(lhs - rhs) / abs(lhs)
+    check(nifty_adj <= 1e-5, f"nifty adjointness {nifty_adj:.3e} > 1e-5")
+    # tests/test_nifty.py's problem in float64 on the card vs the explicit DFT
+    srng = np.random.default_rng(SEED + 5)
+    snx, scell_as = 16, 5.0 * 3600 / 16
+    scell = np.deg2rad(scell_as / 3600.0)
+    sfreq = 1e9 + np.arange(2) * 1e8
+    suvw = (srng.uniform(size=(200, 3)) - 0.5) / (scell * sfreq[-1] / 2.99792458e8)
+    suvw[:, 2] = 0.0
+    svis = srng.normal(size=(200, 2, 2)) + 1j * srng.normal(size=(200, 2, 2))
+    sgc = nifty.grid_config(snx, snx, 1e-7, scell_as, scell_as)
+    sd = nifty.dirty(nifty.grid(torch.as_tensor(svis, device=device), suvw,
+                                np.zeros(svis.shape, np.uint8), None, sfreq, sgc),
+                     sgc).cpu().numpy()
+    x, y = np.meshgrid(*[(-snx / 2 + np.arange(snx)) * scell] * 2, indexing="ij")
+    ref = np.zeros((snx, snx))
+    for c in range(2):
+        phase = sfreq[c] / 2.99792458e8 * (x[None] * suvw[:, 0, None, None]
+                                           + y[None] * suvw[:, 1, None, None])
+        ref += (svis[:, c, 0, None, None] * np.exp(2j * np.pi * phase)).real.sum(0)
+    dft_l2 = _l2(sd[:, :, 0], ref)
+    check(dft_l2 < 1e-5, f"nifty f64 dirty vs explicit DFT l2 {dft_l2:.3e}")
+    print(f"[17/{PHASES}] nifty gridder: {nrow} rows x {nchan} chan x {NIFTY_NCORR} "
+          f"corr, {nx}² image, eps {NIFTY_EPS} (W {wplan.support}, {nu}² grids, "
+          f"{wplan.ntiles} tiles); set-up {setup:.1f} s, plan cold {plan_s[0]:.3f} "
+          f"s, cached {plan_s[1]:.4f} s; grid + dirty + model + degrid in "
+          f"{wall:.3f} s wall (first call); launches {launches}; kernel vs plain: "
+          f"grid max abs {grid2d_abs:.3e} (max {grid2d_scale:.3e}), degrid "
+          f"{degrid2d_abs:.3e} (max {degrid2d_scale:.3e}); adjointness "
+          f"{nifty_adj:.2e}; f64 explicit-DFT l2 {dft_l2:.3e} (200 rows, 16², "
+          "bound 1e-5)", flush=True)
+
+    # 17b. PP facet: config-4 draws at 2048², 2 bands, kbsinc(7, 63), the
+    # image centre 0.5 deg from the phase centre, rotate + phase_rotate
+    t0 = time.perf_counter()
+    args = imaging_inputs(**FACET)
+    npix, cell_as = args["nx"], args["cell"] / ARCSEC2RAD
+    puvw, pfreq = args["uvw"].astype(np.float64), args["freq"].astype(np.float64)
+    wl = 2.99792458e8 / pfreq
+    chanmap = np.repeat(np.arange(FACET_BANDS), pfreq.size // FACET_BANDS)
+    phase_centre = (0.0, FACET_DEC)
+    image_centre = (0.0, FACET_DEC + np.deg2rad(FACET_OFFSET_DEG))
+    w, os_ = 7, 63
+    kern = pack_kernel(kbsinc(w, oversample=os_), w, os_)
+    prow = puvw.shape[0]
+    rng = np.random.default_rng(SEED)
+    pshape = (prow, pfreq.size, 2)
+    pvis = torch.as_tensor((rng.normal(size=pshape) + 1j * rng.normal(size=pshape))
+                           .astype(np.complex64)).to(device)
+    duvw = torch.as_tensor(puvw, device=device)
+    common = (npix, cell_as, image_centre, phase_centre)
+    gplan = pp.pp_tile_plan(puvw, wl, chanmap, *common, w, os_, "rotate", "grid",
+                            torch.float32, device)
+    dplan = pp.pp_tile_plan(puvw, wl, chanmap, *common, w, os_, "rotate", "degrid",
+                            torch.float32, device)
+    torch.cuda.synchronize()
+    psetup = time.perf_counter() - t0
+    pvis_n = prow * pfreq.size * 2
+    gargs = (duvw, pvis, wl, chanmap, *common, kern, w, os_, "rotate",
+             "phase_rotate", "I_FROM_XXYY", "conv_1d_axisymmetric_packed_scatter")
+
+    def pp_grid():
+        return pp.gridder(*gargs, tile_plan=gplan)
+
+    def pp_degrid(g):
+        return pp.degridder(duvw, g, wl, chanmap, cell_as, image_centre,
+                            phase_centre, kern, w, os_, "rotate", "phase_rotate",
+                            "XXYY_FROM_I", "conv_1d_axisymmetric_packed_gather",
+                            tile_plan=dplan)
+
+    gt.grid_table.launches = gt.degrid_table.launches = 0
+    t0 = time.perf_counter()
+    fgrid = pp_grid()
+    fvis = pp_degrid(fgrid)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    plaunches = {"grid_table": gt.grid_table.launches,
+                 "degrid_table": gt.degrid_table.launches}
+    check(plaunches == {"grid_table": 1, "degrid_table": 1}, f"PP launches {plaunches}")
+    check(tuple(fgrid.shape) == (FACET_BANDS, npix, npix)
+          and fgrid.dtype == torch.complex64 and tuple(fvis.shape) == pshape
+          and fvis.dtype == torch.complex64, "PP output shapes")
+    check(bool(torch.isfinite(torch.view_as_real(fgrid)).all())
+          and bool(torch.isfinite(torch.view_as_real(fvis)).all()), "PP: non-finite")
+    table = torch.as_tensor(pp.kernels.unpack_kernel(kern, w, os_)).to(
+        device=device, dtype=torch.float32)
+    stokes = pol.corr2stokes(pol.phase_transform(
+        pvis, duvw, wl, *phase_centre, *image_centre, "phase_rotate"),
+        "I_FROM_XXYY").reshape(-1).contiguous()
+    gtab_p, gtab_plain_ms = cuda_once_ms(
+        lambda: gt.grid_table_reference(gplan, table, stokes))
+    gtab_abs = float((fgrid - gtab_p).abs().max())
+    gtab_scale = float(gtab_p.abs().max())
+    check(gtab_abs <= GRIDDER_BOUND * gtab_scale,
+          f"PP grid_table vs plain: {gtab_abs:.3e} > 1e-5 x {gtab_scale:.3e}")
+    del gtab_p
+    dtab = gt.degrid_table(dplan, table, fgrid)
+    dtab_p, dtab_plain_ms = cuda_once_ms(
+        lambda: gt.degrid_table_reference(dplan, table, fgrid))
+    dtab_abs = float((dtab - dtab_p).abs().max())
+    dtab_scale = float(dtab_p.abs().max())
+    check(dtab_abs <= GRIDDER_BOUND * dtab_scale,
+          f"PP degrid_table vs plain: {dtab_abs:.3e} > 1e-5 x {dtab_scale:.3e}")
+    del dtab_p
+    # the adjoint identity of the table pair on the facet plan:
+    # <G, grid(S)> = <degrid(G), S>
+    G = torch.complex(torch.randn(fgrid.shape, device=device),
+                      torch.randn(fgrid.shape, device=device))
+    lhs = complex(torch.vdot(G.reshape(-1).to(torch.complex128),
+                             gt.grid_table(gplan, table, stokes).reshape(-1)
+                             .to(torch.complex128)))
+    rhs = complex(torch.vdot(gt.degrid_table(gplan, table, G).to(torch.complex128),
+                             stokes.to(torch.complex128)))
+    pp_adj = abs(lhs - rhs) / abs(lhs)
+    check(pp_adj <= 1e-5, f"PP table adjointness {pp_adj:.3e} > 1e-5")
+    kept = gplan.nkeep / gplan.nsamples
+    print(f"[17/{PHASES}] PP facet gridder: {prow} rows x {pfreq.size} chan x 2 corr "
+          f"(I_FROM_XXYY / XXYY_FROM_I), {npix}² x {FACET_BANDS} bands, kbsinc W {w} "
+          f"os {os_} packed, image centre {FACET_OFFSET_DEG} deg off, rotate + "
+          f"phase_rotate; set-up with both plans {psetup:.1f} s ({kept:.2%} of "
+          f"samples in the grid, {gplan.ntr}² tiles of {gplan.tile}); gridder + "
+          f"degridder in {pwall:.3f} s wall (first call); launches {plaunches}; "
+          f"kernel vs plain: grid max abs {gtab_abs:.3e} (max {gtab_scale:.3e}), "
+          f"degrid {dtab_abs:.3e} (max {dtab_scale:.3e}); table-pair adjointness "
+          f"{pp_adj:.2e}", flush=True)
+
+    # 18. times
+    grid2d_ms = kernel_median_ms(lambda: g2.grid_2d(wplan, vals))
+    spread2d_ms = kernel_median_ms(lambda: g2._spread(wplan, vals))
+    degrid2d_ms = kernel_median_ms(lambda: g2.degrid_2d(wplan, mg))
+    gtab_ms = kernel_median_ms(lambda: gt.grid_table(gplan, table, stokes))
+    dtab_ms = kernel_median_ms(lambda: gt.degrid_table(dplan, table, fgrid))
+    nifty_grid_ms, ng_runs = cuda_median_ms(
+        lambda: nifty.dirty(nifty.grid(vis, uvw, flags, None, freq, gc), gc))
+    nifty_degrid_ms, nd_runs = cuda_median_ms(
+        lambda: nifty.degrid(nifty.model(image, gc), uvw, flags, None, freq, gc))
+    pp_grid_ms, pg_runs = cuda_median_ms(pp_grid)
+    pp_degrid_ms, pd_runs = cuda_median_ms(lambda: pp_degrid(fgrid))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nifty.degrid(nifty.model(image, gc), uvw, flags, None, freq, gc)
+    nifty.dirty(nifty.grid(vis, uvw, flags, None, freq, gc), gc)
+    torch.cuda.synchronize()
+    nifty_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    pp_degrid(pp_grid())
+    torch.cuda.synchronize()
+    pp_peak = torch.cuda.max_memory_allocated() / 2**30
+    profiles = {
+        "nifty grid+dirty": _profile(
+            lambda: nifty.dirty(nifty.grid(vis, uvw, flags, None, freq, gc), gc)),
+        "nifty model+degrid": _profile(
+            lambda: nifty.degrid(nifty.model(image, gc), uvw, flags, None, freq, gc)),
+        "PP gridder": _profile(pp_grid),
+        "PP degridder": _profile(lambda: pp_degrid(fgrid)),
+    }
+    print(f"[18/{PHASES}] gridder times on {card}: nifty grid + dirty "
+          f"{nifty_grid_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in ng_runs)}) "
+          f"= {_mvis(nvis, nifty_grid_ms):.1f} Mvis/s, model + degrid "
+          f"{nifty_degrid_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in nd_runs)}) "
+          f"= {_mvis(nvis, nifty_degrid_ms):.1f} Mvis/s; PP gridder {pp_grid_ms:.3f} "
+          f"ms (runs {', '.join(f'{t:.3f}' for t in pg_runs)}) = "
+          f"{_mvis(pvis_n, pp_grid_ms):.1f} Mvis/s, degridder {pp_degrid_ms:.3f} ms "
+          f"(runs {', '.join(f'{t:.3f}' for t in pd_runs)}) = "
+          f"{_mvis(pvis_n, pp_degrid_ms):.1f} Mvis/s; kernels (CUDA graph of "
+          f"{BURST}): grid_2d {grid2d_ms:.4f} ms (spread {spread2d_ms:.4f} + fold), "
+          f"degrid_2d {degrid2d_ms:.4f} ms, grid_table {gtab_ms:.4f} ms, "
+          f"degrid_table {dtab_ms:.4f} ms; plain grid_2d {grid2d_plain_ms:.1f} ms, "
+          f"degrid_2d {degrid2d_plain_ms:.1f} ms, grid_table {gtab_plain_ms:.1f} ms, "
+          f"degrid_table {dtab_plain_ms:.1f} ms; peak device memory nifty "
+          f"{nifty_peak:.2f} GiB, PP {pp_peak:.2f} GiB", flush=True)
+    for name, (pwall_, busy, rows) in profiles.items():
+        top = "; ".join(f"{k[:40]} x{count // 3} {ms / 3:.4f} ms"
+                        for k, count, ms in rows[:6])
+        print(f"[18/{PHASES}] profiler, {name}, per call of 3: host "
+              f"{pwall_ / 3:.3f} ms, device busy {busy / 3:.4f} ms (idle "
+              f"{1 - busy / pwall_:.1%}), by device time: {top}", flush=True)
+
+    # bounds: the map's own operands (window starts and offsets, or the
+    # quantised starts, fractions and bands, the values, the table, the
+    # grids); per tap ku·kv once and 2 FMAs per correlation, 2 ES
+    # evaluations per axis tap, table taps read, not evaluated
+    geo2d = (wplan.iu0, wplan.iv0, wplan.uf, wplan.vf)
+    taps2d = wplan.nsamples * wplan.support ** 2
+    es2d = wplan.nsamples * 2 * wplan.support * ES_INSTR
+    keep = gplan.order.long()
+    geo_t = tuple(x[keep] for x in (gplan.ir0, gplan.ic0, gplan.fr, gplan.fc,
+                                    gplan.band))
+    dkeep = dplan.order.long()
+    dgeo_t = tuple(x[dkeep] for x in (dplan.ir0, dplan.ic0, dplan.fr, dplan.fc,
+                                      dplan.band))
+    entries = [
+        {"name": "grid_2d", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/grid2d.cu",
+         "replaces": "africanus_tpu/ops/pallas_grid.py:533, "
+                     "africanus_tpu/ops/pallas_grid.py:2503",
+         "launches": launches["grid_2d"], "max_abs_err": grid2d_abs,
+         "ms": grid2d_ms, "plain_ms": grid2d_plain_ms,
+         **bound(nbytes(geo2d, vals, grid),
+                 taps2d * (1 + 2 * NIFTY_NCORR) + es2d),
+         "library_ms": None},
+        {"name": "degrid_2d", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/grid2d.cu",
+         "replaces": "africanus_tpu/ops/pallas_grid.py:733, "
+                     "africanus_tpu/ops/pallas_grid.py:2599",
+         "launches": launches["degrid_2d"], "max_abs_err": degrid2d_abs,
+         "ms": degrid2d_ms, "plain_ms": degrid2d_plain_ms,
+         **bound(nbytes(geo2d, mg, model),
+                 taps2d * DEGRID_TAP_INSTR * NIFTY_NCORR + es2d),
+         "library_ms": None},
+        {"name": "grid_table", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/gridtab.cu",
+         "replaces": "africanus_tpu/ops/pallas_grid.py:1098",
+         "launches": plaunches["grid_table"], "max_abs_err": gtab_abs,
+         "ms": gtab_ms, "plain_ms": gtab_plain_ms,
+         **bound(nbytes(geo_t, stokes[keep], table, fgrid),
+                 gplan.nkeep * w * w * GRID_TAP_INSTR),
+         "library_ms": None},
+        {"name": "degrid_table", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/gridtab.cu",
+         "replaces": "africanus_tpu/ops/pallas_grid.py:1195",
+         "launches": plaunches["degrid_table"], "max_abs_err": dtab_abs,
+         "ms": dtab_ms, "plain_ms": dtab_plain_ms,
+         **bound(nbytes(dgeo_t, table, fgrid, dtab),
+                 dplan.nkeep * w * w * DEGRID_TAP_INSTR),
+         "library_ms": None},
+    ]
+    print(f"[18/{PHASES}] bounds: " + ", ".join(
+        f"{e['name']} {e['bound_ms']:.4f} ms ({e['bound_by']})" for e in entries),
+        flush=True)
+    return entries
+
+
 def main():
     import torch
 
@@ -1329,6 +1796,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from africanus_tpu_torch.ops.cuda_beam import build_beam
     from africanus_tpu_torch.ops.cuda_dft import build_dft
+    from africanus_tpu_torch.ops.cuda_grid2d import build_grid2d
+    from africanus_tpu_torch.ops.cuda_gridtab import build_gridtab
     from africanus_tpu_torch.ops.cuda_predict import build_predict_kb
     from africanus_tpu_torch.ops.cuda_wgrid import build_wgrid
 
@@ -1349,11 +1818,13 @@ def main():
     print(smi, flush=True)
 
     # 2. build, one nvcc per source, started together
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = [f.result() for f in [pool.submit(build_predict_kb),
                                        pool.submit(build_dft),
                                        pool.submit(build_wgrid),
-                                       pool.submit(build_beam)]]
+                                       pool.submit(build_beam),
+                                       pool.submit(build_grid2d),
+                                       pool.submit(build_gridtab)]]
     for lib, seconds, log in builds:
         ptxas = "; ".join(ln.split("ptxas info    : ")[-1]
                           for ln in log.splitlines() if "Used" in ln)
@@ -1374,6 +1845,11 @@ def main():
     # 13-15. the beam kernels against their plain versions, then config 3
     beam_kernel_checks(device)
     kernels += beam_chain(device, card)
+
+    # 16-18. the gridder kernels against their plain versions, then the
+    # nifty and Perley-polyhedron gridders
+    gridder_kernel_checks(device)
+    kernels += gridders(device, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,11 @@ float32 and 1e-12 in float64 (sums in another order than the plain
 versions' index_add_ and gather-sum); w-stacked imaging on the card
 1e-5·max against the CPU. The beam kernels 1e-5·max|out| in float32 and
 1e-12 in float64 (the same operations, contracted into FMAs by nvcc);
-the beam chain's routes on the card 1e-5·max against the CPU.
+the beam chain's routes on the card 1e-5·max against the CPU. The 2D
+multi-correlation and table gridder kernels 1e-5·max|out| in float32
+and 1e-12 in float64 (sums in another order than index_add_ and the
+gather-sum); the nifty and Perley-polyhedron gridders on the card
+against the CPU 1e-5·max in float32, 1e-12 in float64.
 """
 
 import os
@@ -31,18 +35,23 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    beam_problem, dft_problem, kernel_problem, wgrid_problem,
+    beam_problem, dft_problem, grid2d_problem, kernel_problem, table_problem,
+    wgrid_problem,
 )
 
 from africanus_tpu_torch.calibration.selfcal import (  # noqa: E402
     from_numpy as selfcal_from_numpy, make_data, selfcal_inputs,
 )
+from africanus_tpu_torch.gridding import nifty  # noqa: E402
+from africanus_tpu_torch.gridding import perleypolyhedron as pp  # noqa: E402
 from africanus_tpu_torch.gridding.wgridder import dirty, model  # noqa: E402
 from africanus_tpu_torch.gridding.wgridder.imaging import (  # noqa: E402
     from_numpy as imaging_from_numpy, imaging_inputs,
 )
 from africanus_tpu_torch.ops import cuda_beam as cb  # noqa: E402
 from africanus_tpu_torch.ops import cuda_dft as cd  # noqa: E402
+from africanus_tpu_torch.ops import cuda_grid2d as g2  # noqa: E402
+from africanus_tpu_torch.ops import cuda_gridtab as gt  # noqa: E402
 from africanus_tpu_torch.ops import cuda_predict as cp  # noqa: E402
 from africanus_tpu_torch.ops import cuda_wgrid as cw  # noqa: E402
 from africanus_tpu_torch.rime.beam_chain import (  # noqa: E402
@@ -433,3 +442,126 @@ def test_beam_cube_dde_out_of_cube_on_card_matches_cpu(device, feed_type, dtype)
     assert cb.beam_interp.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape == (nsrc, ntime, nant, nchan, 2, 2)
     _assert_close(got.cpu(), want, 1e-5 if dtype == torch.complex64 else 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [4, 6, 8, 10])
+@pytest.mark.parametrize("ncorr", [1, 2, 4])
+@pytest.mark.parametrize("nu,nv,n", [(64, 64, 1007), (70, 45, 333), (12, 10, 50)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_grid2d_kernels_match_plain(device, support, ncorr, nu, nv, n, dtype):
+    rng = np.random.default_rng(support * 1000 + 10 * ncorr + n)
+    plan, vis, grid = grid2d_problem(rng, n, nu, nv, ncorr, support, dtype, device)
+    before = (g2.grid_2d.launches, g2.degrid_2d.launches)
+    got_g = g2.grid_2d(plan, vis)
+    got_d = g2.degrid_2d(plan, grid)
+    torch.cuda.synchronize()
+    assert (g2.grid_2d.launches, g2.degrid_2d.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    assert got_g.shape == (ncorr, nu, nv) and got_d.shape == (ncorr, n)
+    assert got_g.dtype == got_d.dtype == plan.complex_dtype
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    _assert_close(got_g, g2.grid_2d_reference(plan, vis), bound)
+    _assert_close(got_d, g2.degrid_2d_reference(plan, grid), bound)
+    # a contiguous (ncorr, N) operand reads the same as the transposed one
+    _assert_close(g2.grid_2d(plan, vis.contiguous()), got_g, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [3, 5, 7, 15])
+@pytest.mark.parametrize("oversample", [5, 63])
+@pytest.mark.parametrize("npix,n", [(64, 1007), (37, 333), (5, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_gridtab_kernels_match_plain(device, support, oversample, npix, n, dtype):
+    rng = np.random.default_rng(support * 1000 + oversample + n)
+    plan, table, vals, grid = table_problem(rng, n, npix, 2, support, oversample,
+                                            dtype, device)
+    before = (gt.grid_table.launches, gt.degrid_table.launches)
+    got_g = gt.grid_table(plan, table, vals)
+    got_d = gt.degrid_table(plan, table, grid)
+    torch.cuda.synchronize()
+    assert (gt.grid_table.launches, gt.degrid_table.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    assert got_g.shape == (2, npix, npix) and got_d.shape == (n,)
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    _assert_close(got_g, gt.grid_table_reference(plan, table, vals), bound)
+    _assert_close(got_d, gt.degrid_table_reference(plan, table, grid), bound)
+
+
+@pytest.mark.cuda
+def test_gridder_kernels_are_deterministic(device):
+    rng = np.random.default_rng(12)
+    plan, vis, grid = grid2d_problem(rng, 50_000, 512, 512, 4, 8, torch.float32,
+                                     device)
+    assert torch.equal(g2.grid_2d(plan, vis), g2.grid_2d(plan, vis))
+    assert torch.equal(g2.degrid_2d(plan, grid), g2.degrid_2d(plan, grid))
+    plan, table, vals, grid = table_problem(rng, 50_000, 512, 2, 7, 63,
+                                            torch.float32, device)
+    assert torch.equal(gt.grid_table(plan, table, vals),
+                       gt.grid_table(plan, table, vals))
+    assert torch.equal(gt.degrid_table(plan, table, grid),
+                       gt.degrid_table(plan, table, grid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [np.complex64, np.complex128], ids=["c64", "c128"])
+def test_nifty_on_card_matches_cpu(device, cdtype):
+    args = imaging_inputs(nrow=3000, nchan=4, nx=64, seed=4)
+    rng = np.random.default_rng(3)
+    vis = (rng.normal(size=(3000, 4, 4)) + 1j * rng.normal(size=(3000, 4, 4))
+           ).astype(cdtype)
+    flags = (rng.uniform(size=vis.shape) < 0.1).astype(np.uint8)
+    image = rng.normal(size=(64, 64, 4)).astype(np.real(vis).dtype)
+    cell_as = np.rad2deg(args["cell"]) * 3600
+    gc = nifty.grid_config(64, 64, 1e-5, cell_as, cell_as)
+    uvw, freq = args["uvw"], args["freq"]
+
+    def run(dev):
+        g = nifty.grid(torch.as_tensor(vis, device=dev), uvw, flags, None, freq, gc)
+        return (g, nifty.dirty(g, gc),
+                nifty.degrid(nifty.model(torch.as_tensor(image, device=dev), gc),
+                             uvw, flags, None, freq, gc))
+
+    before = (g2.grid_2d.launches, g2.degrid_2d.launches)
+    got = run(device)
+    torch.cuda.synchronize()
+    assert (g2.grid_2d.launches, g2.degrid_2d.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    bound = 1e-5 if cdtype == np.complex64 else 1e-12
+    for g, w in zip(got, run("cpu")):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_close(g.cpu(), w, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", [np.complex64, np.complex128], ids=["c64", "c128"])
+def test_pp_gridder_on_card_matches_cpu(device, cdtype):
+    args = imaging_inputs(nrow=3000, nchan=4, nx=128, seed=4)
+    uvw = args["uvw"].astype(np.float64)
+    wl = 2.99792458e8 / args["freq"].astype(np.float64)
+    chanmap = np.array([0, 0, 1, 1])
+    cell_as = np.rad2deg(args["cell"]) * 3600
+    centres = ((0.0, -0.5 + 0.01), (0.0, -0.5))
+    kern = pp.kernels.pack_kernel(pp.kernels.kbsinc(7, oversample=63), 7, 63)
+    rng = np.random.default_rng(4)
+    vis = (rng.normal(size=(3000, 4, 2)) + 1j * rng.normal(size=(3000, 4, 2))
+           ).astype(cdtype)
+
+    def run(dev):
+        g = pp.gridder(uvw, torch.as_tensor(vis, device=dev), wl, chanmap, 128,
+                       cell_as, *centres, kern, 7, 63, "rotate", "phase_rotate",
+                       "I_FROM_XXYY", "conv_1d_axisymmetric_packed_scatter",
+                       do_normalize=True)
+        return g, pp.degridder(uvw, g, wl, chanmap, cell_as, *centres, kern, 7, 63,
+                               "rotate", "phase_rotate", "XXYY_FROM_I",
+                               "conv_1d_axisymmetric_packed_gather")
+
+    before = (gt.grid_table.launches, gt.degrid_table.launches)
+    got = run(device)
+    torch.cuda.synchronize()
+    assert (gt.grid_table.launches, gt.degrid_table.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    bound = 1e-5 if cdtype == np.complex64 else 1e-12
+    for g, w in zip(got, run("cpu")):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_close(g.cpu(), w, bound)
