@@ -5,7 +5,7 @@
 //   grid:    G[band, ir0+a, ic0+b] += K[(a+1)*os + fr] * K[(b+1)*os + fc] * S
 //   degrid:  S = sum_a K[(a+1)*os + fr] sum_b K[(b+1)*os + fc] * G[band, ir0+a, ic0+b]
 //
-// over a, b = 0..W-1 (W odd, 3..15) and only the cells inside [0, npix)^2:
+// over a, b = 0..W-1 (W odd, 3..31) and only the cells inside [0, npix)^2:
 // windows that hang off the grid are cut, never wrapped. Rows are v, cols
 // u: ir0 = round(v) - W/2, ic0 = round(u) - W/2. K is the oversampled 1D
 // kernel table, os * (W + 2) values. Every integer (window starts, table
@@ -42,6 +42,11 @@
 //  - degrid: one thread per kept sample in tile order, the table in
 //    shared memory, the in-grid taps summed in a fixed order, written to
 //    the sample's own index (the wrapper zeroes the dropped samples).
+//  - A table too large for shared memory beside the kernel's other
+//    buffers (complex128 at W = 15, oversampling 1023: 139 KB) is read
+//    from device memory through the read-only path instead of staged
+//    (tab_smem = 0, the host's choice): a table read is 2W per sample
+//    against W^2 taps, so it costs little either way.
 //
 // No --use_fast_math.
 
@@ -67,6 +72,14 @@ constexpr size_t spread_smem(size_t ru, size_t rv, size_t ntab) {
            + (ntab + 2 * CHUNK * W) * sizeof(T) + CHUNK * sizeof(int);
 }
 
+// Table value i: from the staged copy in shared memory, or (a table too
+// large to stage) from device memory through the read-only path.
+template <typename T>
+__device__ __forceinline__ T tab_at(const T* s_tab, const T* __restrict__ table,
+                                    bool staged, int i) {
+    return staged ? s_tab[i] : __ldg(table + i);
+}
+
 // One block (one warp) per (uv tile, band): tiles (ntiles * nband, ru, rv)
 // with ru = tile_r + W - 1, rv = tile_c + W - 1, tile index (tr * ntc +
 // tc) * nband + band, every cell written. Samples are placed on the grid
@@ -76,7 +89,7 @@ __global__ void __launch_bounds__(32)
 gridtab_spread_kernel(const int* __restrict__ order, const int* __restrict__ tile_start,
                       const int* __restrict__ ir0, const int* __restrict__ ic0,
                       const int* __restrict__ fr, const int* __restrict__ fc,
-                      const T* __restrict__ table, int ntab, int os,
+                      const T* __restrict__ table, int ntab, int os, int tab_smem,
                       const typename Vec2<T>::type* __restrict__ vals,
                       typename Vec2<T>::type* __restrict__ tiles, int tile_r,
                       int tile_c, int ntc, int nband) {
@@ -87,12 +100,13 @@ gridtab_spread_kernel(const int* __restrict__ order, const int* __restrict__ til
 
     V2* acc = reinterpret_cast<V2*>(smem);                   // (ru, rv)
     V2* s_val = acc + (size_t)cells;                         // (CHUNK,)
-    T* s_tab = reinterpret_cast<T*>(s_val + CHUNK);         // (ntab,)
-    T* s_kr = s_tab + ntab;                                  // (CHUNK, W) each
+    T* s_tab = reinterpret_cast<T*>(s_val + CHUNK);         // (ntab,) if staged
+    T* s_kr = s_tab + (tab_smem ? ntab : 0);                 // (CHUNK, W) each
     T* s_kc = s_kr + CHUNK * W;
     int* s_off = reinterpret_cast<int*>(s_kc + CHUNK * W);  // local row * rv + col
 
-    for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = table[i];
+    if (tab_smem)
+        for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = table[i];
     for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = vec2(T(0), T(0));
 
     const int uv = blockIdx.x / nband;
@@ -108,8 +122,8 @@ gridtab_spread_kernel(const int* __restrict__ order, const int* __restrict__ til
             const int f_r = fr[s], f_c = fc[s];
 #pragma unroll
             for (int a = 0; a < W; ++a) {
-                s_kr[q * W + a] = s_tab[(a + 1) * os + f_r];
-                s_kc[q * W + a] = s_tab[(a + 1) * os + f_c];
+                s_kr[q * W + a] = tab_at(s_tab, table, tab_smem, (a + 1) * os + f_r);
+                s_kc[q * W + a] = tab_at(s_tab, table, tab_smem, (a + 1) * os + f_c);
             }
             s_val[q] = vals[s];
         }
@@ -141,14 +155,16 @@ __global__ void __launch_bounds__(DEGRID_THREADS)
 gridtab_degrid_kernel(const int* __restrict__ order, const int* __restrict__ ir0,
                       const int* __restrict__ ic0, const int* __restrict__ fr,
                       const int* __restrict__ fc, const int* __restrict__ band,
-                      const T* __restrict__ table, int ntab, int os,
+                      const T* __restrict__ table, int ntab, int os, int tab_smem,
                       const typename Vec2<T>::type* __restrict__ grid,
                       typename Vec2<T>::type* __restrict__ out, int nkeep, int npix) {
     using V2 = typename Vec2<T>::type;
     extern __shared__ __align__(16) unsigned char smem[];
     T* s_tab = reinterpret_cast<T*>(smem);
-    for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = table[i];
-    __syncthreads();
+    if (tab_smem) {
+        for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = table[i];
+        __syncthreads();
+    }
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= nkeep) return;
     const int s = order[i];
@@ -160,7 +176,7 @@ gridtab_degrid_kernel(const int* __restrict__ order, const int* __restrict__ ir0
     for (int b = 0; b < W; ++b) {
         const int c = q0 + b;
         const bool in = c >= 0 && c < npix;
-        kc[b] = in ? s_tab[(b + 1) * os + f_c] : T(0);
+        kc[b] = in ? tab_at(s_tab, table, tab_smem, (b + 1) * os + f_c) : T(0);
         col[b] = in ? c : 0;
     }
     T ar = T(0), ai = T(0);
@@ -176,7 +192,7 @@ gridtab_degrid_kernel(const int* __restrict__ order, const int* __restrict__ ir0
             br += kc[b] * x.x;
             bi += kc[b] * x.y;
         }
-        const T kr = s_tab[(a + 1) * os + f_r];
+        const T kr = tab_at(s_tab, table, tab_smem, (a + 1) * os + f_r);
         ar += kr * br;
         ai += kr * bi;
     }
@@ -186,29 +202,31 @@ gridtab_degrid_kernel(const int* __restrict__ order, const int* __restrict__ ir0
 template <typename T, int W>
 int spread(const int* order, const int* tile_start, const int* ir0, const int* ic0,
            const int* fr, const int* fc, const void* table, int ntab, int os,
-           const void* vals, void* tiles, int tile_r, int tile_c, int ntiles,
-           int ntc, int nband, cudaStream_t stream) {
+           int tab_smem, const void* vals, void* tiles, int tile_r, int tile_c,
+           int ntiles, int ntc, int nband, cudaStream_t stream) {
     using V2 = typename Vec2<T>::type;
-    const size_t smem = spread_smem<T, W>(tile_r + W - 1, tile_c + W - 1, ntab);
+    const size_t smem = spread_smem<T, W>(tile_r + W - 1, tile_c + W - 1,
+                                          tab_smem ? ntab : 0);
     if (smem > (size_t)BUDGET || ntab < os * (W + 2)) return (int)cudaErrorInvalidValue;
     gridtab_spread_kernel<T, W><<<ntiles * nband, 32, smem, stream>>>(
         order, tile_start, ir0, ic0, fr, fc, static_cast<const T*>(table), ntab, os,
-        static_cast<const V2*>(vals), static_cast<V2*>(tiles), tile_r, tile_c, ntc,
-        nband);
+        tab_smem, static_cast<const V2*>(vals), static_cast<V2*>(tiles), tile_r,
+        tile_c, ntc, nband);
     return (int)cudaGetLastError();
 }
 
 template <typename T, int W>
 int degrid(const int* order, const int* ir0, const int* ic0, const int* fr,
            const int* fc, const int* band, const void* table, int ntab, int os,
-           const void* grid, void* out, int nkeep, int npix, cudaStream_t stream) {
+           int tab_smem, const void* grid, void* out, int nkeep, int npix,
+           cudaStream_t stream) {
     using V2 = typename Vec2<T>::type;
-    const size_t smem = ntab * sizeof(T);
+    const size_t smem = tab_smem ? ntab * sizeof(T) : 0;
     if (smem > (size_t)BUDGET || ntab < os * (W + 2)) return (int)cudaErrorInvalidValue;
     const int blocks = (nkeep + DEGRID_THREADS - 1) / DEGRID_THREADS;
     gridtab_degrid_kernel<T, W><<<blocks, DEGRID_THREADS, smem, stream>>>(
         order, ir0, ic0, fr, fc, band, static_cast<const T*>(table), ntab, os,
-        static_cast<const V2*>(grid), static_cast<V2*>(out), nkeep, npix);
+        tab_smem, static_cast<const V2*>(grid), static_cast<V2*>(out), nkeep, npix);
     return (int)cudaGetLastError();
 }
 
@@ -230,7 +248,15 @@ int allow_budget_all() {
     err = err ? err : allow_budget<T, 9>();
     err = err ? err : allow_budget<T, 11>();
     err = err ? err : allow_budget<T, 13>();
-    return err ? err : allow_budget<T, 15>();
+    err = err ? err : allow_budget<T, 15>();
+    err = err ? err : allow_budget<T, 17>();
+    err = err ? err : allow_budget<T, 19>();
+    err = err ? err : allow_budget<T, 21>();
+    err = err ? err : allow_budget<T, 23>();
+    err = err ? err : allow_budget<T, 25>();
+    err = err ? err : allow_budget<T, 27>();
+    err = err ? err : allow_budget<T, 29>();
+    return err ? err : allow_budget<T, 31>();
 }
 
 }  // namespace
@@ -252,13 +278,22 @@ extern "C" int gridtab_init() {
         case 11: return CALL(T, 11);   \
         case 13: return CALL(T, 13);   \
         case 15: return CALL(T, 15);   \
+        case 17: return CALL(T, 17);   \
+        case 19: return CALL(T, 19);   \
+        case 21: return CALL(T, 21);   \
+        case 23: return CALL(T, 23);   \
+        case 25: return CALL(T, 25);   \
+        case 27: return CALL(T, 27);   \
+        case 29: return CALL(T, 29);   \
+        case 31: return CALL(T, 31);   \
         default: return (int)cudaErrorInvalidValue; \
     }
 
 // order: (nkeep,) int32 kept samples sorted stably by block (uv tile,
 // band); tile_start: (ntiles * nband + 1,) int32 offsets into it. ir0, ic0,
 // fr, fc: (n,) int32 window starts (rows v, cols u) and table fractions;
-// table: (ntab,) T, ntab >= os * (W + 2); vals: (n,) complex T. tiles:
+// table: (ntab,) T, ntab >= os * (W + 2), staged in shared memory when
+// tab_smem, else read from device memory; vals: (n,) complex T. tiles:
 // (ntiles * nband, tile_r + W - 1, tile_c + W - 1) complex T, every cell
 // written; fold them with wgrid_fold_launch (nplanes = nband) and the
 // plan's clipping tables. Refused (invalid value) if a block would take
@@ -268,12 +303,13 @@ extern "C" int gridtab_spread_launch(const int* order, const int* tile_start,
                                      const int* ir0, const int* ic0, const int* fr,
                                      const int* fc, const void* table, const void* vals,
                                      void* tiles, int support, int ntab, int os,
-                                     int tile_r, int tile_c, int ntiles, int ntc,
-                                     int nband, int is_double, void* stream) {
+                                     int tab_smem, int tile_r, int tile_c, int ntiles,
+                                     int ntc, int nband, int is_double, void* stream) {
     if (ntiles <= 0 || nband <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, W) spread<T, W>(order, tile_start, ir0, ic0, fr, fc, table, ntab, os, \
-                                vals, tiles, tile_r, tile_c, ntiles, ntc, nband, st)
+                                tab_smem, vals, tiles, tile_r, tile_c, ntiles, ntc,  \
+                                nband, st)
     if (is_double) { GRIDTAB_SUPPORTS(CALL, double) }
     GRIDTAB_SUPPORTS(CALL, float)
 #undef CALL
@@ -285,12 +321,12 @@ extern "C" int gridtab_spread_launch(const int* order, const int* tile_start,
 extern "C" int gridtab_degrid_launch(const int* order, const int* ir0, const int* ic0,
                                      const int* fr, const int* fc, const int* band,
                                      const void* table, const void* grid, void* out,
-                                     int support, int ntab, int os, int nkeep,
-                                     int npix, int is_double, void* stream) {
+                                     int support, int ntab, int os, int tab_smem,
+                                     int nkeep, int npix, int is_double, void* stream) {
     if (nkeep <= 0) return (int)cudaSuccess;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, W) degrid<T, W>(order, ir0, ic0, fr, fc, band, table, ntab, os, grid, \
-                                out, nkeep, npix, st)
+#define CALL(T, W) degrid<T, W>(order, ir0, ic0, fr, fc, band, table, ntab, os,        \
+                                tab_smem, grid, out, nkeep, npix, st)
     if (is_double) { GRIDTAB_SUPPORTS(CALL, double) }
     GRIDTAB_SUPPORTS(CALL, float)
 #undef CALL

@@ -30,153 +30,45 @@
 // bytes of plan and visibility and do W^2*wsup taps of ~5 flops (216 at
 // W = 6: ~1e3 flops); at bench config 4 (800k samples, a 9 x 1024^2
 // complex64 grid of 75 MB) that is ~120 MB of compulsory traffic (~36 us
-// at 3.35 TB/s) against ~1e9 flops (~15 us at 67 TFLOP/s). What the
-// design does about it, and what it leaves for later:
-//  - grid: the host sorts the samples stably by the uv tile that holds
-//    their window start and decides the whole launch layout
-//    (ops/cuda_wgrid.py): the tile edge (so that a tile's whole stack fits
-//    32 KB: 16 at W = 6 and 9 planes, 10 at 17 planes), the planes of a
-//    tile one block holds (all of them unless the stack is deep) and the
-//    samples staged per pass; here the launch only checks that a block
-//    fits TILE_BUDGET and that the count is CHUNK. One block owns one
-//    tile (or one block of its planes) and keeps the tile plus its W-1
-//    halo, for its planes, in shared memory. It stages CHUNK samples at a
-//    time (ES taps computed once per sample, W * V per w-tap), then each
-//    warp owns whole planes: it takes the staged samples in plan order
-//    and, for each one whose window meets its plane, its lanes split the
-//    W^2 taps (distinct cells) and a __syncwarp separates consecutive
-//    samples. No two warps touch one cell, so there is no barrier per
-//    sample, no atomics, every cell sums its contributions in one fixed
-//    order, and two launches give bitwise-equal grids. The grid is written once; a second kernel folds
-//    each cell's halo copies (at most a few padded tiles cover a cell) in a
-//    fixed order from host-built tables, wrapping mod nu, nv, so any grid
-//    size and ragged edge tiles need no special case. The halo re-reads
-//    (~1.7x the grid at a 16-cell tile), the shared-memory read-modify-
-//    writes and idle lanes (36 taps on 64 lane slots at W = 6) are this
-//    design's cost over the byte bound.
-//  - degrid: one thread per sample, in the same tile-sorted order (so a
-//    warp's windows overlap in L1/L2), reads its W^2*wsup wrapped cells and
-//    sums them in a fixed order; the value goes to the sample's own index,
-//    so there is no permutation and no scatter.
+// at 3.35 TB/s) against ~1e9 flops (~15 us at 67 TFLOP/s). Above that,
+// what costs is the deposit itself: 216 shared-memory read-modify-writes
+// per sample if every tap went to memory.
+//  - grid: gridding.cuh's tile spread kernel (its header has the design).
+//    One block owns a uv tile of a block of planes outright and writes each
+//    grid cell once: no halo, no padded tiles in device memory, no fold
+//    kernel. Consumer thread (g, ra, rb) owns one cell of every window (the
+//    one = (ra, rb) mod W in tile coordinates) in its group's consecutive
+//    planes, so all W^2 threads of a group work on every sample whose
+//    w-window meets their planes, with no barrier or __syncwarp between
+//    samples, and keep their sums in registers until their cell moves. Two
+//    producer warps stage the next chunk (geometry read in plan order, the
+//    visibilities gathered, per consumer residue the cell offset and ES
+//    tap, per plane the w-tap times V) while the consumers spread the
+//    current one. The host (ops/cuda_wgrid.py) decides the tile edge, the
+//    planes per block and the consumer groups, and lists per tile, in a
+//    fixed order, the samples whose windows meet it (its own and the
+//    spill-ins from its neighbours); every cell is summed by one thread in
+//    a fixed order, so two launches give bitwise-equal grids. What bounds
+//    it now (chip probes, PERF.md §6): the consumers' dependent chain per
+//    sample (two shared loads, the cell compare, a flush of the running
+//    sums to shared memory on ~25% of the samples, which the warp pays
+//    whenever any lane flushes), not bytes.
+//  - degrid: one thread per sample in plan order (samples sorted by tile
+//    and window start, so a warp's windows overlap in L1/L2), reading its
+//    geometry contiguously in that order; it sums its W^2*wsup wrapped
+//    cells in a fixed order and writes the value to the sample's own
+//    index, so there is no permutation and no scatter.
 //
 // No --use_fast_math: expf/exp and sqrtf/sqrt are the accurate library
 // versions, and the strict |z| < 1 cutoff is decided on the same
 // (u - a) / (W/2) as the plain versions.
 
-#include <cuda_runtime.h>
+#include "gridding.cuh"
 
 namespace {
 
-constexpr int GRID_WARPS = 32;           // grid kernel: warps per block, at most
-constexpr int TILE_BUDGET = 112 * 1024;  // grid kernel: shared memory per block, at most
-// grid kernel: samples staged per pass. A compile-time constant (a count
-// passed at launch made the spread kernel slower at config 4); the host
-// lays a block out for the count it passes, and the launch refuses any
-// other.
-constexpr int CHUNK = 128;
 constexpr int FOLD_THREADS = 256;
 constexpr int DEGRID_THREADS = 128;
-
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
-
-__device__ __forceinline__ float2 vec2(float x, float y) { return make_float2(x, y); }
-__device__ __forceinline__ double2 vec2(double x, double y) { return make_double2(x, y); }
-
-__device__ __forceinline__ float es_tap(float z, float beta) {
-    return fabsf(z) < 1.0f ? expf(beta * (sqrtf(1.0f - z * z) - 1.0f)) : 0.0f;
-}
-
-__device__ __forceinline__ double es_tap(double z, double beta) {
-    return fabs(z) < 1.0 ? exp(beta * (sqrt(1.0 - z * z) - 1.0)) : 0.0;
-}
-
-__device__ __forceinline__ int pmod(int x, int n) {
-    const int r = x % n;
-    return r < 0 ? r + n : r;
-}
-
-// One block per (uv tile, plane block), one warp per plane (a warp loops
-// over several planes when the block has more than GRID_WARPS). tiles:
-// (ntiles, nplanes, ru, rv) with ru = tile_u + W - 1, rv = tile_v + W - 1;
-// the block writes its planes [pb0, pb0 + npb) of its tile whole, zeros
-// included. It stages CHUNK samples per pass.
-template <typename T, int W>
-__global__ void __launch_bounds__(GRID_WARPS * 32)
-wgrid_spread_kernel(const int* __restrict__ order, const int* __restrict__ tile_start,
-                    const int* __restrict__ iu0, const int* __restrict__ iv0,
-                    const int* __restrict__ p0, const T* __restrict__ uf,
-                    const T* __restrict__ vf, const T* __restrict__ wsc,
-                    const typename Vec2<T>::type* __restrict__ vis,
-                    typename Vec2<T>::type* __restrict__ tiles, int n, int nu,
-                    int nv, int nplanes, int wsup, int tile_u, int tile_v,
-                    int ntv, int plane_block, int nblk, T beta) {
-    using V2 = typename Vec2<T>::type;
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int ru = tile_u + W - 1, rv = tile_v + W - 1;
-    const int tile = blockIdx.x / nblk;
-    const int pb0 = (blockIdx.x % nblk) * plane_block;
-    const int npb = min(plane_block, nplanes - pb0);
-    const int cells = npb * ru * rv;
-
-    V2* acc = reinterpret_cast<V2*>(smem);  // (plane_block, ru, rv)
-    T* s_ku = reinterpret_cast<T*>(acc + (size_t)plane_block * ru * rv);
-    T* s_kv = s_ku + CHUNK * W;                            // (CHUNK, W) each
-    V2* s_wv = reinterpret_cast<V2*>(s_kv + CHUNK * W);    // (CHUNK, W): wsc * V
-    int* s_off = reinterpret_cast<int*>(s_wv + CHUNK * W); // local row * rv + col
-    int* s_p = s_off + CHUNK;                              // p0 - pb0
-
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = vec2(T(0), T(0));
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int nwarps = blockDim.x / 32;
-    const int tu = tile / ntv, tv = tile - tu * ntv;
-    const int lo = tile_start[tile], hi = tile_start[tile + 1];
-    const T half = T(W) / T(2);
-    for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-        const int cn = min(CHUNK, hi - c0);
-        for (int q = threadIdx.x; q < cn; q += blockDim.x) {  // stage sample c0 + q
-            const int s = order[c0 + q];
-            s_off[q] = (pmod(iu0[s], nu) - tu * tile_u) * rv + pmod(iv0[s], nv) - tv * tile_v;
-            s_p[q] = p0[s] - pb0;
-            const T u = uf[s], v = vf[s];
-#pragma unroll
-            for (int a = 0; a < W; ++a) {
-                s_ku[q * W + a] = es_tap((u - T(a)) / half, beta);
-                s_kv[q * W + a] = es_tap((v - T(a)) / half, beta);
-            }
-            const V2 x = vis[s];
-            for (int t = 0; t < wsup; ++t) {
-                const T w = wsc[(size_t)t * n + s];
-                s_wv[q * W + t] = vec2(w * x.x, w * x.y);
-            }
-        }
-        __syncthreads();  // staged, and (first pass) the tile zeroed
-        for (int pl = warp; pl < npb; pl += nwarps) {
-            V2* plane = acc + (size_t)pl * ru * rv;
-            for (int j = 0; j < cn; ++j) {
-                const int t = pl - s_p[j];  // the same for every lane
-                if (t < 0 || t >= wsup) continue;
-                const V2 wv = s_wv[j * W + t];
-                const T* ku = s_ku + j * W;
-                const T* kv = s_kv + j * W;
-                V2* win = plane + s_off[j];
-                for (int k = lane; k < W * W; k += 32) {
-                    const int a = k / W, b = k - a * W;
-                    const T tap = ku[a] * kv[b];
-                    V2& cell = win[a * rv + b];
-                    cell.x += tap * wv.x;
-                    cell.y += tap * wv.y;
-                }
-                __syncwarp();  // sample j lands before sample j + 1 reads
-            }
-        }
-        __syncthreads();  // every warp is done with the staged chunk
-    }
-    V2* dst = tiles + ((size_t)tile * nplanes + pb0) * ru * rv;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = acc[i];
-}
 
 // grid[p, gu, gv] = sum of the padded-tile cells that cover (gu, gv), in
 // the fixed order of the host tables src_u (nu, ku) and src_v (nv, kv):
@@ -213,7 +105,8 @@ wgrid_fold_kernel(const typename Vec2<T>::type* __restrict__ tiles,
     grid[idx] = vec2(sr, si);
 }
 
-// One thread per sample, samples in the plan's tile-sorted order.
+// One thread per sample, in plan order: geometry at plan position i,
+// the value to sample order[i].
 template <typename T, int W>
 __global__ void __launch_bounds__(DEGRID_THREADS)
 wgrid_degrid_kernel(const int* __restrict__ order, const int* __restrict__ iu0,
@@ -228,8 +121,8 @@ wgrid_degrid_kernel(const int* __restrict__ order, const int* __restrict__ iu0,
     if (i >= n) return;
     const int s = order[i];
     const T half = T(W) / T(2);
-    const T u = uf[s], v = vf[s];
-    const int u0 = pmod(iu0[s], nu), v0 = pmod(iv0[s], nv);
+    const T u = uf[i], v = vf[i];
+    const int u0 = pmod(iu0[i], nu), v0 = pmod(iv0[i], nv);
     T ku[W], kv[W];
     size_t row[W];
     int col[W];
@@ -241,7 +134,7 @@ wgrid_degrid_kernel(const int* __restrict__ order, const int* __restrict__ iu0,
         col[a] = (v0 + a) % nv;
     }
     const size_t plane = (size_t)nu * nv;
-    const int pbase = p0[s];
+    const int pbase = p0[i];
     T sr = T(0), si = T(0);
     for (int t = 0; t < wsup; ++t) {
         const V2* g = grid + (size_t)(pbase + t) * plane;
@@ -258,33 +151,11 @@ wgrid_degrid_kernel(const int* __restrict__ order, const int* __restrict__ iu0,
             ar += ku[a] * br;
             ai += ku[a] * bi;
         }
-        const T w = wsc[(size_t)t * n + s];
+        const T w = wsc[(size_t)t * n + i];
         sr += w * ar;
         si += w * ai;
     }
     out[s] = vec2(sr, si);
-}
-
-template <typename T, int W>
-int spread(const int* order, const int* tile_start, const int* iu0,
-           const int* iv0, const int* p0, const void* uf, const void* vf,
-           const void* wsc, const void* vis, void* tiles, int n, int nu, int nv,
-           int nplanes, int wsup, int tile_u, int tile_v, int ntiles, int ntv,
-           int plane_block, int chunk, double beta, cudaStream_t stream) {
-    using V2 = typename Vec2<T>::type;
-    const size_t ru = tile_u + W - 1, rv = tile_v + W - 1;
-    const size_t stage = (size_t)CHUNK * (2 * W * sizeof(T) + W * sizeof(V2) + 2 * sizeof(int));
-    const size_t smem = (size_t)plane_block * ru * rv * sizeof(V2) + stage;
-    if (plane_block <= 0 || chunk != CHUNK || smem > (size_t)TILE_BUDGET)
-        return (int)cudaErrorInvalidValue;
-    const int nblk = (nplanes + plane_block - 1) / plane_block;
-    const int threads = 32 * (plane_block < GRID_WARPS ? plane_block : GRID_WARPS);
-    wgrid_spread_kernel<T, W><<<ntiles * nblk, threads, smem, stream>>>(
-        order, tile_start, iu0, iv0, p0, static_cast<const T*>(uf),
-        static_cast<const T*>(vf), static_cast<const T*>(wsc),
-        static_cast<const V2*>(vis), static_cast<V2*>(tiles), n, nu, nv, nplanes,
-        wsup, tile_u, tile_v, ntv, plane_block, nblk, (T)beta);
-    return (int)cudaGetLastError();
 }
 
 template <typename T, int W>
@@ -301,70 +172,45 @@ int degrid(const int* order, const int* iu0, const int* iv0, const int* p0,
     return (int)cudaGetLastError();
 }
 
-template <typename T, int W>
-int allow_tile_budget() {
-    return (int)cudaFuncSetAttribute(wgrid_spread_kernel<T, W>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     TILE_BUDGET);
-}
-
 }  // namespace
 
-// Lets every grid kernel instance take TILE_BUDGET bytes of dynamic shared
-// memory on the current device (above the default 48 KB). Called once per
-// device before the first launch, outside any CUDA-graph capture.
-extern "C" int wgrid_init() {
-    int err = 0;
-    err = err ? err : allow_tile_budget<float, 4>();
-    err = err ? err : allow_tile_budget<float, 6>();
-    err = err ? err : allow_tile_budget<float, 8>();
-    err = err ? err : allow_tile_budget<float, 10>();
-    err = err ? err : allow_tile_budget<double, 4>();
-    err = err ? err : allow_tile_budget<double, 6>();
-    err = err ? err : allow_tile_budget<double, 8>();
-    err = err ? err : allow_tile_budget<double, 10>();
-    return err;
-}
+// Lets every grid kernel instance take SPREAD_BUDGET bytes of dynamic
+// shared memory on the current device (above the default 48 KB). Called
+// once per device before the first launch, outside any CUDA-graph capture.
+extern "C" int wgrid_init() { return allow_spread_budget_all(); }
 
-#define WGRID_SUPPORTS(CALL, T)        \
-    switch (support) {                 \
-        case 4: return CALL(T, 4);     \
-        case 6: return CALL(T, 6);     \
-        case 8: return CALL(T, 8);     \
-        case 10: return CALL(T, 10);   \
-        default: return (int)cudaErrorInvalidValue; \
-    }
-
-// order: (n,) int32 samples sorted stably by owning tile; tile_start:
-// (ntiles + 1,) int32 offsets into it. iu0, iv0, p0: (n,) int32 window
-// starts; uf, vf: (n,) T offsets; wsc: (wsup, n) T w-taps; vis: (n,)
-// complex T. tiles: (ntiles, nplanes, tile_u + W - 1, tile_v + W - 1)
-// complex T, every cell written. plane_block planes of a tile per block,
-// chunk samples staged per pass: the host's layout, refused (invalid
-// value) if chunk is not CHUNK or a block would take more than
-// TILE_BUDGET bytes. T is double
-// when is_double, else float. Returns cudaGetLastError() after the launch.
-extern "C" int wgrid_spread_launch(const int* order, const int* tile_start,
-                                   const int* iu0, const int* iv0, const int* p0,
-                                   const void* uf, const void* vf, const void* wsc,
-                                   const void* vis, void* tiles, int n, int nu,
-                                   int nv, int nplanes, int support, int wsup,
-                                   int tile_u, int tile_v, int ntiles, int ntv,
-                                   int plane_block, int chunk, double beta,
-                                   int is_double, void* stream) {
-    if (nplanes <= 0 || ntiles <= 0 || (wsup != 1 && wsup != support))
-        return (int)cudaErrorInvalidValue;
+// ent_pos, ent_off: (nent,) int32 entries, tile by tile (ent_start:
+// (ntiles + 1,) int32 offsets), as gridding.cuh's tile_spread_kernel reads
+// them; order: (n,) int32 sample of each plan position. p0: (n,) int32
+// first w-plane, uf, vf: (n,) T offsets, wsc: (wsup, n) T w-taps, all in
+// plan order; vis: (n,) complex T by sample. grid: (nplanes, nu, nv)
+// complex T, every cell written. plane_block planes per block, groups
+// consumer groups, chunk entries staged per pass: the host's layout,
+// refused (invalid value) where it breaks a limit of tile_spread. T is
+// double when is_double, else float. Returns cudaGetLastError() after the
+// launch.
+extern "C" int wgrid_spread_launch(const int* ent_pos, const int* ent_off,
+                                   const int* ent_start, const int* order,
+                                   const int* p0, const void* uf, const void* vf,
+                                   const void* wsc, const void* vis, void* grid,
+                                   int n, int nu, int nv, int nplanes, int support,
+                                   int wsup, int tile_u, int tile_v, int ntiles,
+                                   int ntv, int plane_block, int groups, int chunk,
+                                   double beta, int is_double, void* stream) {
+    if (wsup != 1 && wsup != support) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, W) spread<T, W>(order, tile_start, iu0, iv0, p0, uf, vf, wsc, vis, \
-                                tiles, n, nu, nv, nplanes, wsup, tile_u, tile_v,   \
-                                ntiles, ntv, plane_block, chunk, beta, st)
-    if (is_double) { WGRID_SUPPORTS(CALL, double) }
-    WGRID_SUPPORTS(CALL, float)
+#define CALL(T, W) tile_spread<T, W>(ent_pos, ent_off, ent_start, order, p0, uf, vf, wsc, \
+                                     vis, 0, 1, grid, n, nu, nv, nplanes, wsup, tile_u,  \
+                                     tile_v, ntiles, ntv, plane_block, groups, chunk,    \
+                                     beta, st)
+    if (is_double) { GRIDDING_SUPPORTS(CALL, double) }
+    GRIDDING_SUPPORTS(CALL, float)
 #undef CALL
 }
 
-// tiles as written by wgrid_spread_launch; src_u (nu, ku), src_v (nv, kv)
-// int32 fold tables; grid: (nplanes, nu, nv) complex T.
+// The fold of the table gridder (ops/cuda_gridtab.py): padded tiles
+// (ntiles, nplanes, ru, rv) summed onto the grid. src_u (nu, ku), src_v (nv,
+// kv) int32 fold tables; grid: (nplanes, nu, nv) complex T.
 extern "C" int wgrid_fold_launch(const void* tiles, const int* src_u,
                                  const int* src_v, void* grid, int nplanes,
                                  int nu, int nv, int ku, int kv, int ntv, int ru,
@@ -384,8 +230,9 @@ extern "C" int wgrid_fold_launch(const void* tiles, const int* src_u,
     return (int)cudaGetLastError();
 }
 
-// order, iu0, iv0, p0, uf, vf, wsc as for the spread; grid: (nplanes, nu,
-// nv) complex T; out: (n,) complex T, every sample written.
+// order, and iu0, iv0, p0, uf, vf, wsc in plan order as for the spread;
+// grid: (nplanes, nu, nv) complex T; out: (n,) complex T by sample, every
+// sample written.
 extern "C" int wgrid_degrid_launch(const int* order, const int* iu0,
                                    const int* iv0, const int* p0, const void* uf,
                                    const void* vf, const void* wsc,
@@ -397,7 +244,7 @@ extern "C" int wgrid_degrid_launch(const int* order, const int* iu0,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, W) degrid<T, W>(order, iu0, iv0, p0, uf, vf, wsc, grid, out, n, \
                                 nu, nv, wsup, beta, st)
-    if (is_double) { WGRID_SUPPORTS(CALL, double) }
-    WGRID_SUPPORTS(CALL, float)
+    if (is_double) { GRIDDING_SUPPORTS(CALL, double) }
+    GRIDDING_SUPPORTS(CALL, float)
 #undef CALL
 }

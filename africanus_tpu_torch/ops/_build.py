@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "init_once",
-           "launch"]
+           "launch", "groups"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -57,7 +57,8 @@ def build(name: str, sources: tuple[str, ...]) -> tuple[Path, float, str]:
     library was already built —, the compiler's log).
     """
     digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in sources:
+    # the sources, and every header under csrc/ that they may include
+    for src in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):
         digest.update(src.encode())
         digest.update((CSRC / src).read_bytes())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -123,3 +124,16 @@ def launch(fn, name: str, plan, *args) -> None:
         rc = fn(*args, int(plan.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def groups(n: int, sizes) -> list[tuple[int, int]]:
+    """(first, count) of the groups that split an axis of ``n`` (e.g. the
+    correlations) into counts a kernel takes: greedily the largest of
+    ``sizes`` (which holds 1) that fits, so 3 = 2 + 1 for (4, 2, 1)."""
+    out, first = [], 0
+    sizes = sorted(sizes, reverse=True)
+    while first < n:
+        k = next(k for k in sizes if k <= n - first)
+        out.append((first, k))
+        first += k
+    return out

@@ -42,7 +42,11 @@ launch the kernels on CUDA tensors and count their launches in
 plain PyTorch versions, which follow the same tables and recurrence (the
 tests hold them against both Pallas kernels in interpret mode;
 ``chip_smoke.py`` holds the kernels against them on the card). Any S,
-R, P and F are accepted, and C ∈ {1, 2, 4}.
+R, P, F and C are accepted. The kernels take C ∈ {1, 2, 4}; for another
+C a plan holds one sub-plan per group of correlations that they take
+(3 = 2 + 1: the channel groups depend on C), and on the card each group
+is launched on its own columns of the values and the outputs are
+concatenated.
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ _TWO_PI = 2.0 * np.pi
 # accumulators per thread: cg·C ≤ 8 (adjoint), cg·C pairs ≤ 4 (forward);
 # the JAX package's caps, so that the channel groups are the same
 _CAPS = {"forward": 4, "adjoint": 8}
+# the correlation counts csrc/dft.cu is instantiated for
+_KERNEL_CORRS = (1, 2, 4)
 _MODES = {"direct": 0, "exact": 1, "residual": 2}
 
 # adjoint launch shape (csrc/dft.cu): pixels per block, rows per staged
@@ -250,7 +256,8 @@ class DftPlan(nn.Module):
     frequency : (chan,) concrete frequencies (tensor or array; read on
         the host — a sync when it is on the card; an f64 grid is carried
         as two-float pairs)
-    ncorr : correlations of the values, 1, 2 or 4
+    ncorr : correlations of the values (the kernels take 1, 2 or 4 at a
+        time; for another count ``parts`` holds a plan per group)
     convention : the sign of the phase, as for ``phase_dot_cycles``
     delay_max : bound on |delay| (s) for the residual-mode engagement
 
@@ -258,7 +265,9 @@ class DftPlan(nn.Module):
     tables ``fsm``, ``usm`` of :func:`chan_group_tables`; ``sign``, the
     two-float sign/c. Buffers, moved by ``.to()``: ``lm``, ``l``, ``m``,
     ``n1h``, ``n1l`` (the two-float n−1) and the tables on the device,
-    ``fsm_dev`` and ``usm_dev``.
+    ``fsm_dev`` and ``usm_dev``. ``groups``: (first, count) of the
+    correlation groups the kernels take, with ``parts`` their plans
+    (empty when ncorr is 1, 2 or 4).
     """
 
     def __init__(self, kind, lm, frequency, ncorr, convention,
@@ -271,8 +280,10 @@ class DftPlan(nn.Module):
                              f"{lm.dtype} {tuple(lm.shape)}")
         if lm.device.type not in ("cpu", "cuda"):
             raise ValueError(f"the DFT kernels run on cuda or cpu, not {lm.device}")
-        if ncorr not in (1, 2, 4):
-            raise ValueError(f"DftPlan: corr must be 1, 2 or 4, got {ncorr}")
+        if ncorr < 1:
+            raise ValueError(f"DftPlan: corr must be positive, got {ncorr}")
+        if isinstance(frequency, torch.Tensor):
+            frequency = frequency.detach().cpu().numpy()  # read on the host once
         self.kind, self.convention = kind, convention
         self.sign = _sign_pair(convention)
         self.nchan, self.ncorr = len(frequency), int(ncorr)
@@ -286,6 +297,11 @@ class DftPlan(nn.Module):
                         ("fsm_dev", _to_device(self.fsm, lm.device)),
                         ("usm_dev", _to_device(self.usm, lm.device))):
             self.register_buffer(name, x.contiguous(), persistent=False)
+        self.groups = _build.groups(self.ncorr, _KERNEL_CORRS)
+        self.parts = nn.ModuleList(
+            [] if self.ncorr in _KERNEL_CORRS else
+            [DftPlan(kind, lm, frequency, k, convention, delay_max)
+             for _, k in self.groups])
 
 
 def _check(name, plan, uvw, values, lead, complex_only):
@@ -366,8 +382,8 @@ def dft_forward(plan, uvw, image):
     image : (src, chan, corr) complex64, or float32 for a real sky (the
         imaginary half of the product is then skipped), as planned
 
-    CUDA tensors launch ``csrc/dft.cu``; CPU tensors take
-    :func:`dft_forward_reference`.
+    CUDA tensors launch ``csrc/dft.cu`` (once per correlation group of
+    the plan); CPU tensors take :func:`dft_forward_reference`.
 
     Returns
     -------
@@ -377,6 +393,9 @@ def dft_forward(plan, uvw, image):
     _check("dft_forward", plan, uvw, image, nsrc, complex_only=False)
     if uvw.device.type == "cpu":
         return dft_forward_reference(plan, uvw, image)
+    if plan.parts:
+        return torch.cat([dft_forward(part, uvw, image[..., c0:c0 + k].contiguous())
+                          for (c0, k), part in zip(plan.groups, plan.parts)], dim=-1)
     nchan, ncorr = plan.nchan, plan.ncorr
     out = torch.empty((nrow, nchan, ncorr), dtype=torch.complex64,
                       device=uvw.device)
@@ -455,8 +474,9 @@ def dft_adjoint(plan, uvw, vis):
     vis : (row, chan, corr) complex64, already flag-masked, as planned
 
     CUDA tensors launch ``csrc/dft.cu`` (two passes: partial images per
-    row chunk, then their sum in chunk order — deterministic); CPU
-    tensors take :func:`dft_adjoint_reference`.
+    row chunk, then their sum in chunk order — deterministic; once per
+    correlation group of the plan); CPU tensors take
+    :func:`dft_adjoint_reference`.
 
     Returns
     -------
@@ -466,6 +486,9 @@ def dft_adjoint(plan, uvw, vis):
     _check("dft_adjoint", plan, uvw, vis, nrow, complex_only=True)
     if uvw.device.type == "cpu":
         return dft_adjoint_reference(plan, uvw, vis)
+    if plan.parts:
+        return torch.cat([dft_adjoint(part, uvw, vis[..., c0:c0 + k].contiguous())
+                          for (c0, k), part in zip(plan.groups, plan.parts)], dim=-1)
     nchan, ncorr = plan.nchan, plan.ncorr
     out = torch.empty((npix, nchan, ncorr), dtype=torch.float32,
                       device=uvw.device)

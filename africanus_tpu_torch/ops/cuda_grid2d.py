@@ -5,8 +5,8 @@ the nifty-API gridder runs: ``grid_tiles_pallas`` (Q2-9) and
 ``grid_tiles_mxu`` (Q2-11a) compute one map, ``degrid_tiles_pallas``
 (Q2-10) and ``degrid_tiles_mxu`` (Q2-11b) its adjoint. Here each map is
 one hand-written CUDA kernel in ``csrc/grid2d.cu`` (its header says what
-bounds them and how they are laid out), the grid's halo fold the fold
-kernel of ``csrc/wgrid.cu``:
+bounds them and how they are laid out; the grid kernel is the tile spread
+of ``csrc/gridding.cuh``, shared with the w-stack map):
 
     grid:    G[c, iu0+a, iv0+b] += es((uf−a)/½W)·es((vf−b)/½W)·V[c]
     degrid:  V[c] = Σ_a Σ_b es((uf−a)/½W)·es((vf−b)/½W)·G[c, iu0+a, iv0+b]
@@ -18,8 +18,14 @@ correlation inside the kernel.
 The plan is the w-gridder's one-plane
 :class:`~africanus_tpu_torch.ops.cuda_wgrid.WGridPlan` (``nplanes`` 1,
 one unit w-tap), which ``gridding/wgridder/core.make_plan(...,
-do_wstacking=False)`` builds: window starts, offsets, the tile order and
-the fold tables, planned in float64 on the host.
+do_wstacking=False)`` builds: window starts, offsets, the plan order and
+the per-tile entries, planned in float64 on the host.
+
+Any number of correlations is taken. On the card the grid kernel takes
+up to 4 in one launch and the degrid kernel 1, 2 or 4 (:data:`CORRS`):
+the wrappers split the correlation axis into such groups (3 = 2 + 1),
+read each group in place by stride (the grid) or write it into its own
+columns (the degrid), and count one launch per group.
 
 :func:`grid_2d` and :func:`degrid_2d` launch the kernels on CUDA tensors
 and count their launches in ``.launches``; on CPU tensors they take
@@ -40,15 +46,16 @@ from africanus_tpu_torch.ops import _build
 from africanus_tpu_torch.ops import cuda_wgrid as cw
 
 __all__ = ["grid_2d", "degrid_2d", "grid_2d_reference", "degrid_2d_reference",
-           "build_grid2d", "CORRS"]
+           "build_grid2d", "CORRS", "MAX_GRID_CORRS"]
 
 _SOURCES = ("grid2d.cu",)
 
-# the correlation counts csrc/grid2d.cu is instantiated for (its supports
-# are cuda_wgrid.SUPPORTS). Its launch refuses a tile whose NC planes and
-# staged samples exceed its shared-memory BUDGET, which the one-plane
-# WGridPlan's ≤ 32-cell tiles never do
+# the correlation counts csrc/grid2d.cu's degrid kernel is instantiated
+# for (its supports are cuda_wgrid.SUPPORTS); the grid kernel takes 1 to
+# MAX_GRID_CORRS in one launch (the one-plane WGridPlan's tile is sized
+# for that many)
 CORRS = (1, 2, 4)
+MAX_GRID_CORRS = cw._GRID_CORRS
 
 
 def build_grid2d():
@@ -64,7 +71,7 @@ def _library():
     if spread.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 7 + [i64, i64, ptr] + [i32] * 8 + [f64, i32, ptr]
+        spread.argtypes = [ptr] * 7 + [i64, i64, ptr] + [i32] * 11 + [f64, i32, ptr]
         degrid.argtypes = [ptr] * 7 + [i32] * 5 + [f64, i32, ptr]
         for fn in (spread, degrid):
             fn.restype = ctypes.c_int
@@ -83,32 +90,30 @@ def _check_plan(name, plan):
 def _check(name, plan, x, ndim, shape_tail):
     _check_plan(name, plan)
     if (x.dtype != plan.complex_dtype or x.dim() != ndim
-            or tuple(x.shape[1:]) != shape_tail or x.shape[0] not in CORRS):
+            or tuple(x.shape[1:]) != shape_tail or x.shape[0] < 1):
         raise ValueError(
             f"{name}: expected {plan.complex_dtype} (ncorr, "
-            f"{', '.join(map(str, shape_tail))}) with ncorr in {CORRS}, got "
-            f"{x.dtype} {tuple(x.shape)}")
+            f"{', '.join(map(str, shape_tail))}), got {x.dtype} {tuple(x.shape)}")
     if x.device != plan.device:
         raise ValueError(f"{name}: the plan and the values must be on one device")
 
 
 # ------------------------------------------------------------ grid
 
-def _spread(plan, vis):
-    """The grid kernel: padded tiles (ntiles, ncorr, tile_u+W−1,
-    tile_v+W−1), each sample's window in the tile of its start."""
-    w, ncorr = plan.support, vis.shape[0]
-    tiles = torch.empty((plan.ntiles, ncorr, plan.tile_u + w - 1,
-                         plan.tile_v + w - 1), dtype=plan.complex_dtype,
-                        device=vis.device)
+def _spread(plan, vis, grid):
+    """One launch of the grid kernel: ``vis`` (k, N) by stride, k ≤ 4,
+    onto ``grid`` (k, nu, nv), every cell written; one group of consumers,
+    each holding all k correlations (a tap's position and ES product
+    formed once per sample)."""
+    ncorr = vis.shape[0]
     spread, _ = _library()
     _build.init_once("grid2d", _SOURCES, vis.device)
-    _build.launch(spread, "grid_2d", plan, plan.order.data_ptr(),
-                  plan.tile_start.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
-                  plan.uf.data_ptr(), plan.vf.data_ptr(), vis.data_ptr(),
-                  vis.stride(0), vis.stride(1), tiles.data_ptr(), plan.nu, plan.nv, w,
-                  ncorr, plan.tile_u, plan.tile_v, plan.ntiles, plan.ntv, plan.beta)
-    return tiles
+    _build.launch(spread, "grid_2d", plan, plan.ent_pos.data_ptr(),
+                  plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
+                  plan.order.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
+                  vis.data_ptr(), vis.stride(0), vis.stride(1), grid.data_ptr(),
+                  plan.nsamples, plan.nu, plan.nv, plan.support, ncorr, plan.tile_u,
+                  plan.tile_v, plan.ntiles, plan.ntv, 1, cw._CHUNK, plan.beta)
 
 
 def grid_2d(plan, vis):
@@ -116,17 +121,21 @@ def grid_2d(plan, vis):
 
     ``plan`` is a one-plane :class:`~africanus_tpu_torch.ops.cuda_wgrid.
     WGridPlan`; ``vis`` is complex in its dtype (complex64 or
-    complex128), already weighted, on its device, ncorr in :data:`CORRS`,
-    any strides (a (N, ncorr) tensor's transpose is read in place). CUDA
-    tensors launch ``csrc/grid2d.cu`` (all correlations in one pass) and
-    fold the halos with ``csrc/wgrid.cu``'s fold kernel (deterministic, no
-    atomics); CPU tensors take :func:`grid_2d_reference`.
+    complex128), already weighted, on its device, any ncorr, any strides
+    (a (N, ncorr) tensor's transpose is read in place). CUDA tensors
+    launch ``csrc/grid2d.cu`` (up to 4 correlations a launch; each block
+    writes its tile's cells once: deterministic, no atomics, no fold); CPU
+    tensors take :func:`grid_2d_reference`.
     """
     _check("grid_2d", plan, vis, 2, (plan.nsamples,))
     if vis.device.type == "cpu":
         return grid_2d_reference(plan, vis)
-    grid = cw.fold_tiles(_spread(plan, vis), plan.src_u, plan.src_v, plan.ntv)
-    grid_2d.launches += 1
+    ncorr = vis.shape[0]
+    grid = torch.empty((ncorr, plan.nu, plan.nv), dtype=plan.complex_dtype,
+                       device=vis.device)
+    for c0, k in _build.groups(ncorr, range(1, MAX_GRID_CORRS + 1)):
+        _spread(plan, vis[c0:c0 + k], grid[c0:c0 + k])
+        grid_2d.launches += 1
     return grid
 
 
@@ -142,9 +151,9 @@ def grid_2d_reference(plan, vis):
     re = torch.zeros(ncorr * size, dtype=plan.dtype, device=vis.device)
     im = torch.zeros_like(re)
     offs = torch.arange(ncorr, device=vis.device)[:, None, None] * size
-    for lo, hi in cw._chunks(plan):
+    for lo, hi, sel in cw._chunks(plan):
         idx, wj = cw._chunk_taps(plan, lo, hi)  # (W·W, n)
-        v = vis[:, None, lo:hi]
+        v = vis[:, None, sel]
         flat = (offs + idx[None]).reshape(-1)
         re.index_add_(0, flat, (v.real * wj[None]).reshape(-1))
         im.index_add_(0, flat, (v.imag * wj[None]).reshape(-1))
@@ -156,11 +165,12 @@ def grid_2d_reference(plan, vis):
 def degrid_2d(plan, grid):
     """Degrid (ncorr, nu, nv) grids at the plan's N samples.
 
-    ``grid`` is complex in the plan's dtype, on its device. CUDA tensors
-    launch ``csrc/grid2d.cu`` (one thread per sample, the ES window once
-    for all correlations, a fixed sum order: deterministic); CPU tensors
-    take :func:`degrid_2d_reference`. Returns (ncorr, N) complex: on the
-    card the transpose of an (N, ncorr) tensor, so that a caller wanting
+    ``grid`` is complex in the plan's dtype, on its device, any ncorr.
+    CUDA tensors launch ``csrc/grid2d.cu`` (one thread per sample, the ES
+    window once for all correlations of a launch — 1, 2 or 4 of them —, a
+    fixed sum order: deterministic); CPU tensors take
+    :func:`degrid_2d_reference`. Returns (ncorr, N) complex: on the card
+    the transpose of an (N, ncorr) tensor, so that a caller wanting
     correlations last reads it without a copy.
     """
     _check("degrid_2d", plan, grid, 3, (plan.nu, plan.nv))
@@ -168,16 +178,19 @@ def degrid_2d(plan, grid):
         return degrid_2d_reference(plan, grid)
     grid = grid.contiguous()
     ncorr = grid.shape[0]
-    out = torch.empty((plan.nsamples, ncorr), dtype=plan.complex_dtype,
-                      device=grid.device)
+    groups = _build.groups(ncorr, CORRS)
+    outs = [torch.empty((plan.nsamples, k), dtype=plan.complex_dtype,
+                        device=grid.device) for _, k in groups]
     if plan.nsamples:
         _, degrid = _library()
-        _build.launch(degrid, "degrid_2d", plan, plan.order.data_ptr(),
-                      plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.uf.data_ptr(),
-                      plan.vf.data_ptr(), grid.data_ptr(), out.data_ptr(),
-                      plan.nsamples, plan.nu, plan.nv, plan.support, ncorr, plan.beta)
-        degrid_2d.launches += 1
-    return out.T
+        for (c0, k), out in zip(groups, outs):
+            _build.launch(degrid, "degrid_2d", plan, plan.order.data_ptr(),
+                          plan.iu0.data_ptr(), plan.iv0.data_ptr(),
+                          plan.uf.data_ptr(), plan.vf.data_ptr(),
+                          grid[c0].data_ptr(), out.data_ptr(), plan.nsamples,
+                          plan.nu, plan.nv, plan.support, k, plan.beta)
+            degrid_2d.launches += 1
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).T
 
 
 degrid_2d.launches = 0
@@ -191,7 +204,7 @@ def degrid_2d_reference(plan, grid):
     flat = grid.reshape(grid.shape[0], -1)
     out = torch.empty((grid.shape[0], plan.nsamples), dtype=plan.complex_dtype,
                       device=grid.device)
-    for lo, hi in cw._chunks(plan):
+    for lo, hi, sel in cw._chunks(plan):
         idx, wj = cw._chunk_taps(plan, lo, hi)
-        out[:, lo:hi] = (flat[:, idx] * wj[None]).sum(dim=1)
+        out[:, sel] = (flat[:, idx] * wj[None]).sum(dim=1)
     return out

@@ -43,13 +43,23 @@ __all__ = ["TableGridPlan", "grid_table", "degrid_table", "grid_table_reference"
 
 _SOURCES = ("gridtab.cu",)
 
-# the odd supports csrc/gridtab.cu is instantiated for
-SUPPORTS = (3, 5, 7, 9, 11, 13, 15)
+# the odd supports csrc/gridtab.cu is instantiated for. The plan and the
+# plain versions take any support (the JAX package's PP gridder has no
+# limit); on the card a support outside these raises
+SUPPORTS = tuple(range(3, 32, 2))
 
 # gridtab.cu's samples staged per pass and shared-memory budget per
-# block (its CHUNK and BUDGET): the plan refuses a table that would not
-# fit beside the padded tile
+# block (its CHUNK and BUDGET)
 _CHUNK, _SMEM_BYTES = 64, 96 * 1024
+# uv tile edge (cells): the largest in [8, 32] whose padded tile, (edge +
+# W - 1)² complex cells, fits 32 KB of shared memory
+_TILE_MIN, _TILE_MAX, _TILE_BYTES = 8, 32, 32 * 1024
+
+
+def _tile_edge(n, support, cell_bytes):
+    """The grid kernel's tile edge along an axis of ``n`` cells."""
+    pad = int(np.sqrt(_TILE_BYTES / cell_bytes))
+    return min(n, max(_TILE_MIN, min(_TILE_MAX, pad - support + 1)))
 
 
 def build_gridtab():
@@ -65,8 +75,8 @@ def _library():
     if spread.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
-        degrid.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+        spread.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
+        degrid.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
         for fn in (spread, degrid):
             fn.restype = ctypes.c_int
     return spread, degrid
@@ -84,8 +94,8 @@ class TableGridPlan(nn.Module):
         tap t reads ``table[(t+1)·oversample + f]``, |f| < oversample
     band : (N,) integer grid (band) of every sample, < nband
     npix, nband : the grids, (nband, npix, npix)
-    support, oversample : W (odd, in :data:`SUPPORTS`) and the table's
-        oversampling: a table has oversample·(W+2) values
+    support, oversample : W (odd; the kernels take :data:`SUPPORTS`) and
+        the table's oversampling: a table has oversample·(W+2) values
     dtype : torch.float32, or torch.float64 (the double-accumulating
         kernels)
     device : where the buffers are made
@@ -105,8 +115,8 @@ class TableGridPlan(nn.Module):
     def __init__(self, ir0, ic0, fr, fc, band, npix, nband, support, oversample,
                  dtype=torch.float32, device="cpu"):
         super().__init__()
-        if support not in SUPPORTS:
-            raise ValueError(f"support must be one of {SUPPORTS}, got {support}")
+        if support < 1:
+            raise ValueError(f"support must be positive, got {support}")
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         ir0, ic0, fr, fc, band = (np.asarray(x, np.int64).reshape(-1)
@@ -130,14 +140,8 @@ class TableGridPlan(nn.Module):
         self.complex_dtype = (torch.complex64 if dtype == torch.float32
                               else torch.complex128)
         span = self.npix + support - 1  # the grid shifted by W − 1
-        self.tile = cw._tile_edge(span, 1, support, 2 * real_bytes)
+        self.tile = _tile_edge(span, support, 2 * real_bytes)
         self.ntr = self.ntc = -(-span // self.tile)
-        pad = self.tile + support - 1
-        smem = (pad * pad * 2 * real_bytes + _CHUNK * 2 * real_bytes
-                + (ntab + 2 * _CHUNK * support) * real_bytes + _CHUNK * 4)
-        if smem > _SMEM_BYTES:
-            raise ValueError(f"a {ntab}-value table beside a {pad}² tile takes "
-                             f"{smem} bytes of shared memory > {_SMEM_BYTES}")
 
         keep = ((ir0 + support - 1 >= 0) & (ir0 < npix)
                 & (ic0 + support - 1 >= 0) & (ic0 < npix))
@@ -181,6 +185,34 @@ def _check(name, plan, table, x, shape):
         raise ValueError(f"{name}: the values and the table must be contiguous")
 
 
+def _real_bytes(plan):
+    return 4 if plan.dtype == torch.float32 else 8
+
+
+def _check_support(name, plan):
+    """The card's limit on the support, checked only where a kernel
+    launches."""
+    if plan.support not in SUPPORTS:
+        raise ValueError(f"{name}: support {plan.support} on the card: "
+                         f"csrc/gridtab.cu is instantiated for odd supports "
+                         f"{SUPPORTS[0]} to {SUPPORTS[-1]}")
+
+
+def _spread_table_smem(plan):
+    """Whether the grid kernel stages the table in shared memory (1) or
+    reads it from device memory (0). Raises where the padded tile and the
+    staged samples alone pass the kernel's budget."""
+    _check_support("grid_table", plan)
+    w, rb = plan.support, _real_bytes(plan)
+    pad = plan.tile + w - 1
+    rest = pad * pad * 2 * rb + _CHUNK * 2 * rb + 2 * _CHUNK * w * rb + _CHUNK * 4
+    if rest > _SMEM_BYTES:
+        raise ValueError(f"grid_table: a {pad}² padded tile and {_CHUNK} staged "
+                         f"samples take {rest} bytes of shared memory > "
+                         f"{_SMEM_BYTES}")
+    return int(rest + plan.ntab * rb <= _SMEM_BYTES)
+
+
 # ------------------------------------------------------------ grid
 
 def _spread(plan, table, values):
@@ -189,14 +221,15 @@ def _spread(plan, table, values):
     pad = plan.tile + plan.support - 1
     tiles = torch.empty((plan.ntr * plan.ntc, plan.nband, pad, pad),
                         dtype=plan.complex_dtype, device=values.device)
+    tab_smem = _spread_table_smem(plan)
     spread, _ = _library()
     _build.init_once("gridtab", _SOURCES, values.device)
     _build.launch(spread, "grid_table", plan, plan.order.data_ptr(),
                   plan.tile_start.data_ptr(), plan.ir0.data_ptr(), plan.ic0.data_ptr(),
                   plan.fr.data_ptr(), plan.fc.data_ptr(), table.data_ptr(),
                   values.data_ptr(), tiles.data_ptr(), plan.support, plan.ntab,
-                  plan.oversample, plan.tile, plan.tile, plan.ntr * plan.ntc, plan.ntc,
-                  plan.nband)
+                  plan.oversample, tab_smem, plan.tile, plan.tile, plan.ntr * plan.ntc,
+                  plan.ntc, plan.nband)
     return tiles
 
 
@@ -279,14 +312,16 @@ def degrid_table(plan, table, grid):
     if grid.device.type == "cpu":
         return degrid_table_reference(plan, table, grid)
     out = torch.zeros(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
+    _check_support("degrid_table", plan)
     if plan.nkeep:
+        tab_smem = int(plan.ntab * _real_bytes(plan) <= _SMEM_BYTES)
         _, degrid = _library()
         _build.init_once("gridtab", _SOURCES, grid.device)
         _build.launch(degrid, "degrid_table", plan, plan.order.data_ptr(),
                       plan.ir0.data_ptr(), plan.ic0.data_ptr(), plan.fr.data_ptr(),
                       plan.fc.data_ptr(), plan.band.data_ptr(), table.data_ptr(),
                       grid.data_ptr(), out.data_ptr(), plan.support, plan.ntab,
-                      plan.oversample, plan.nkeep, plan.npix)
+                      plan.oversample, tab_smem, plan.nkeep, plan.npix)
         degrid_table.launches += 1
     return out
 

@@ -12,8 +12,11 @@ for both (its header says what bounds it and how it is laid out):
 launches in ``predict_kb.launches``; on CPU tensors it computes the same
 map with :func:`predict_kb_reference`, the plain PyTorch version, which
 the tests hold against both Pallas kernels and ``chip_smoke.py`` holds
-the kernel against on the card. Any S, R and F are accepted: the TPU's
-tile divisibility rules and padding do not carry over.
+the kernel against on the card. Any S, R, F and C are accepted: the
+TPU's tile divisibility rules and padding do not carry over, and the
+kernel takes C ∈ {1, 2, 4} at a time, so another C is split into such
+groups on the card (3 = 2 + 1), one launch each, the outputs
+concatenated.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from africanus_tpu_torch.ops.dfloat import frac_cycles
 __all__ = ["predict_kb", "predict_kb_reference", "build_predict_kb"]
 
 _SOURCES = ("predict_kb.cu",)
+# the correlation counts csrc/predict_kb.cu is instantiated for
+_KERNEL_CORRS = (1, 2, 4)
 
 
 def build_predict_kb():
@@ -81,8 +86,8 @@ def _unpack(phase_dot, u1, v1, freq, scaled_freq, b):
         raise ValueError(f"b must be complex64 (src, chan, corr) with "
                          f"(src, chan) = {(nsrc, nchan)}, got {b.dtype} "
                          f"{tuple(b.shape)}")
-    if b.shape[2] not in (1, 2, 4):
-        raise ValueError(f"corr must be 1, 2 or 4, got {b.shape[2]}")
+    if b.shape[2] < 1:
+        raise ValueError(f"corr must be positive, got {b.shape[2]}")
     tensors = [x for _, x in planes] + [freq, scaled_freq, b]
     if any(x.device != hi.device for x in tensors):
         raise ValueError("all operands must be on one device")
@@ -106,10 +111,11 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
     u1, v1 : (src, row) float32 or None — gaussian-envelope coordinates
         (envelope = exp(−((u1·sf)² + (v1·sf)²))); None for point sources
     freq : (chan,) float32; scaled_freq : (chan,) float32 (gauss-scaled)
-    b : (src, chan, corr) complex64 brightness, corr ∈ {1, 2, 4}
+    b : (src, chan, corr) complex64 brightness
 
     Every operand is contiguous and on one device. CUDA tensors launch
-    ``csrc/predict_kb.cu``; CPU tensors take :func:`predict_kb_reference`.
+    ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations);
+    CPU tensors take :func:`predict_kb_reference`.
 
     Returns
     -------
@@ -120,6 +126,11 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
         return predict_kb_reference(phase_dot, u1, v1, freq, scaled_freq, b)
     if hi.device.type != "cuda":
         raise ValueError(f"predict_kb runs on cuda or cpu, not {hi.device}")
+    if b.shape[2] not in _KERNEL_CORRS:
+        return torch.cat([predict_kb(phase_dot, u1, v1, freq, scaled_freq,
+                                     b[..., c0:c0 + k].contiguous())
+                          for c0, k in _build.groups(b.shape[2], _KERNEL_CORRS)],
+                         dim=-1)
 
     nsrc, nrow = hi.shape
     nchan, ncorr = b.shape[1], b.shape[2]

@@ -14,13 +14,15 @@ over a, b < W (the support) and the sample's w-taps t < wsup (W on a
 w-stack, 1 without one); uv indices wrap mod (nu, nv), planes never wrap.
 
 Everything per sample is planned once on the host, in float64, into a
-:class:`WGridPlan` (an ``nn.Module``: ``.to()`` moves it): the window
+:class:`WGridPlan` (an ``nn.Module``: ``.to()`` moves it): the samples'
+plan order (sorted by uv tile and window start), in that order the window
 starts ``iu0``, ``iv0``, ``p0`` (int32), the fractional offsets ``uf``,
 ``vf`` and the w-taps ``wsc`` (in the plan's dtype, float32 or float64),
-the samples' order sorted by owning uv tile, the grid kernel's launch
-layout (tile edge, planes per block) and the fold tables of its halos.
-:func:`sample_geometry` gives the float64 numbers (the formulas of the
-JAX package's ``_tile_plan``).
+the grid kernel's launch layout (tile edge, planes per block, consumer
+groups) and its per-tile entries: every sample whose window meets a tile,
+with the window start relative to the tile. :func:`sample_geometry`
+gives the float64 numbers (the formulas of the JAX package's
+``_tile_plan``).
 
 :func:`grid_wstack` and :func:`degrid_wstack` launch the kernels on CUDA
 tensors and count their launches in ``.launches``; on CPU tensors they
@@ -53,18 +55,31 @@ _SOURCES = ("wgrid.cu",)
 SUPPORTS = (4, 6, 8, 10)
 
 # The grid kernel's launch layout is decided here, on the host, and
-# passed to csrc/wgrid.cu, which only checks it at launch.
-# uv tile edge (cells): the largest in [8, 32] whose padded stack,
-# nplanes x (edge + W - 1)² complex cells, fits 32 KB of shared memory,
-# so that ~5 blocks share an SM: 16 at config 4 (W = 6, 9 planes of
-# complex64), 10 at 17 planes. Smaller tiles keep more blocks, and so
-# more samples, in flight per SM, but the fold re-reads more halo
-_TILE_MIN, _TILE_MAX, _TILE_BYTES = 8, 32, 32 * 1024
-# samples a block stages per pass (wgrid.cu's compile-time CHUNK: its
-# launch refuses another count), and the dynamic shared memory one block
-# may take: its block of planes of the padded tile plus the staged
-# samples (wgrid.cu's TILE_BUDGET, the limit its launch checks)
-_CHUNK, _SMEM_BYTES = 128, 112 * 1024
+# passed to csrc/gridding.cuh's tile spread kernel, which only checks it
+# at launch. Its compile-time limits: entries staged per pass
+# (SPREAD_CHUNK: the launch refuses another count), planes one consumer
+# thread accumulates (SPREAD_MAXP), producer warps (SPREAD_PRODUCERS),
+# threads per block (SPREAD_THREADS: the consumers in whole warps and the
+# producers) and dynamic shared memory per block (SPREAD_BUDGET: a block's
+# planes of its tile and two staging buffers)
+_CHUNK, _MAXP, _PRODUCERS, _THREADS = 64, 5, 2, 512
+_SMEM_BYTES = 227 * 1024
+# uv tile edge (cells): the largest in [_TILE_MIN, _TILE_MAX] whose
+# planes fit _TILE_BYTES of shared memory; a one-plane plan's tile holds
+# the _GRID_CORRS correlations of one launch of the 2D map in
+# _TILE_BYTES_2D. No halo is kept, so a larger tile costs blocks per SM
+# (the entries of a tile are spread in sequence); a smaller one lists more
+# entries (samples spilling in from the neighbours). Both targets are the
+# fastest of a sweep on the H100 (PERF.md §6)
+_TILE_MIN, _TILE_MAX, _TILE_BYTES, _TILE_BYTES_2D = 8, 64, 32 * 1024, 16 * 1024
+_GRID_CORRS = 4
+# consumer groups of a w-stack block (each W² threads holding consecutive
+# planes, skipping the samples whose w-window misses them): fewer groups
+# form an entry's cell and ES product fewer times, but keep fewer threads
+# in flight and multiply more zero taps. ~6 was the fastest on the H100 at
+# both config-4 cells (9 planes: 5 groups of 2; 17 planes: 6 of 3;
+# PERF.md §6)
+_GROUPS = 6
 
 # tap elements per chunk of the plain versions, which bounds their peak
 # memory (~0.5 GB of index and weight planes)
@@ -85,7 +100,7 @@ def _library():
     if spread.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 10 + [i32] * 12 + [f64, i32, ptr]
+        spread.argtypes = [ptr] * 10 + [i32] * 13 + [f64, i32, ptr]
         fold.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         degrid.argtypes = [ptr] * 9 + [i32] * 5 + [f64, i32, ptr]
         for fn in (spread, fold, degrid):
@@ -127,35 +142,73 @@ def sample_geometry(u_l, v_l, w_l, nu, nv, cellx, celly, support, beta,
                 wsc=wsc)
 
 
-def _tile_edge(n, nplanes, support, cell_bytes):
-    """The grid kernel's tile edge along an axis of ``n`` cells."""
-    pad = int(np.sqrt(_TILE_BYTES / (nplanes * cell_bytes)))
-    return min(n, max(_TILE_MIN, min(_TILE_MAX, pad - support + 1)))
+def _stage_bytes(planes, support, real_bytes):
+    """Shared memory of the spread kernel's two staging buffers of
+    _CHUNK + 1 entries: per entry 2W (cell, ES tap) pairs, one complex
+    value per plane and its first plane (an int)."""
+    one = (_CHUNK + 1) * ((2 * support + planes) * 2 * real_bytes + 4)
+    return 2 * (-(-one // 16) * 16)  # each buffer rounded up to 16 bytes
 
 
-def _plane_block(nplanes, ru, rv, support, real_bytes):
-    """Planes of an (ru, rv) padded tile that one grid-kernel block
-    holds: the fewest blocks of planes that fit ``_SMEM_BYTES`` beside
-    ``_CHUNK`` staged samples (ES taps, w-taps times V, offsets), balanced
-    (one block of all planes at config 4)."""
-    stage = _CHUNK * (4 * support * real_bytes + 8)
-    fit = (_SMEM_BYTES - stage) // (ru * rv * 2 * real_bytes)
+def _spread_smem(plane_block, tile_u, tile_v, support, real_bytes):
+    """Dynamic shared memory of one spread block (gridding.cuh's
+    spread_smem): its planes of the tile, rows padded to an odd pitch,
+    and the staging buffers."""
+    return (plane_block * tile_u * (tile_v | 1) * 2 * real_bytes
+            + _stage_bytes(plane_block, support, real_bytes))
+
+
+def _max_groups(support):
+    """Consumer groups of W² threads that fit a block beside the
+    producer warps, the consumers in whole warps."""
+    return (_THREADS - 32 * _PRODUCERS) // support ** 2
+
+
+def _plane_layout(nplanes, support, real_bytes):
+    """(planes per block, consumer groups) of the w-stack spread: the
+    fewest balanced blocks of planes whose groups (≤ _MAXP planes each)
+    fit a block and whose planes, at the smallest tile, fit its shared
+    memory beside their staging; then ~_GROUPS groups of equal planes
+    (more where a group would hold more than _MAXP)."""
+    per_plane = (_TILE_MIN * (_TILE_MIN | 1) + 2 * (_CHUNK + 1)) * 2 * real_bytes
+    fit = min(_max_groups(support) * _MAXP,
+              (_SMEM_BYTES - _stage_bytes(0, support, real_bytes)) // per_plane)
     nblk = -(-nplanes // fit)
-    return -(-nplanes // nblk)
+    block = -(-nplanes // nblk)
+    held = min(_MAXP, max(-(-block // _GROUPS), -(-block // _max_groups(support))))
+    return block, -(-block // held)
+
+
+def _tile_edge(n, planes, support, real_bytes):
+    """The spread kernel's tile edge along an axis of ``n`` cells for a
+    block of ``planes`` planes (one plane: the _GRID_CORRS correlations of
+    the 2D map): the largest in [_TILE_MIN, _TILE_MAX] whose planes fit
+    _TILE_BYTES (_TILE_BYTES_2D) and whose block fits _SMEM_BYTES, never
+    wider than the grid."""
+    target = _TILE_BYTES
+    if planes == 1:
+        planes, target = _GRID_CORRS, _TILE_BYTES_2D
+    edge = int(np.sqrt(target / (planes * 2 * real_bytes)))
+    edge = max(_TILE_MIN, min(_TILE_MAX, edge))
+    while edge > _TILE_MIN and _spread_smem(planes, edge, edge, support,
+                                            real_bytes) > _SMEM_BYTES:
+        edge -= 1
+    return min(n, edge)
 
 
 def _fold_table(n, tile, support, clip=False):
     """(n, k) int32 table of the padded-tile cells that cover each grid
-    index along one axis: entries tile_index·(tile+W−1) + local index, in
-    tile order, −1 past the end. Tile t covers local indices below its
+    index along one axis (the fold of the table gridder,
+    ``ops/cuda_gridtab.py``): entries tile_index·(tile+W−1) + local index,
+    in tile order, −1 past the end. Tile t covers local indices below its
     height + W − 1 (its own cells and the halo its windows spill into),
     which land at (t·tile + local) mod n.
 
-    With ``clip`` (windows that hang off the grid are cut, never wrapped:
-    the table gridder of ``ops/cuda_gridtab.py``) the tiles cover the
-    axis shifted by W − 1, n + W − 1 cells, so that a window starting up
-    to W − 1 cells before the grid starts inside a tile; local index l of
-    tile t lands at t·tile + l − (W − 1) and is dropped off [0, n)."""
+    With ``clip`` (windows that hang off the grid are cut, never wrapped)
+    the tiles cover the axis shifted by W − 1, n + W − 1 cells, so that a
+    window starting up to W − 1 cells before the grid starts inside a
+    tile; local index l of tile t lands at t·tile + l − (W − 1) and is
+    dropped off [0, n)."""
     pad = tile + support - 1
     span = n + support - 1 if clip else n
     ntile = -(-span // tile)
@@ -177,6 +230,65 @@ def _fold_table(n, tile, support, clip=False):
     return table
 
 
+def _axis_entries(start, n, tile, support):
+    """The tiles along one axis of ``n`` cells that each window [start,
+    start + W) (mod n; ``start`` in [0, n)) meets: (sample, tile, offset)
+    with offset the window start relative to the tile's first cell, in
+    (−W, tile), one per periodic copy of the tile that the window meets
+    (two where a window wraps onto a lone tile, more where n < W)."""
+    c = start[:, None] + np.arange(support)
+    k = c // n
+    t = (c - k * n) // tile
+    new = np.ones(c.shape, bool)
+    new[:, 1:] = (t[:, 1:] != t[:, :-1]) | (k[:, 1:] != k[:, :-1])
+    s, a = np.nonzero(new)
+    t, k = t[s, a], k[s, a]
+    return s, t, start[s] - t * tile - k * n
+
+
+def _spatial_key(du, dv, support, tile_v):
+    """The order of a tile's entries: by window start, in strips of W/2
+    rows (within a strip by column, then row), so that a consumer's
+    owned cell stays the same over runs of entries (fewer flushes than in
+    plain row-major order or strips of W, on tiles replayed at the nifty
+    cell's density)."""
+    strip = support // 2
+    return (((du + support) // strip) * (tile_v + 2 * support)
+            + dv + support) * (2 * support) + (du + support) % strip
+
+
+def tile_entries(pu, pv, nu, nv, tile_u, tile_v, support):
+    """The spread kernel's entries: every (sample, tile) whose window
+    meets the tile, sorted stably by (tile, :func:`_spatial_key`).
+
+    ``pu``, ``pv`` are (N,) window starts mod (nu, nv). Returns (tile,
+    sample, du, dv) int64 arrays: du, dv the window start relative to the
+    tile's first cell, in (−W, tile)."""
+    ntv = -(-nv // tile_v)
+    su, tu, du = _axis_entries(pu, nu, tile_u, support)
+    sv, tv, dv = _axis_entries(pv, nv, tile_v, support)
+    cv = np.bincount(sv, minlength=pu.size)
+    first_v = np.cumsum(cv) - cv
+    rep = cv[su]
+    ui = np.repeat(np.arange(su.size), rep)
+    vi = first_v[su[ui]] + np.arange(ui.size) - np.repeat(np.cumsum(rep) - rep, rep)
+    tile = tu[ui] * ntv + tv[vi]
+    du, dv = du[ui], dv[vi]
+    span = (tile_u + 2 * support) * (tile_v + 2 * support) * 2 * support
+    key = tile * span + _spatial_key(du, dv, support, tile_v)
+    idx = np.argsort(key, kind="stable")
+    return tile[idx], su[ui][idx], du[idx], dv[idx]
+
+
+def pack_offsets(du, dv, support):
+    """The packed int32 entry offsets that the spread kernel reads:
+    ((du + W) << 4 | du mod W) | ((dv + W) << 4 | dv mod W) << 16."""
+    def part(d):
+        return ((d + support) << 4) | (d % support)
+
+    return (part(du) | (part(dv) << 16)).astype(np.int32)
+
+
 class WGridPlan(nn.Module):
     """The per-sample geometry of one gridding problem, made once on the
     host and held on the device.
@@ -195,12 +307,17 @@ class WGridPlan(nn.Module):
     Raises ValueError on a w-window outside the stack (the kernels index
     planes p0 … p0+wsup−1 directly; clipping would double-deposit).
 
-    Buffers (moved by ``.to()``): ``iu0``, ``iv0``, ``p0`` int32, ``uf``,
-    ``vf``, ``wsc`` in ``dtype``, ``order`` (samples sorted stably by the
-    uv tile of their window start), ``tile_start`` (ntiles + 1 offsets
-    into it), the fold tables ``src_u``, ``src_v``. The grid kernel's
-    layout: ``tile_u`` × ``tile_v`` uv tiles (``ntu`` × ``ntv`` of them)
-    and ``plane_block`` planes of a tile per block.
+    Buffers (moved by ``.to()``), all in plan order — the samples sorted
+    stably by the uv tile of their window start, then by
+    :func:`_spatial_key`: ``order`` (int32, the sample at each plan
+    position), ``iu0``, ``iv0``, ``p0`` (int32), ``uf``, ``vf`` and
+    ``wsc`` (wsup, N) in ``dtype``; the grid kernel's entries
+    (:func:`tile_entries`): ``ent_pos`` (the plan position of each
+    entry's sample), ``ent_off`` (:func:`pack_offsets`) and ``ent_start``
+    (ntiles + 1 offsets). The grid kernel's layout: ``tile_u`` ×
+    ``tile_v`` uv tiles (``ntu`` × ``ntv`` of them), ``plane_block``
+    planes per block and ``groups`` consumer groups of a w-stack (a
+    one-plane plan's tile holds up to 4 correlations of the 2D map).
     """
 
     def __init__(self, iu0, iv0, uf, vf, p0, wsc, nu, nv, nplanes, support,
@@ -220,9 +337,9 @@ class WGridPlan(nn.Module):
             raise ValueError(
                 f"WGridPlan: iu0, iv0, p0, uf, vf must be (N,) and wsc "
                 f"(1 or {support}, N); got N = {n}, wsc {wsc.shape}")
-        if n >= 2**31 or max(nu, nv) >= 2**30:
+        if n >= 2**28 or max(nu, nv) >= 2**30:
             raise ValueError(f"{n} samples on a {nu} x {nv} grid: the kernels "
-                             "index samples and grid lines with int32")
+                             "index samples, entries and grid lines with int32")
         if n and (p0.min() < 0 or p0.max() + wsup > nplanes):
             raise ValueError(
                 f"w-plane window out of stack: p0 in [{p0.min()}, "
@@ -234,32 +351,38 @@ class WGridPlan(nn.Module):
         self.complex_dtype = (torch.complex64 if dtype == torch.float32
                               else torch.complex128)
         real_bytes = 4 if dtype == torch.float32 else 8
-        self.tile_u = _tile_edge(self.nu, self.nplanes, support, 2 * real_bytes)
-        self.tile_v = _tile_edge(self.nv, self.nplanes, support, 2 * real_bytes)
+        self.plane_block, self.groups = _plane_layout(self.nplanes, support,
+                                                      real_bytes)
+        self.tile_u = _tile_edge(self.nu, self.plane_block, support, real_bytes)
+        self.tile_v = _tile_edge(self.nv, self.plane_block, support, real_bytes)
         self.ntu, self.ntv = -(-self.nu // self.tile_u), -(-self.nv // self.tile_v)
         self.ntiles = self.ntu * self.ntv
-        self.plane_block = _plane_block(self.nplanes, self.tile_u + support - 1,
-                                        self.tile_v + support - 1, support,
-                                        real_bytes)
 
-        tile = ((np.mod(iu0, nu) // self.tile_u) * self.ntv
-                + np.mod(iv0, nv) // self.tile_v)
-        tile_start = np.zeros(self.ntiles + 1, np.int64)
-        np.cumsum(np.bincount(tile, minlength=self.ntiles), out=tile_start[1:])
-        src_u = _fold_table(self.nu, self.tile_u, support)
-        src_v = _fold_table(self.nv, self.tile_v, support)
+        # plan order: by home tile, then by the window start within it
+        pu, pv = np.mod(iu0, nu), np.mod(iv0, nv)
+        hu, hv = pu // self.tile_u, pv // self.tile_v
+        key = _spatial_key(pu - hu * self.tile_u, pv - hv * self.tile_v,
+                           support, self.tile_v)
+        order = np.lexsort((key, hu * self.ntv + hv))
+        tile, pos, du, dv = tile_entries(pu[order], pv[order], self.nu, self.nv,
+                                         self.tile_u, self.tile_v, support)
+        if tile.size >= 2**31:
+            raise ValueError(f"{tile.size} entries: the kernel indexes them with int32")
+        self.nentries = int(tile.size)
+        ent_start = np.zeros(self.ntiles + 1, np.int64)
+        np.cumsum(np.bincount(tile, minlength=self.ntiles), out=ent_start[1:])
 
         def buf(name, x, dt):
             self.register_buffer(
                 name, torch.as_tensor(np.ascontiguousarray(x)).to(device=device, dtype=dt),
                 persistent=False)
 
-        for name, x in (("iu0", iu0), ("iv0", iv0), ("p0", p0),
-                        ("order", np.argsort(tile, kind="stable")),
-                        ("tile_start", tile_start), ("src_u", src_u),
-                        ("src_v", src_v)):
+        for name, x in (("order", order), ("iu0", iu0[order]), ("iv0", iv0[order]),
+                        ("p0", p0[order]), ("ent_pos", pos),
+                        ("ent_off", pack_offsets(du, dv, support)),
+                        ("ent_start", ent_start)):
             buf(name, x, torch.int32)
-        for name, x in (("uf", uf), ("vf", vf), ("wsc", wsc)):
+        for name, x in (("uf", uf[order]), ("vf", vf[order]), ("wsc", wsc[:, order])):
             buf(name, x, dtype)
 
     @property
@@ -281,33 +404,13 @@ def _check(name, plan, x, shape):
 
 # ------------------------------------------------------------ grid
 
-def _spread(plan, vis):
-    """The grid kernel: padded tiles (ntiles, nplanes, tile_u+W−1,
-    tile_v+W−1), each sample's window in the tile of its start."""
-    w = plan.support
-    tiles = torch.empty((plan.ntiles, plan.nplanes, plan.tile_u + w - 1,
-                         plan.tile_v + w - 1), dtype=plan.complex_dtype,
-                        device=vis.device)
-    spread, _, _ = _library()
-    _build.init_once("wgrid", _SOURCES, vis.device)
-    _build.launch(spread, "grid_wstack", plan, plan.order.data_ptr(),
-                  plan.tile_start.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
-                  plan.p0.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
-                  plan.wsc.data_ptr(), vis.data_ptr(), tiles.data_ptr(),
-                  plan.nsamples, plan.nu, plan.nv, plan.nplanes, w, plan.wsup,
-                  plan.tile_u, plan.tile_v, plan.ntiles, plan.ntv, plan.plane_block,
-                  _CHUNK, plan.beta)
-    return tiles
-
-
 def fold_tiles(tiles, src_u, src_v, ntv):
     """The fold kernel of ``csrc/wgrid.cu``: the (nplanes, nu, nv) grid
     whose every cell sums, in the fixed order of the fold tables ``src_u``
     (nu, ku) and ``src_v`` (nv, kv) (:func:`_fold_table`), the cells of
     the padded tiles (ntiles, nplanes, ru, rv) that cover it; tile index
-    tu·ntv + tv. Complex64 or complex128 tiles on a CUDA device. Also the
-    fold of ``ops/cuda_grid2d.py`` (planes = correlations) and
-    ``ops/cuda_gridtab.py`` (planes = bands, clipping tables)."""
+    tu·ntv + tv. Complex64 or complex128 tiles on a CUDA device. The fold
+    of ``ops/cuda_gridtab.py`` (planes = bands, clipping tables)."""
     nplanes, nu, nv = tiles.shape[1], src_u.shape[0], src_v.shape[0]
     grid = torch.empty((nplanes, nu, nv), dtype=tiles.dtype, device=tiles.device)
     _, fold, _ = _library()
@@ -322,24 +425,31 @@ def fold_tiles(tiles, src_u, src_v, ntv):
     return grid
 
 
-def _fold(plan, tiles):
-    """The fold kernel: each grid cell sums the padded-tile cells that
-    cover it, in the fixed order of the plan's fold tables."""
-    return fold_tiles(tiles, plan.src_u, plan.src_v, plan.ntv)
-
-
 def grid_wstack(plan, vis):
     """Grid (N,) visibilities onto the (nplanes, nu, nv) w-stack.
 
     ``vis`` is complex in the plan's dtype (complex64 or complex128),
     already weighted, on the plan's device. CUDA tensors launch
-    ``csrc/wgrid.cu`` (the grid kernel, then the halo fold: deterministic,
-    no atomics); CPU tensors take :func:`grid_wstack_reference`.
+    ``csrc/wgrid.cu``'s tile spread (one block per tile and block of
+    planes writes its cells once: deterministic, no atomics, no fold);
+    CPU tensors take :func:`grid_wstack_reference`.
     """
     _check("grid_wstack", plan, vis, (plan.nsamples,))
     if vis.device.type == "cpu":
         return grid_wstack_reference(plan, vis)
-    grid = _fold(plan, _spread(plan, vis))
+    grid = torch.empty((plan.nplanes, plan.nu, plan.nv), dtype=plan.complex_dtype,
+                       device=vis.device)
+    if plan.nsamples == 0:  # nothing to launch (as degrid_wstack)
+        return grid.zero_()
+    spread, _, _ = _library()
+    _build.init_once("wgrid", _SOURCES, vis.device)
+    _build.launch(spread, "grid_wstack", plan, plan.ent_pos.data_ptr(),
+                  plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
+                  plan.order.data_ptr(), plan.p0.data_ptr(), plan.uf.data_ptr(),
+                  plan.vf.data_ptr(), plan.wsc.data_ptr(), vis.data_ptr(),
+                  grid.data_ptr(), plan.nsamples, plan.nu, plan.nv, plan.nplanes,
+                  plan.support, plan.wsup, plan.tile_u, plan.tile_v, plan.ntiles,
+                  plan.ntv, plan.plane_block, plan.groups, _CHUNK, plan.beta)
     grid_wstack.launches += 1
     return grid
 
@@ -348,9 +458,9 @@ grid_wstack.launches = 0
 
 
 def _chunk_taps(plan, lo, hi):
-    """Flat grid indices and tap weights ((wsup·W·W), n) of samples
-    lo … hi−1, as the JAX package's scatter path forms them
-    (``core.py:543-572``): weight = wsc·ku·kv."""
+    """Flat grid indices and tap weights ((wsup·W·W), n) of the samples at
+    plan positions lo … hi−1, as the JAX package's scatter path forms
+    them (``core.py:543-572``): weight = wsc·ku·kv."""
     w, wsup = plan.support, plan.wsup
     dev = plan.device
     offs = torch.arange(w, device=dev)
@@ -368,8 +478,10 @@ def _chunk_taps(plan, lo, hi):
 
 
 def _chunks(plan):
+    """(lo, hi, samples) of the plain versions' chunks of plan positions:
+    ``samples`` indexes the values of positions lo … hi−1."""
     step = max(1, _REF_TAPS // (plan.wsup * plan.support ** 2))
-    return ((lo, min(lo + step, plan.nsamples))
+    return ((lo, min(lo + step, plan.nsamples), plan.order[lo:lo + step].long())
             for lo in range(0, plan.nsamples, step))
 
 
@@ -380,9 +492,9 @@ def grid_wstack_reference(plan, vis):
     size = plan.nplanes * plan.nu * plan.nv
     re = torch.zeros(size, dtype=plan.dtype, device=vis.device)
     im = torch.zeros_like(re)
-    for lo, hi in _chunks(plan):
+    for lo, hi, sel in _chunks(plan):
         idx, wj = _chunk_taps(plan, lo, hi)
-        v = vis[lo:hi]
+        v = vis[sel]
         re.index_add_(0, idx.reshape(-1), (v.real[None, :] * wj).reshape(-1))
         im.index_add_(0, idx.reshape(-1), (v.imag[None, :] * wj).reshape(-1))
     return torch.complex(re, im).reshape(plan.nplanes, plan.nu, plan.nv)
@@ -424,7 +536,7 @@ def degrid_wstack_reference(plan, grid):
     _check("degrid_wstack", plan, grid, (plan.nplanes, plan.nu, plan.nv))
     flat = grid.reshape(-1)
     out = torch.empty(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
-    for lo, hi in _chunks(plan):
+    for lo, hi, sel in _chunks(plan):
         idx, wj = _chunk_taps(plan, lo, hi)
-        out[lo:hi] = (flat[idx] * wj).sum(dim=0)
+        out[sel] = (flat[idx] * wj).sum(dim=0)
     return out

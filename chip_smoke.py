@@ -19,7 +19,8 @@ that each print one line (some several):
 4. DFT kernels vs plain: dft_forward and dft_adjoint against their plain
    versions on the card (three phase modes × corr 1/2/4 × both
    conventions × real and complex sky, ragged shapes), two launches
-   bitwise equal, and im_to_vis's ≥ 128-channel route through
+   bitwise equal, three correlations as 2 + 1 launches of each DFT
+   kernel and of predict_kb, and im_to_vis's ≥ 128-channel route through
    predict_kb against the CPU;
 5. the flagship: FlagshipPredict over 3 row chunks of 4 time steps
    (64 antennas, 2016 baselines, 8064 rows, 4096 channels 0.856-1.712
@@ -43,16 +44,19 @@ that each print one line (some several):
    run of each plain version, and the step's rate in Mvis-iter/s;
 10. wgrid kernels vs plain: grid_wstack and degrid_wstack against their
    plain versions on the card (supports 4/6/8/10 × 1 plane and a stack ×
-   float32 and float64 × square, odd and tiny grids, ragged sample
-   counts, windows that wrap), and two launches bitwise equal;
+   float32 and float64 × square, odd, one-tile and narrower-than-the-
+   window grids, ragged sample counts, windows that wrap, windows over
+   the grid kernel's tile corners and in a tile's last cells), and two
+   launches bitwise equal;
 11. config-4 imaging (bench.py:879-1013): WStackImaging at 100,000 rows ×
    8 channels, a 512² image over 1°, ε = 1e-4, w-stacking on — the plan
    cold and cached, the launches through dirty and degrid, kernel vs
    plain on the whole dirty image and the degridded visibilities,
    adjointness, and the bench's explicit-DFT check;
-12. imaging times: CUDA-graph replays of the grid, fold and degrid
-   kernels, CUDA-event medians of dirty and degrid (Mvis/s), the FFTs'
-   share, one run of each plain version, peak device memory, a
+12. imaging times: CUDA-graph replays of the grid kernel (one launch, no
+   fold) and the degrid kernel, CUDA-event medians of dirty and degrid
+   (Mvis/s), the FFTs' share, one run of each plain version, peak device
+   memory, a
    torch.profiler breakdown, and dirty and degrid again at a larger cell
    (1,000,000 rows × 8 channels, a 1024² image, w extent widened to
    ≥ 16 planes), its kernels held against their plain versions first;
@@ -73,11 +77,14 @@ that each print one line (some several):
    medians of each leg (Msamples/s), one run of each plain version, peak
    device memory and a torch.profiler breakdown of each leg;
 16. gridder kernels vs plain: grid_2d and degrid_2d (supports 4/6/8/10 ×
-   corr 1/2/4 × square, odd and tiny grids, edge-wrapping windows) and
-   grid_table and degrid_table (odd supports 3/5/7/15 × oversampling 5
-   and 63 × 2 bands, windows off every edge, samples with no in-grid
-   tap) against their plain versions in float32 and float64, and two
-   launches bitwise equal;
+   corr 1/2/3/4 — 3 as one grid and 2 + 1 degrid launches — × square,
+   odd, one-tile and narrower-than-the-window grids, edge-wrapping
+   windows, windows over tile corners and in a tile's last cells) and
+   grid_table and degrid_table (odd supports 3/5/7/15/17/31 ×
+   oversampling 5 and 63 × 2 bands, windows off every edge, samples with
+   no in-grid tap; complex128 at W 15, oversampling 1023, the table read
+   from device memory) against their plain versions in float32 and
+   float64, and two launches bitwise equal;
 17. both gridders at full width: nifty grid → dirty and model → degrid
    at config 4's draws (100,000 rows × 8 channels × 4 correlations, a
    1024² image, 2048² grids, ε 1e-5: W = 8), launches counted, kernels
@@ -87,8 +94,8 @@ that each print one line (some several):
    bands, kbsinc W 7 × 63 packed, the image centre 0.5° off, rotate +
    phase_rotate) on plans made once, launches counted, kernels vs plain
    and the table pair's adjoint identity;
-18. gridder times: CUDA-graph replays of the four kernels with their
-   bounds, CUDA-event medians of nifty grid + dirty and model + degrid
+18. gridder times: CUDA-graph replays of the four kernels (grid_2d one
+   launch, no fold) with their bounds, CUDA-event medians of nifty grid + dirty and model + degrid
    and of the PP gridder and degridder (Mvis/s), one run of each plain
    version, peak device memory and a torch.profiler breakdown of each.
 
@@ -147,6 +154,8 @@ FACET_BANDS, FACET_DEC, FACET_OFFSET_DEG = 2, -np.pi / 6, 0.5
 # gridder kernels vs plain, relative to max|out|: f32 sums in another
 # order than index_add_'s and the gather-sum's
 GRIDDER_BOUND = 1e-5
+# phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
+WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 PHASES = 18
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
@@ -315,20 +324,33 @@ def dft_problem(rng, S, P, R, F, C, grid, device):
             t(freq), t(cplx((S, F, C))), t(cplx((R, F, C))))
 
 
-def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device):
+def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device, edges=False):
     """A random WGridPlan of ``n`` samples on ``device`` (the first few
-    with windows that wrap past the grid edges) and operands for it, made
-    with numpy (also used by tests/test_torch_cuda.py): (plan, vis (n,),
-    grid (nplanes, nu, nv)), complex in the plan's dtype. A stack
-    (``nplanes`` > 1) needs nplanes ≥ support + 2."""
+    with windows that wrap past the grid edges; with ``edges``, the next
+    few on the grid kernel's tile corners and in a tile's last cells) and
+    operands for it, made with numpy (also used by
+    tests/test_torch_cuda.py): (plan, vis (n,), grid (nplanes, nu, nv)),
+    complex in the plan's dtype. A stack (``nplanes`` > 1) needs nplanes ≥
+    support + 2."""
     import torch
-    from africanus_tpu_torch.ops.cuda_wgrid import WGridPlan
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
     from africanus_tpu_torch.ops.es import es_np
 
     w = support
     upos, vpos = rng.uniform(0, nu, n), rng.uniform(0, nv, n)
     upos[:3] = [0.01, nu - 0.3, nu - 0.9][:n]
     vpos[1:4] = [nv - 0.2, 0.4, nv - 1.1][:max(n - 1, 0)]
+    if edges:
+        # a window starting W/2 - 1 cells before its sample: samples at a
+        # tile corner (their windows over four tiles), just past one, and
+        # in a tile's last cell
+        rb = 4 if dtype == torch.float32 else 8
+        block, _ = cw._plane_layout(nplanes, w, rb)
+        tu, tv = (cw._tile_edge(x, block, w, rb) for x in (nu, nv))
+        k = min(n - 4, 6)
+        cu = (np.arange(1, k + 1) * tu) % nu + np.array([0.0, 0.5, -0.5, -0.01, 0.99, 1.5][:k])
+        cv = (np.arange(1, k + 1) * tv) % nv + np.array([0.0, -0.5, 0.5, -0.01, 1.5, 0.99][:k])
+        upos[4:4 + k], vpos[4:4 + k] = np.mod(cu, nu), np.mod(cv, nv)
     iu0 = np.floor(upos).astype(np.int64) - (w // 2 - 1)
     iv0 = np.floor(vpos).astype(np.int64) - (w // 2 - 1)
     if nplanes > 1:
@@ -338,8 +360,8 @@ def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device):
                     / (w / 2), 2.3 * w)
     else:
         p0, wsc = np.zeros(n, np.int64), np.ones((1, n))
-    plan = WGridPlan(iu0, iv0, upos - iu0, vpos - iv0, p0, wsc, nu, nv,
-                     nplanes, w, 2.3 * w, dtype=dtype, device=device)
+    plan = cw.WGridPlan(iu0, iv0, upos - iu0, vpos - iv0, p0, wsc, nu, nv,
+                        nplanes, w, 2.3 * w, dtype=dtype, device=device)
     cplx = plan.complex_dtype
 
     def t(shape):
@@ -395,16 +417,17 @@ def beam_problem(rng, nsamp, nchan, ncorr, dtype, device, lw=17, mh=13, nud=8):
                 pa=t(rng.uniform(-np.pi, np.pi, (nta // 5 or 1, nta // 2 or 1))))
 
 
-def grid2d_problem(rng, n, nu, nv, ncorr, support, dtype, device):
+def grid2d_problem(rng, n, nu, nv, ncorr, support, dtype, device, edges=False):
     """A random one-plane WGridPlan of ``n`` samples on ``device`` (the
-    first few windows wrapping past the grid edges) and operands of the
-    2D multi-correlation kernels, made with numpy (also used by
+    first few windows wrapping past the grid edges; with ``edges``, the
+    next few on tile corners and in a tile's last cells) and operands of
+    the 2D multi-correlation kernels, made with numpy (also used by
     tests/test_torch_cuda.py): (plan, vis (ncorr, n) — the transpose of an
     (n, ncorr) tensor, as the nifty API hands it over —, grid (ncorr, nu,
     nv)), complex in the plan's dtype."""
     import torch
 
-    plan, _, _ = wgrid_problem(rng, n, nu, nv, 1, support, dtype, device)
+    plan, _, _ = wgrid_problem(rng, n, nu, nv, 1, support, dtype, device, edges)
 
     def t(shape):
         x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
@@ -501,7 +524,7 @@ def dft_kernel_checks(device):
     import torch
     from africanus_tpu_torch.dft import im_to_vis
     from africanus_tpu_torch.ops import cuda_dft as cd
-    from africanus_tpu_torch.ops.cuda_predict import predict_kb
+    from africanus_tpu_torch.ops.cuda_predict import predict_kb, predict_kb_reference
 
     rng = np.random.default_rng(SEED + 1)
     worst = {}
@@ -540,6 +563,26 @@ def dft_kernel_checks(device):
                     modes.update((fwd.mode, adj.mode))
     check(modes == {"exact", "residual", "direct"}, f"modes run: {modes}")
 
+    # three correlations: each plan holds a sub-plan per group the kernels
+    # take (2 + 1), launched on its own columns; predict_kb splits the same
+    lm_s, lm_p, uvw, freq, img, vis = dft_problem(rng, 37, 300, 1000, 12, 3,
+                                                  "residual", device)
+    fwd = cd.DftPlan("forward", lm_s, freq, 3, "fourier")
+    adj = cd.DftPlan("adjoint", lm_p, freq, 3, "casa")
+    before = (cd.dft_forward.launches, cd.dft_adjoint.launches, predict_kb.launches)
+    got_f, got_a = cd.dft_forward(fwd, uvw, img), cd.dft_adjoint(adj, uvw, vis)
+    ops = kernel_problem(rng, 37, 1000, 300, 3, True, True, device)
+    got_p = predict_kb(*ops)
+    torch.cuda.synchronize()
+    check((cd.dft_forward.launches, cd.dft_adjoint.launches, predict_kb.launches)
+          == tuple(b + 2 for b in before), "3 correlations: not 2 + 1 launches")
+    compare("forward/3corr", got_f, cd.dft_forward_reference(fwd, uvw, img))
+    compare("adjoint/3corr", got_a, cd.dft_adjoint_reference(adj, uvw, vis))
+    want = predict_kb_reference(*ops)
+    pk3 = float((got_p - want).abs().max() / want.abs().max())
+    check(got_p.shape == (1000, 300, 3) and pk3 <= 2e-6,
+          f"predict_kb 3 corr vs plain {pk3:.3e} > 2e-6")
+
     # two launches give bitwise-equal outputs
     lm_s, lm_p, uvw, freq, img, vis = dft_problem(rng, 20, 4096, 4000, 16, 1,
                                                   "residual", device)
@@ -564,9 +607,10 @@ def dft_kernel_checks(device):
     check(wide <= 2e-6, f"im_to_vis via predict_kb vs CPU: {wide:.3e} > 2e-6")
     print(f"[4/{PHASES}] dft kernels vs plain on the card (S=37 P=300 R=1000 "
           f"F=12, modes {sorted(modes)}, C 1/2/4, both conventions, and edge "
-          "shapes; rel to max|out|): "
+          "shapes; C 3 as 2 + 1 launches; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + f"; deterministic; im_to_vis 256 chan via predict_kb vs CPU {wide:.2e}",
+          + f"; predict_kb C 3 (2 + 1) {pk3:.2e}; deterministic; im_to_vis 256 "
+          f"chan via predict_kb vs CPU {wide:.2e}",
           flush=True)
 
 
@@ -836,10 +880,11 @@ def wgrid_kernel_checks(device):
     cases = 0
     for support in cw.SUPPORTS:
         for nplanes in (1, support + 6):
-            for nu, nv, n in ((64, 64, 1007), (70, 45, 333), (12, 10, 50)):
+            for nu, nv, n in WGRID_GRIDS:
                 for dtype in (torch.float32, torch.float64):
                     plan, vis, grid = wgrid_problem(rng, n, nu, nv, nplanes,
-                                                    support, dtype, device)
+                                                    support, dtype, device,
+                                                    edges=True)
                     before = (cw.grid_wstack.launches, cw.degrid_wstack.launches)
                     got_g = cw.grid_wstack(plan, vis)
                     got_d = cw.degrid_wstack(plan, grid)
@@ -867,8 +912,9 @@ def wgrid_kernel_checks(device):
           "degrid_wstack is not deterministic")
     print(f"[10/{PHASES}] wgrid kernels vs plain on the card ({cases} cases: "
           f"W {'/'.join(map(str, cw.SUPPORTS))} x 1 plane and W+6 x f32/f64 x "
-          "64², 70x45, 12x10 grids, 1007/333/50 samples with edge-wrapping "
-          "windows; rel to max|out|): "
+          "64², 70x45, 12x10 and 5x7 grids (one tile; narrower than W), "
+          "1007/333/50/40 samples with edge-wrapping windows, windows over "
+          "tile corners and in a tile's last cells; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + "; deterministic (200k samples, 9 x 1024²)", flush=True)
 
@@ -997,10 +1043,6 @@ def imaging(device, card):
 
     # 12. times
     grid_ms = kernel_median_ms(lambda: cw.grid_wstack(plan, v))
-    tiles = cw._spread(plan, v)
-    spread_ms = kernel_median_ms(lambda: cw._spread(plan, v))
-    fold_ms = kernel_median_ms(lambda: cw._fold(plan, tiles))
-    del tiles
     degrid_ms = kernel_median_ms(lambda: cw.degrid_wstack(plan, g))
     dirty_ms, dirty_runs = cuda_median_ms(lambda: module(vis))
     model_ms, model_runs = cuda_median_ms(lambda: module.degrid(image))
@@ -1020,8 +1062,10 @@ def imaging(device, card):
           f"{nvis / dirty_ms / 1e3:.1f} Mvis/s, degrid {model_ms:.3f} ms (runs "
           f"{', '.join(f'{t:.3f}' for t in model_runs)}) = "
           f"{nvis / model_ms / 1e3:.1f} Mvis/s; kernels (CUDA graph of {BURST}): "
-          f"grid_wstack {grid_ms:.4f} ms = spread {spread_ms:.4f} + fold "
-          f"{fold_ms:.4f}, degrid_wstack {degrid_ms:.4f} ms; FFTs: ifft2 "
+          f"grid_wstack {grid_ms:.4f} ms (one kernel, no fold; tiles of "
+          f"{plan.tile_u}, {plan.plane_block} planes per block, {plan.groups} "
+          f"consumer groups, {plan.nentries / max(plan.nsamples, 1):.3f} entries "
+          f"per sample), degrid_wstack {degrid_ms:.4f} ms; FFTs: ifft2 "
           f"{ifft_ms:.4f} ms = {ifft_ms / dirty_ms:.1%} of dirty, fft2 "
           f"{fft_ms:.4f} ms = {fft_ms / model_ms:.1%} of degrid; plain "
           f"grid_wstack_reference {grid_plain_ms:.1f} ms, "
@@ -1032,7 +1076,7 @@ def imaging(device, card):
           flush=True)
 
     # the map's own operands (the window starts, offsets and w-taps of
-    # the Pallas kernels), not the port's tile order and fold tables
+    # the Pallas kernels), not the port's sample order and entry lists
     geometry = (plan.iu0, plan.iv0, plan.p0, plan.uf, plan.vf, plan.wsc)
     taps = nvis * plan.wsup * plan.support ** 2
     es = nvis * 2 * plan.support * ES_INSTR
@@ -1101,7 +1145,9 @@ def imaging(device, card):
     print(f"[12/{PHASES}] larger cell on {card}: {args['nx']}² image, "
           f"{vis.shape[0]} rows x {vis.shape[1]} chan, w extent umax/"
           f"{IMAGING_LARGE['w_div']}, {plan.nplanes} w-planes ({plan.nu}² grid, "
-          f"{plan.ntiles} tiles, {plan.plane_block} planes per block), set-up "
+          f"{plan.ntiles} tiles of {plan.tile_u}, {plan.plane_block} planes per "
+          f"block, {plan.groups} consumer groups, "
+          f"{plan.nentries / max(plan.nsamples, 1):.3f} entries per sample), set-up "
           f"with plan {setup:.1f} s; kernel vs plain: grid max abs "
           f"{grid_l_abs:.3e} (max {grid_l_scale:.3e}), degrid max abs "
           f"{degrid_l_abs:.3e} (max {degrid_l_scale:.3e}); dirty "
@@ -1412,11 +1458,12 @@ def gridder_kernel_checks(device):
     worst = {}
     cases = 0
 
-    def compare(key, fn, plain, args, tol):
+    def compare(key, fn, plain, args, tol, launches=1):
         before = fn.launches
         got = fn(*args)
         torch.cuda.synchronize()
-        check(fn.launches == before + 1, f"{key}: no launch")
+        check(fn.launches == before + launches,
+              f"{key}: {fn.launches - before} launches, not {launches}")
         want = plain(*args)
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"{key}: {tuple(got.shape)} {got.dtype}")
@@ -1428,16 +1475,18 @@ def gridder_kernel_checks(device):
         tol = GRIDDER_BOUND if dtype == torch.float32 else 1e-12
         prec = "f32" if dtype == torch.float32 else "f64"
         for support in SUPPORTS:
-            for ncorr in g2.CORRS:
-                for nu, nv, n in ((64, 64, 1007), (70, 45, 333), (12, 10, 50)):
+            # 3 correlations: one grid launch, 2 + 1 degrid launches
+            for ncorr, ndegrid in ((1, 1), (2, 1), (3, 2), (4, 1)):
+                for nu, nv, n in WGRID_GRIDS:
                     plan, vis, grid = grid2d_problem(rng, n, nu, nv, ncorr, support,
-                                                     dtype, device)
+                                                     dtype, device, edges=True)
                     compare(f"grid_2d/{prec}", g2.grid_2d, g2.grid_2d_reference,
                             (plan, vis), tol)
                     compare(f"degrid_2d/{prec}", g2.degrid_2d,
-                            g2.degrid_2d_reference, (plan, grid), tol)
+                            g2.degrid_2d_reference, (plan, grid), tol, ndegrid)
                     cases += 1
-        for support in (3, 5, 7, 15):
+        # supports 17 and 31: the widest instances of gridtab.cu
+        for support in (3, 5, 7, 15, 17, 31):
             for oversample in (5, 63):
                 for npix, n in ((64, 1007), (37, 333), (5, 40)):
                     plan, table, vals, grid = table_problem(
@@ -1447,6 +1496,15 @@ def gridder_kernel_checks(device):
                     compare(f"degrid_table/{prec}", gt.degrid_table,
                             gt.degrid_table_reference, (plan, table, grid), tol)
                     cases += 1
+    # complex128 at W = 15, oversampling 1023: the table read from device
+    # memory by both kernels
+    plan, table, vals, grid = table_problem(rng, 1007, 64, 2, 15, 1023,
+                                            torch.float64, device)
+    check(gt._spread_table_smem(plan) == 0, "the 1023-oversampled table fits?")
+    compare("grid_table/f64-os1023", gt.grid_table, gt.grid_table_reference,
+            (plan, table, vals), 1e-12)
+    compare("degrid_table/f64-os1023", gt.degrid_table, gt.degrid_table_reference,
+            (plan, table, grid), 1e-12)
 
     # two launches give bitwise-equal outputs
     plan, vis, grid = grid2d_problem(rng, 200_000, 1024, 1024, 4, 8, torch.float32,
@@ -1464,9 +1522,11 @@ def gridder_kernel_checks(device):
                       gt.degrid_table(plan, table, grid)),
           "degrid_table is not deterministic")
     print(f"[16/{PHASES}] gridder kernels vs plain on the card ({cases} problems: "
-          f"2D W {'/'.join(map(str, SUPPORTS))} x corr 1/2/4 x 64², 70x45, 12x10 "
-          "grids with edge-wrapping windows; table W 3/5/7/15 x os 5/63 x 2 bands "
-          "x 64², 37², 5² grids with windows off every edge; f32/f64; rel to "
+          f"2D W {'/'.join(map(str, SUPPORTS))} x corr 1/2/3/4 x 64², 70x45, 12x10, "
+          "5x7 grids with edge-wrapping windows, windows over tile corners and "
+          "in a tile's last cells; table W 3/5/7/15/17/31 x os 5/63 x 2 bands "
+          "x 64², 37², 5² grids with windows off every edge; f32/f64; and "
+          "complex128 W 15 os 1023 with the table in device memory; rel to "
           "max|out|): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + "; deterministic (200k samples, 1024²)", flush=True)
 
@@ -1681,7 +1741,6 @@ def gridders(device, card):
 
     # 18. times
     grid2d_ms = kernel_median_ms(lambda: g2.grid_2d(wplan, vals))
-    spread2d_ms = kernel_median_ms(lambda: g2._spread(wplan, vals))
     degrid2d_ms = kernel_median_ms(lambda: g2.degrid_2d(wplan, mg))
     gtab_ms = kernel_median_ms(lambda: gt.grid_table(gplan, table, stokes))
     dtab_ms = kernel_median_ms(lambda: gt.degrid_table(dplan, table, fgrid))
@@ -1718,7 +1777,9 @@ def gridders(device, card):
           f"{_mvis(pvis_n, pp_grid_ms):.1f} Mvis/s, degridder {pp_degrid_ms:.3f} ms "
           f"(runs {', '.join(f'{t:.3f}' for t in pd_runs)}) = "
           f"{_mvis(pvis_n, pp_degrid_ms):.1f} Mvis/s; kernels (CUDA graph of "
-          f"{BURST}): grid_2d {grid2d_ms:.4f} ms (spread {spread2d_ms:.4f} + fold), "
+          f"{BURST}): grid_2d {grid2d_ms:.4f} ms (one kernel, no fold; tiles of "
+          f"{wplan.tile_u}, {wplan.nentries / max(wplan.nsamples, 1):.3f} entries "
+          f"per sample), "
           f"degrid_2d {degrid2d_ms:.4f} ms, grid_table {gtab_ms:.4f} ms, "
           f"degrid_table {dtab_ms:.4f} ms; plain grid_2d {grid2d_plain_ms:.1f} ms, "
           f"degrid_2d {degrid2d_plain_ms:.1f} ms, grid_table {gtab_plain_ms:.1f} ms, "

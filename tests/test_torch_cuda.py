@@ -565,3 +565,175 @@ def test_pp_gridder_on_card_matches_cpu(device, cdtype):
     for g, w in zip(got, run("cpu")):
         assert g.dtype == w.dtype and g.shape == w.shape
         _assert_close(g.cpu(), w, bound)
+
+
+# ------------------------------------------------------------ F1 and the
+# tile spread's plan on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [4, 6, 8, 10])
+@pytest.mark.parametrize("stack", [False, True], ids=["one-plane", "stack"])
+@pytest.mark.parametrize("nu,nv,n", [(5, 7, 40), (97, 64, 3000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_wgrid_spread_over_tile_edges(device, support, stack, nu, nv, n, dtype):
+    """Windows over the grid kernel's tile corners and in a tile's last
+    cells, and a grid narrower than the window: the tile spread against
+    the plain version, and bitwise-equal launches."""
+    nplanes = support + 6 if stack else 1
+    rng = np.random.default_rng(support * 100 + n + nplanes)
+    plan, vis, _ = wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device,
+                                 edges=True)
+    got = cw.grid_wstack(plan, vis)
+    _assert_close(got, cw.grid_wstack_reference(plan, vis),
+                  1e-5 if dtype == torch.float32 else 1e-12)
+    assert torch.equal(got, cw.grid_wstack(plan, vis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncorr,grid_launches,degrid_launches",
+                         [(3, 1, 2), (5, 2, 2), (7, 2, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_grid2d_kernels_split_correlations(device, ncorr, grid_launches,
+                                           degrid_launches, dtype):
+    """Correlation counts the kernels do not take in one launch are split
+    into groups they take (grid ≤ 4, degrid 4/2/1), one launch each."""
+    rng = np.random.default_rng(ncorr)
+    plan, vis, grid = grid2d_problem(rng, 1007, 70, 45, ncorr, 8, dtype, device,
+                                     edges=True)
+    before = (g2.grid_2d.launches, g2.degrid_2d.launches)
+    got_g = g2.grid_2d(plan, vis)
+    got_d = g2.degrid_2d(plan, grid)
+    torch.cuda.synchronize()
+    assert (g2.grid_2d.launches - before[0], g2.degrid_2d.launches - before[1]) == (
+        grid_launches, degrid_launches)
+    assert got_g.shape == (ncorr, 70, 45) and got_d.shape == (ncorr, 1007)
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    _assert_close(got_g, g2.grid_2d_reference(plan, vis), bound)
+    _assert_close(got_d, g2.degrid_2d_reference(plan, grid), bound)
+
+
+@pytest.mark.cuda
+def test_dft_and_predict_split_three_correlations(device):
+    rng = np.random.default_rng(33)
+    lm_s, lm_p, uvw, freq, img, vis = dft_problem(rng, 37, 300, 1000, 12, 3,
+                                                  "residual", device)
+    fwd = cd.DftPlan("forward", lm_s, freq, 3, "fourier")
+    adj = cd.DftPlan("adjoint", lm_p, freq, 3, "casa")
+    ops = kernel_problem(rng, 37, 1000, 300, 3, True, True, device)
+    before = (cd.dft_forward.launches, cd.dft_adjoint.launches, cp.predict_kb.launches)
+    got = (cd.dft_forward(fwd, uvw, img), cd.dft_adjoint(adj, uvw, vis),
+           cp.predict_kb(*ops))
+    torch.cuda.synchronize()
+    assert (cd.dft_forward.launches, cd.dft_adjoint.launches,
+            cp.predict_kb.launches) == tuple(b + 2 for b in before)
+    want = (cd.dft_forward_reference(fwd, uvw, img),
+            cd.dft_adjoint_reference(adj, uvw, vis), cp.predict_kb_reference(*ops))
+    for g, w, bound in zip(got, want, (3e-6, 3e-6, 2e-6)):
+        assert g.shape == w.shape
+        _assert_close(g, w, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [17, 21, 31])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_gridtab_kernels_wide_supports(device, support, dtype):
+    rng = np.random.default_rng(support)
+    plan, table, vals, grid = table_problem(rng, 1007, 64, 2, support, 63, dtype,
+                                            device)
+    before = (gt.grid_table.launches, gt.degrid_table.launches)
+    got_g = gt.grid_table(plan, table, vals)
+    got_d = gt.degrid_table(plan, table, grid)
+    torch.cuda.synchronize()
+    assert (gt.grid_table.launches, gt.degrid_table.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    _assert_close(got_g, gt.grid_table_reference(plan, table, vals), bound)
+    _assert_close(got_d, gt.degrid_table_reference(plan, table, grid), bound)
+
+
+@pytest.mark.cuda
+def test_gridtab_kernels_table_in_device_memory(device):
+    """complex128 at W = 15, oversampling 1023: a 139 KB table that both
+    kernels read from device memory instead of staging it."""
+    rng = np.random.default_rng(1023)
+    plan, table, vals, grid = table_problem(rng, 1007, 64, 2, 15, 1023,
+                                            torch.float64, device)
+    assert gt._spread_table_smem(plan) == 0
+    _assert_close(gt.grid_table(plan, table, vals),
+                  gt.grid_table_reference(plan, table, vals), 1e-12)
+    _assert_close(gt.degrid_table(plan, table, grid),
+                  gt.degrid_table_reference(plan, table, grid), 1e-12)
+
+
+@pytest.mark.cuda
+def test_gridtab_support_beyond_the_instances_raises_on_card(device):
+    rng = np.random.default_rng(33)
+    plan, table, vals, grid = table_problem(rng, 100, 64, 2, 33, 5, torch.float32,
+                                            device)
+    with pytest.raises(ValueError, match="support 33 on the card"):
+        gt.grid_table(plan, table, vals)
+    with pytest.raises(ValueError, match="support 33 on the card"):
+        gt.degrid_table(plan, table, grid)
+
+
+@pytest.mark.cuda
+def test_nifty_three_correlations_on_card_matches_cpu(device):
+    args = imaging_inputs(nrow=3000, nchan=4, nx=64, seed=4)
+    rng = np.random.default_rng(5)
+    vis = (rng.normal(size=(3000, 4, 3)) + 1j * rng.normal(size=(3000, 4, 3))
+           ).astype(np.complex64)
+    flags = (rng.uniform(size=vis.shape) < 0.1).astype(np.uint8)
+    image = rng.normal(size=(64, 64, 3)).astype(np.float32)
+    cell_as = np.rad2deg(args["cell"]) * 3600
+    gc = nifty.grid_config(64, 64, 1e-5, cell_as, cell_as)
+    uvw, freq = args["uvw"], args["freq"]
+
+    def run(dev):
+        g = nifty.grid(torch.as_tensor(vis, device=dev), uvw, flags, None, freq, gc)
+        return g, nifty.degrid(nifty.model(torch.as_tensor(image, device=dev), gc),
+                               uvw, flags, None, freq, gc)
+
+    before = (g2.grid_2d.launches, g2.degrid_2d.launches)
+    got = run(device)
+    torch.cuda.synchronize()
+    assert (g2.grid_2d.launches, g2.degrid_2d.launches) == (before[0] + 1,
+                                                            before[1] + 2)
+    for g, w in zip(got, run("cpu")):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_close(g.cpu(), w, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,os_,cdtype", [(17, 63, np.complex64),
+                                          (15, 1023, np.complex128)])
+def test_pp_gridder_f1_shapes_on_card_match_cpu(device, w, os_, cdtype):
+    """The PP gridder at W = 17 and the degridder in complex128 at W = 15,
+    oversampling 1023, through the kernels, against the CPU."""
+    args = imaging_inputs(nrow=3000, nchan=4, nx=128, seed=4)
+    uvw = args["uvw"].astype(np.float64)
+    wl = 2.99792458e8 / args["freq"].astype(np.float64)
+    chanmap = np.array([0, 0, 1, 1])
+    cell_as = np.rad2deg(args["cell"]) * 3600
+    centres = ((0.0, -0.5 + 0.01), (0.0, -0.5))
+    kern = pp.kernels.kbsinc(w, oversample=os_)
+    rng = np.random.default_rng(w)
+    vis = (rng.normal(size=(3000, 4, 2)) + 1j * rng.normal(size=(3000, 4, 2))
+           ).astype(cdtype)
+
+    def run(dev):
+        g = pp.gridder(uvw, torch.as_tensor(vis, device=dev), wl, chanmap, 128,
+                       cell_as, *centres, kern, w, os_, "rotate", "phase_rotate",
+                       "I_FROM_XXYY", "conv_1d_axisymmetric_unpacked_scatter")
+        return g, pp.degridder(uvw, g, wl, chanmap, cell_as, *centres, kern, w, os_,
+                               "rotate", "phase_rotate", "XXYY_FROM_I",
+                               "conv_1d_axisymmetric_unpacked_gather")
+
+    before = (gt.grid_table.launches, gt.degrid_table.launches)
+    got = run(device)
+    torch.cuda.synchronize()
+    assert (gt.grid_table.launches, gt.degrid_table.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    bound = 1e-5 if cdtype == np.complex64 else 1e-12
+    for g, want in zip(got, run("cpu")):
+        assert g.dtype == want.dtype and g.shape == want.shape
+        _assert_close(g.cpu(), want, bound)

@@ -183,7 +183,7 @@ def test_kernel_wrappers_validate_operands(rng):
         ("sideways", lm, freq, 2, "fourier"),          # kind
         ("forward", lm.double(), freq, 2, "fourier"),  # lm dtype
         ("forward", lm[:, :1], freq, 2, "fourier"),    # lm shape
-        ("forward", lm, freq, 3, "fourier"),           # corr 3
+        ("forward", lm, freq, 0, "fourier"),           # no corr
     ]
     for args in bad_plans:
         with pytest.raises(ValueError):
@@ -273,6 +273,58 @@ def test_vis_to_im_f32_with_flags(rng, convention, nchan, ncorr):
     got = vis_to_im(_t(vis), _t(uvw), _t(lm), _t(freq), _t(flags), convention)
     assert got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= BOUND_F32
+
+
+@pytest.mark.parametrize("convention", ["fourier", "casa"])
+@pytest.mark.parametrize("nchan", [12, 128])
+def test_im_to_vis_f32_three_correlations(rng, convention, nchan):
+    """Three correlations in float32 compute as the JAX package does, on
+    the dft_forward route (< 128 channels) and the predict_kb route (the
+    kernels take 1, 2 or 4 at a time: the card splits 3 = 2 + 1)."""
+    f32 = np.float32
+    lm = rng.uniform(-0.01, 0.01, (9, 2)).astype(f32)
+    uvw = rng.uniform(-4000, 4000, (70, 3)).astype(f32)
+    freq = np.linspace(0.856e9, 1.712e9, nchan).astype(f32)
+    image = rng.uniform(0.1, 1.0, (9, nchan, 3)).astype(f32)
+    want = _np(im_to_vis_ri(image, uvw, lm, freq, convention,
+                            real_dtype=jnp.float32))
+    got = im_to_vis(_t(image), _t(uvw), _t(lm), _t(freq), convention)
+    assert got.dtype == torch.complex64 and got.shape == (70, nchan, 3)
+    assert _rel(got.numpy(), want) <= BOUND_F32
+
+
+@pytest.mark.parametrize("convention", ["fourier", "casa"])
+def test_vis_to_im_f32_three_correlations(rng, convention):
+    f32 = np.float32
+    lm = rng.uniform(-0.01, 0.01, (25, 2)).astype(f32)
+    uvw = rng.uniform(-4000, 4000, (90, 3)).astype(f32)
+    freq = np.linspace(0.856e9, 1.712e9, 12).astype(f32)
+    vis = (rng.normal(size=(90, 12, 3))
+           + 1j * rng.normal(size=(90, 12, 3))).astype(np.complex64)
+    flags = rng.uniform(size=(90, 12, 3)) < 0.1
+    want = np.asarray(vis_to_im_ri(_cplx(vis), uvw, lm, freq, flags, convention,
+                                   real_dtype=jnp.float32))
+    got = vis_to_im(_t(vis), _t(uvw), _t(lm), _t(freq), _t(flags), convention)
+    assert got.dtype == torch.float32 and got.shape == (25, 12, 3)
+    assert _rel(got.numpy(), want) <= BOUND_F32
+
+
+@pytest.mark.parametrize("kind", ["forward", "adjoint"])
+def test_dft_plan_splits_correlations_the_kernels_take(rng, kind):
+    """A plan of 3 (or 7) correlations holds one sub-plan per group the
+    kernels take, each the plan of its own count (the channel groups
+    depend on it); 1, 2 and 4 need none."""
+    lm = _t(rng.uniform(-0.01, 0.01, (4, 2)).astype(np.float32))
+    freq = np.linspace(0.856e9, 1.712e9, 16)
+    for ncorr, groups in ((3, [(0, 2), (2, 1)]), (7, [(0, 4), (4, 2), (6, 1)]),
+                          (4, [(0, 4)])):
+        plan = cd.DftPlan(kind, lm, freq, ncorr, "fourier")
+        assert plan.groups == groups
+        assert len(plan.parts) == (0 if ncorr == 4 else len(groups))
+        for (_, k), part in zip(groups, plan.parts):
+            alone = cd.DftPlan(kind, lm, freq, k, "fourier")
+            assert (part.ncorr, part.cg, part.mode) == (k, alone.cg, alone.mode)
+            assert np.array_equal(part.fsm, alone.fsm)
 
 
 def test_dft_empty_inputs():

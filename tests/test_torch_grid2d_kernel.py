@@ -147,7 +147,11 @@ def test_2d_wrappers_check_operands():
     with pytest.raises(ValueError, match="complex64"):
         g2.grid_2d(port, torch.zeros((2, 20), dtype=torch.complex128))
     with pytest.raises(ValueError, match="ncorr"):
-        g2.grid_2d(port, torch.zeros((3, 20), dtype=torch.complex64))
+        g2.grid_2d(port, torch.zeros((0, 20), dtype=torch.complex64))
+    # any correlation count computes on the CPU (the kernels' groups are
+    # a matter of the card)
+    assert g2.grid_2d(port, torch.zeros((3, 20), dtype=torch.complex64)).shape == (
+        3, 32, 32)
     with pytest.raises(ValueError, match="complex64"):
         g2.degrid_2d(port, torch.zeros((2, 32, 33), dtype=torch.complex64))
     stack = cw.WGridPlan(np.zeros(4), np.zeros(4), np.full(4, 2.5), np.full(4, 2.5),

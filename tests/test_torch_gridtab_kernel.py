@@ -160,14 +160,22 @@ def test_table_plan_order_and_clipping_fold_tables():
 
 def test_table_plan_and_wrappers_check_operands():
     with pytest.raises(ValueError, match="support"):
-        gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 4, 5)
+        gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 0, 5)
     with pytest.raises(ValueError, match="fractions"):
         gt.TableGridPlan([0], [0], [5], [0], [0], 16, 1, 3, 5)
     with pytest.raises(ValueError, match="bands"):
         gt.TableGridPlan([0], [0], [0], [0], [2], 16, 2, 3, 5)
-    with pytest.raises(ValueError, match="shared memory"):
-        gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 15, 2000,
-                         dtype=torch.float64)
+    # the kernels' limits are the card's, checked where a kernel launches:
+    # a table too large for shared memory is read from device memory, a
+    # support without a kernel instance raises there, naming the limit
+    big = gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 15, 2000,
+                           dtype=torch.float64)
+    assert gt._spread_table_smem(big) == 0
+    assert gt._spread_table_smem(gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1,
+                                                  7, 63)) == 1
+    wide = gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 33, 5)
+    with pytest.raises(ValueError, match="support 33 on the card"):
+        gt._check_support("grid_table", wide)
     rng = np.random.default_rng(2)
     plan, _, _ = _plans(rng, 30, 5, 5)
     table = torch.ones(35)

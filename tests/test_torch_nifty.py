@@ -85,6 +85,29 @@ def test_nifty_degrid_float64_matches_jax(ncorr):
     _close(got.numpy(), want, 1e-12)
 
 
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_nifty_three_correlations_match_jax(precision):
+    """Three correlations grid and degrid as the JAX package does (the
+    card's kernels take them in groups: 3 in one grid launch, 2 + 1
+    degrid launches)."""
+    rng, uvw, freq, vis, flags = _problem(30, 3, w_extent=50.0)
+    jgc, tgc = _configs(1e-7 if precision == "f64" else 1e-5)
+    g = (rng.normal(size=(2 * NX, 2 * NY, 3))
+         + 1j * rng.normal(size=(2 * NX, 2 * NY, 3)))
+    want_g = to_numpy(jn.grid(vis, uvw, flags, None, freq, jgc))
+    want_d = to_numpy(jn.degrid(Cplx(g.real, g.imag), uvw, flags, None, freq, jgc))
+    if precision == "f64":
+        tvis, tg, tuvw, tfreq, bound = vis, g, uvw, freq, 1e-12
+    else:
+        tvis, tg = vis.astype(np.complex64), g.astype(np.complex64)
+        tuvw, tfreq, bound = uvw.astype(np.float32), freq.astype(np.float32), 1e-5
+    got_g = tn.grid(torch.as_tensor(tvis), tuvw, flags, None, tfreq, tgc)
+    got_d = tn.degrid(torch.as_tensor(tg), tuvw, flags, None, tfreq, tgc)
+    assert tuple(got_g.shape) == (2 * NX, 2 * NY, 3) and got_d.shape == vis.shape
+    _close(got_g.numpy(), want_g, bound)
+    _close(got_d.numpy(), want_d, bound)
+
+
 @pytest.mark.parametrize("nx,ny", [(16, 16), (15, 20)])
 def test_nifty_dirty_and_model_match_jax(nx, ny):
     rng = np.random.default_rng(nx + ny)

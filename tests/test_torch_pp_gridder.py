@@ -215,6 +215,38 @@ def test_degridder_matches_jax(policy, btp, ptp):
     assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())
 
 
+def test_gridder_support_17_matches_jax():
+    """W = 17, above the table kernels' PR-5 instances, grids on the CPU as
+    the JAX package does (its PP gridder has no support limit)."""
+    rng, uvw, wl, chanmap = _problem(6)
+    vis = _vis(rng, (uvw.shape[0], wl.size, 2))
+    kern = jk.kbsinc(17, oversample=OS)
+    args = (wl, chanmap, NPIX, CELL, (0.2, -0.4), (0.19, -0.41), kern, 17, OS,
+            "rotate", "phase_rotate", "I_FROM_XXYY",
+            "conv_1d_axisymmetric_unpacked_scatter")
+    want = to_numpy(JG.gridder(uvw, Cplx(vis.real, vis.imag), *args))
+    got = TG.gridder(uvw, torch.as_tensor(vis), *args).numpy()
+    assert got.shape == (2, NPIX, NPIX)
+    assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())
+
+
+def test_degridder_complex128_large_table_matches_jax():
+    """complex128 at W = 15, oversampling 1023: a 139 KB table, more than
+    the table kernels stage in shared memory (the card reads it from
+    device memory); on the CPU the degridder computes as the JAX
+    package's."""
+    rng, uvw, wl, chanmap = _problem(7)
+    kern = jk.kbsinc(15, oversample=1023)
+    g = _vis(rng, (2, NPIX, NPIX))
+    args = (wl, chanmap, CELL, (0.2, -0.4), (0.19, -0.41), kern, 15, 1023,
+            "rotate", "phase_rotate", "XXYY_FROM_I",
+            "conv_1d_axisymmetric_unpacked_gather")
+    want = to_numpy(JG.degridder(uvw, Cplx(g.real, g.imag), *args))
+    got = TG.degridder(uvw, torch.as_tensor(g), *args).numpy()
+    assert got.shape == (uvw.shape[0], wl.size, 2)
+    assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())
+
+
 def test_degridder_off_grid_sample_is_zero_not_nan():
     """A visibility with no tap in the grid degrids to 0 (cw = 1e-8)."""
     wl = np.array([C / 1e9])

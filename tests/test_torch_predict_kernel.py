@@ -145,7 +145,7 @@ def test_wrapper_validates_operands(rng):
     bad = [
         ((dot[0].double(), dot[1]), u1, v1, freq, sf, b),      # dtype
         (dot, u1, None, freq, sf, b),                          # u1 without v1
-        (dot, u1, v1, freq, sf, b[..., :3].contiguous()),      # corr 3
+        (dot, u1, v1, freq, sf, b[..., :0].contiguous()),      # no corr
         (dot, u1, v1, freq, sf, b.to(torch.complex128)),       # b dtype
         (dot, u1[:, :4], v1[:, :4], freq, sf, b),              # shape
         (dot, u1, v1, freq, sf[:5], b),                        # chan mismatch

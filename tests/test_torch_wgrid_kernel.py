@@ -175,49 +175,56 @@ def test_wrappers_check_operands():
 
 
 def test_plan_float64_and_tile_order():
-    """A float64 plan carries float64 offsets and taps; the samples'
-    order is a stable sort by owning tile and tile_start indexes it."""
+    """A float64 plan carries float64 offsets and taps; the samples' plan
+    order is a stable sort by the tile of their window start, then by
+    window start, and the per-sample buffers follow it."""
     rng = np.random.default_rng(5)
     iu0, iv0, uf, vf, p0, kw = _geometry(rng, 300, 6)
     plan = cw.WGridPlan(iu0, iv0, uf, vf, p0, kw.T, 96, 80, NPLANES, 6, 13.8,
                         dtype=torch.float64)
     assert plan.uf.dtype == plan.wsc.dtype == torch.float64
     assert plan.complex_dtype == torch.complex128
-    # 12 planes of 16-byte cells in 32 KB: a 13-cell padded tile, edge 8
-    assert (plan.tile_u, plan.tile_v, plan.ntu, plan.ntv) == (8, 8, 12, 10)
-    tile = (np.mod(iu0, 96) // 8) * 10 + np.mod(iv0, 80) // 8
+    # 12 planes of 16-byte cells in 32 KB: a 13-cell tile
+    assert (plan.tile_u, plan.tile_v, plan.ntu, plan.ntv) == (13, 13, 8, 7)
+    assert (plan.plane_block, plan.groups) == (12, 6)
+    pu, pv = np.mod(iu0, 96), np.mod(iv0, 80)
+    tile = (pu // 13) * 7 + pv // 13
+    key = cw._spatial_key(pu % 13, pv % 13, 6, 13)
     order = plan.order.numpy()
-    assert np.array_equal(order, np.argsort(tile, kind="stable"))
-    start = plan.tile_start.numpy()
-    for t in range(plan.ntiles):
-        assert (tile[order[start[t]:start[t + 1]]] == t).all()
-    # the tile edge: 16 at config 4 (9 planes, W = 6, complex64), 10 at 17
-    # planes, 32 without a stack, never wider than the grid
-    assert cw._tile_edge(1024, 9, 6, 8) == 16
-    assert cw._tile_edge(2048, 17, 6, 8) == 10
-    assert cw._tile_edge(1024, 1, 6, 8) == 32
-    assert cw._tile_edge(10, 1, 6, 8) == 10
-    assert cw._tile_edge(1024, 200, 10, 16) == 8
+    assert np.array_equal(order, np.lexsort((key, tile)))
+    assert np.array_equal(plan.iu0.numpy(), iu0[order])
+    assert np.array_equal(plan.uf.numpy(), uf[order])
+    assert np.array_equal(plan.wsc.numpy(), kw.T[:, order])
+    start = plan.ent_start.numpy()
+    assert start[0] == 0 and start[-1] == plan.nentries == plan.ent_pos.numel()
+    # the tile edge: 21 at config 4 (9 planes, W = 6, complex64), 15 at
+    # 17 planes, 22 for one plane (sized for 4 correlations), never wider
+    # than the grid nor narrower than 8
+    assert cw._tile_edge(1024, 9, 6, 4) == 21
+    assert cw._tile_edge(2048, 17, 6, 4) == 15
+    assert cw._tile_edge(1024, 1, 6, 4) == 22
+    assert cw._tile_edge(10, 1, 6, 4) == 10
+    assert cw._tile_edge(1024, 36, 10, 8) == 8
 
 
 @pytest.mark.parametrize("support", [4, 6, 8, 10])
 @pytest.mark.parametrize("real_bytes", [4, 8], ids=["f32", "f64"])
 def test_plane_block_fits_the_kernel_budget(support, real_bytes):
-    """The grid kernel's planes per block, decided on the host: each
-    block (its planes of the padded tile and the staged samples) fits the
-    budget the kernel's launch checks, with the fewest balanced blocks."""
-    stage = cw._CHUNK * (4 * support * real_bytes + 8)
+    """The grid kernel's planes per block and consumer groups, decided on
+    the host: each block (its planes of the tile and the two staging
+    buffers) fits the budget the kernel's launch checks, its consumers and
+    producer warps fit a block, every consumer holds at most _MAXP planes,
+    and the blocks of planes are the fewest balanced ones."""
     for nplanes in (1, 9, 17, 40, 200):
-        edge = cw._tile_edge(2048, nplanes, support, 2 * real_bytes)
-        plane = (edge + support - 1) ** 2 * 2 * real_bytes
-        block = cw._plane_block(nplanes, edge + support - 1, edge + support - 1,
-                                support, real_bytes)
-        assert block * plane + stage <= cw._SMEM_BYTES
+        block, groups = cw._plane_layout(nplanes, support, real_bytes)
+        edge = cw._tile_edge(2048, block, support, real_bytes)
+        assert cw._spread_smem(block, edge, edge, support, real_bytes) <= cw._SMEM_BYTES
+        consumers = -(-groups * support ** 2 // 32) * 32
+        assert consumers + 32 * cw._PRODUCERS <= cw._THREADS
+        assert -(-block // groups) <= cw._MAXP
         nblk = -(-nplanes // block)
         assert -(-nplanes // nblk) == block
-        if nblk > 1:  # one block fewer would not fit
-            assert -(-nplanes // (nblk - 1)) * plane + stage > cw._SMEM_BYTES
-    # config 4 (9 planes, W = 6, complex64, 16-cell tiles): one block; a
-    # float64 stack of 16 planes at W = 10 (8-cell tiles): two of 8
-    assert cw._plane_block(9, 21, 21, 6, 4) == 9
-    assert cw._plane_block(16, 17, 17, 10, 8) == 8
+    # config 4 (9 planes, W = 6, complex64): one block of 9, 5 groups of
+    # 2; the larger cell's 17 planes: one block, 6 groups of 3
+    assert cw._plane_layout(9, 6, 4) == (9, 5)
+    assert cw._plane_layout(17, 6, 4) == (17, 6)
