@@ -49,11 +49,18 @@
 //    bitwise-equal grids. Up to 4 correlations in one launch. What bounds it
 //    now: the consumers' dependent chain per sample and the flushes of
 //    their sums (PERF.md §6), not bytes.
-//  - degrid: one thread per sample in plan order (a warp's windows meet in
-//    L1/L2; the geometry read contiguously), the ES window once, every
-//    correlation summed over its W^2 wrapped cells in a fixed order,
-//    written to the sample's own row of the (n, NC) output: no
-//    permutation, no scatter. NC in {1, 2, 4} (the wrapper splits others).
+//  - degrid: gridding.cuh's tile gather, the mirror of the spread. One block
+//    per uv tile that has samples stages the tile and its W - 1 halo of the
+//    launch's NC correlations into shared memory (cp.async, whole rows, the
+//    wrap resolved once per cell), then gathers the tile's own samples
+//    (the plan-order run whose window start lies in it) a half-warp each:
+//    the 2W ES taps once, the W^2 taps 16 at a time with no bank conflict,
+//    and the 2 NC partial sums reduced over the 16 lanes by shuffles in a
+//    fixed pattern (bitwise-equal launches), written to the sample's own
+//    row of the (n, NC) output: no permutation, no scatter. NC in {1, 2, 4}
+//    (the wrapper splits others). A warp's shared loads read 16 consecutive
+//    taps of each of two windows, where one thread a sample would make each
+//    8-byte load of a warp touch 32 different windows.
 //
 // No --use_fast_math: expf/exp and sqrtf/sqrt are the accurate library
 // versions, and the strict |z| < 1 cutoff is decided on the same
@@ -61,77 +68,22 @@
 
 #include "gridding.cuh"
 
-namespace {
-
-constexpr int DEGRID_THREADS = 128;
-
-// One thread per sample in plan order (geometry at plan position i, the
-// values to sample s = order[i]); out: (n, NC), sample s's correlations at
-// out[s * NC + c].
-template <typename T, int W, int NC>
-__global__ void __launch_bounds__(DEGRID_THREADS)
-grid2d_degrid_kernel(const int* __restrict__ order, const int* __restrict__ iu0,
-                     const int* __restrict__ iv0, const T* __restrict__ uf,
-                     const T* __restrict__ vf,
-                     const typename Vec2<T>::type* __restrict__ grid,
-                     typename Vec2<T>::type* __restrict__ out, int n, int nu, int nv,
-                     T beta) {
-    using V2 = typename Vec2<T>::type;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int s = order[i];
-    const T half = T(W) / T(2);
-    const T u = uf[i], v = vf[i];
-    const int u0 = pmod(iu0[i], nu), v0 = pmod(iv0[i], nv);
-    T ku[W], kv[W];
-    size_t row[W];
-    int col[W];
-#pragma unroll
-    for (int a = 0; a < W; ++a) {
-        ku[a] = es_tap((u - T(a)) / half, beta);
-        kv[a] = es_tap((v - T(a)) / half, beta);
-        row[a] = (size_t)((u0 + a) % nu) * nv;
-        col[a] = (v0 + a) % nv;
-    }
-    const size_t plane = (size_t)nu * nv;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-        const V2* g = grid + (size_t)c * plane;
-        T ar = T(0), ai = T(0);
-#pragma unroll
-        for (int a = 0; a < W; ++a) {
-            T br = T(0), bi = T(0);
-#pragma unroll
-            for (int b = 0; b < W; ++b) {
-                const V2 x = g[row[a] + col[b]];
-                br += kv[b] * x.x;
-                bi += kv[b] * x.y;
-            }
-            ar += ku[a] * br;
-            ai += ku[a] * bi;
-        }
-        out[(size_t)s * NC + c] = vec2(ar, ai);
-    }
+// Lets every spread and gather instance take SPREAD_BUDGET bytes of
+// dynamic shared memory on the current device (above the default 48 KB).
+// Called once per device before the first launch, outside any CUDA-graph
+// capture.
+extern "C" int grid2d_init() {
+    int err = allow_es_spread_budget_all<float>();
+    err = err ? err : allow_es_spread_budget_all<double>();
+    err = err ? err : allow_gather_budget<float, 4>();
+    err = err ? err : allow_gather_budget<float, 6>();
+    err = err ? err : allow_gather_budget<float, 8>();
+    err = err ? err : allow_gather_budget<float, 10>();
+    err = err ? err : allow_gather_budget<double, 4>();
+    err = err ? err : allow_gather_budget<double, 6>();
+    err = err ? err : allow_gather_budget<double, 8>();
+    return err ? err : allow_gather_budget<double, 10>();
 }
-
-template <typename T, int W, int NC>
-int degrid(const int* order, const int* iu0, const int* iv0, const void* uf,
-           const void* vf, const void* grid, void* out, int n, int nu, int nv,
-           double beta, cudaStream_t stream) {
-    using V2 = typename Vec2<T>::type;
-    const int blocks = (n + DEGRID_THREADS - 1) / DEGRID_THREADS;
-    grid2d_degrid_kernel<T, W, NC><<<blocks, DEGRID_THREADS, 0, stream>>>(
-        order, iu0, iv0, static_cast<const T*>(uf), static_cast<const T*>(vf),
-        static_cast<const V2*>(grid), static_cast<V2*>(out), n, nu, nv, (T)beta);
-    return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// Lets every grid kernel instance take SPREAD_BUDGET bytes of dynamic
-// shared memory on the current device (above the default 48 KB). Called
-// once per device before the first launch, outside any CUDA-graph capture.
-extern "C" int grid2d_init() { return allow_spread_budget_all(); }
 
 #define GRID2D_CORRS(CALL, T, W)          \
     switch (ncorr) {                      \
@@ -177,18 +129,24 @@ extern "C" int grid2d_spread_launch(const int* ent_pos, const int* ent_off,
 #undef CALL
 }
 
-// order, and iu0, iv0, uf, vf in plan order; grid: (ncorr, nu, nv) complex
-// T, ncorr in {1, 2, 4}; out: (n, ncorr) complex T by sample, every element
-// written.
-extern "C" int grid2d_degrid_launch(const int* order, const int* iu0, const int* iv0,
+// tiles: (ntiles,) int32 the uv tiles that have samples (tile index tu *
+// ntv + tv); home_start: (all tiles + 1,) int32 offsets into plan order of
+// each tile's samples; order, and iu0, iv0, uf, vf in plan order; grid:
+// (ncorr, nu, nv) complex T, ncorr in {1, 2, 4}; out: (n, ncorr) complex
+// T by sample, every element written. tile_u x tile_v tiles: refused
+// (invalid value) where the staged tile passes SPREAD_BUDGET bytes of
+// shared memory. T is double when is_double, else float. Returns
+// cudaGetLastError() after the launch.
+extern "C" int grid2d_degrid_launch(const int* tiles, const int* home_start,
+                                    const int* order, const int* iu0, const int* iv0,
                                     const void* uf, const void* vf, const void* grid,
-                                    void* out, int n, int nu, int nv, int support,
-                                    int ncorr, double beta, int is_double,
-                                    void* stream) {
-    if (n <= 0) return (int)cudaSuccess;
+                                    void* out, int ntiles, int nu, int nv, int tile_u,
+                                    int tile_v, int ntv, int support, int ncorr,
+                                    double beta, int is_double, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, W, NC) degrid<T, W, NC>(order, iu0, iv0, uf, vf, grid, out, n, nu, nv, \
-                                        beta, st)
+#define CALL(T, W, NC) tile_gather<T, W, NC>(tiles, home_start, order, iu0, iv0, uf, vf, \
+                                             grid, out, ntiles, nu, nv, tile_u, tile_v, \
+                                             ntv, beta, st)
     if (is_double) { GRID2D_SUPPORTS(CALL, double) }
     GRID2D_SUPPORTS(CALL, float)
 #undef CALL

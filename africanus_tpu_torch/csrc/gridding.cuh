@@ -1,47 +1,80 @@
-// Shared by wgrid.cu and grid2d.cu: the ES kernel, the complex vector
-// types, and the tile spread kernel that grids both maps.
+// Shared by wgrid.cu, grid2d.cu and gridtab.cu: the ES kernel, the complex
+// vector types, the tile spread kernel that grids all three maps, and the
+// tile gather kernel that degrids the 2D map.
 //
 //   w-stack:  G[p0+t, iu0+a, iv0+b] += wsc[t] * es((uf-a)/(W/2)) * es((vf-b)/(W/2)) * V
 //   2D:       G[c, iu0+a, iv0+b]    += es((uf-a)/(W/2)) * es((vf-b)/(W/2)) * V[c]
+//   table:    G[band, ir0+a, ic0+b] += K[(a+1)*os + fr] * K[(b+1)*os + fc] * S
 //
 // The 2D map is the w-stack map with p0 = 0 and one "tap" per correlation,
-// so one kernel spreads both. Everything per sample and per entry is
-// planned on the host (ops/cuda_wgrid.WGridPlan); this file only checks a
-// launch's layout against its limits.
+// and the table map is the 2D map of one value with the table's taps in
+// place of the ES kernel's (EsTaps, TableTaps: the producer's tap policy)
+// and the band as the block's plane; so one kernel spreads all three.
+// Everything per sample and per entry is planned on the host
+// (ops/cuda_wgrid.WGridPlan, ops/cuda_gridtab.TableGridPlan); this file
+// only checks a launch's layout against its limits.
 //
-// The design (Romein, "An efficient work-distribution strategy for
+// The spread (Romein, "An efficient work-distribution strategy for
 // gridding radio-telescope data on GPUs", ICS 2012, made deterministic):
 //  - One block owns one uv tile (tile_u x tile_v cells, no halo) of a
 //    block of planes, in shared memory, and writes each of its grid cells
 //    exactly once: no padded tiles go through device memory, and there is
 //    no fold.
-//  - The host lists, per tile and in a fixed order, every entry: a sample
-//    whose window meets the tile (its own samples and the neighbours'
-//    whose windows spill in), with the window start relative to the tile,
-//    du, dv in (-W, tile). A window that wraps mod nu, nv, or a grid
-//    narrower than W, gives one entry per periodic copy that meets the
-//    tile; the block clips every tap to its tile.
-//  - Consumer thread (g, ra, rb) owns the cells whose tile coordinates are
-//    = (ra, rb) mod W, in planes g * NP .. g * NP + NP - 1 (NP at most
-//    SPREAD_MAXP, a template parameter; a group skips the entries whose
-//    w-window misses its planes). Each
-//    entry's window holds exactly one such cell, a = (ra - du) mod W, so
-//    every consumer works on every entry, without a barrier or a
-//    __syncwarp between entries: program order alone orders a thread's
-//    deposits. It keeps its sums in registers while its cell stays the
-//    same over consecutive entries (the host sorts a tile's entries by
-//    window start) and adds them to shared memory when the cell changes.
-//    Each cell is summed by one thread in a fixed order: no atomics, and
-//    two launches give bitwise-equal grids.
+//  - The host lists, per tile (or per block: the table map's bands) and in
+//    a fixed order, every entry: a sample whose window meets the tile (its
+//    own samples and the neighbours' whose windows spill in), with the
+//    window start relative to the tile, du, dv in (-W, tile). A window that
+//    wraps mod nu, nv, or a grid narrower than W, gives one entry per
+//    periodic copy that meets the tile; the table map's windows never wrap
+//    (cells off the grid have no owner and are dropped). The block clips
+//    every tap to its tile.
+//  - Consumer thread (g, c) owns the residues r = c + k * C (k < R, r <
+//    W^2, (ra, rb) = (r / W, r mod W)) and with each of them the cells
+//    whose tile coordinates are = (ra, rb) mod W, in planes g * NP .. g * NP
+//    + NP - 1 (NP at most SPREAD_MAXP, a template parameter; a group skips
+//    the entries whose w-window misses its planes). R = 1 up to W = 21;
+//    wider windows (the table map's W to 31) have more residues than a
+//    block has consumers, and a consumer holds 2 or 3. Each entry's window
+//    holds exactly one cell of each residue, a = (ra - du) mod W, so every
+//    consumer works on every entry, without a barrier or a __syncwarp
+//    between entries: program order alone orders a thread's deposits. It
+//    keeps its sums in registers while a residue's cell stays the same over
+//    consecutive entries (the host sorts a tile's entries by window start)
+//    and adds them to shared memory when the cell changes (the table map,
+//    whose blocks are sparse, without a branch). Each cell is summed by one
+//    thread in a fixed order: no atomics, and two launches give
+//    bitwise-equal grids.
 //  - Two producer warps stage the next CHUNK entries, one a lane (their
-//    plan-order geometry read contiguously, a chunk ahead; the
-//    visibilities gathered; for every consumer residue its cell's offset
-//    and ES tap, and per plane the w-tap times V, computed once per entry)
-//    into the second of two buffers while the consumers spread the current
-//    one: one __syncthreads per chunk. A consumer's step is then a few
-//    shared loads, the cell and plane-window compares and one FMA pair per
-//    plane, with the next entry's loads issued before it; its flushes load
-//    first and store after.
+//    plan-order positions read contiguously, a chunk ahead; the values
+//    gathered; for every residue along each axis its cell's offset and tap,
+//    and per plane the w-tap times V, computed once per entry) into the
+//    second of two buffers while the consumers spread the current one: one
+//    __syncthreads per chunk. A consumer's step is then a few shared loads,
+//    the cell and plane-window compares and one FMA pair per plane, with
+//    the next entry's loads issued before it; its flushes load first and
+//    store after. The table map's kernel table is staged in shared memory
+//    once per block where it fits the host's budget, else read through the
+//    read-only path.
+//
+// The gather (the 2D degrid; the mirror of the spread):
+//  - One block per uv tile that has samples (the host lists them). It
+//    stages the tile and its W - 1 halo, (hu + W - 1) x (hv + W - 1) cells
+//    of each of the launch's NC planes, from device memory into shared
+//    memory with cp.async, row by row (coalesced); the wrap mod nu, nv is
+//    resolved here, once per staged cell, never per tap, by subtraction
+//    (an integer division per cell made the staging as costly in issued
+//    instructions as the gather itself).
+//  - The tile's samples are the plan-order run whose window start lies in
+//    the tile. A half-warp takes one sample: its 16 lanes compute the 2W ES
+//    taps once (one each), then split the W^2 taps 16 at a time, tap k =
+//    16 s + lane at (a, b) = (k / W, k mod W), and each adds tap x cell for
+//    every correlation. The staged rows have a pitch = W (mod 16) cells, so
+//    the 16 consecutive taps of a step fall in 16 different bank pairs:
+//    one shared load reads them without a bank conflict. The 2 NC partial
+//    sums are then reduced over the 16 lanes by shuffles in a fixed pattern
+//    (halving the values held at each step), so two launches give
+//    bitwise-equal values; the sample's NC complex values are written to
+//    its own row of the (n, NC) output.
 //
 // No --use_fast_math: expf/exp and sqrtf/sqrt are the accurate library
 // versions, and the strict |z| < 1 cutoff is decided on the same
@@ -77,13 +110,72 @@ constexpr int SPREAD_CHUNK = 64;             // entries staged per pass
 constexpr int SPREAD_MAXP = 5;               // planes one consumer accumulates, at most
 constexpr int SPREAD_PRODUCERS = 2;          // producer warps: one entry a lane per pass
 constexpr int SPREAD_THREADS = 512;          // consumers (whole warps) + producers
+constexpr int SPREAD_CONSUMERS = SPREAD_THREADS - 32 * SPREAD_PRODUCERS;
 constexpr int SPREAD_BUDGET = 227 * 1024;    // dynamic shared memory per block
 constexpr int SPREAD_OUT = -(1 << 28);       // a staged row or column off the tile
 static_assert(SPREAD_CHUNK == 32 * SPREAD_PRODUCERS, "one staged entry a producer lane");
 
+// Residues one consumer holds (R) and consumers of one group (C) at support W.
+template <int W>
+__host__ __device__ constexpr int spread_residues() {
+    return (W * W + SPREAD_CONSUMERS - 1) / SPREAD_CONSUMERS;
+}
+
+template <int W>
+__host__ __device__ constexpr int spread_group() {
+    return (W * W + spread_residues<W>() - 1) / spread_residues<W>();
+}
+
+// The producer's taps of the w-stack and 2D maps: the ES kernel at the
+// sample's offsets from its window start (uf, vf in plan order).
+template <typename T, int W>
+struct EsTaps {
+    const T* __restrict__ uf;
+    const T* __restrict__ vf;
+    T beta;
+    static constexpr bool has_table = false;
+    static constexpr bool sparse = false;
+    struct At { T u, v; };
+    // through the read-only path, as the restrict-qualified kernel
+    // arguments these pointers were
+    __device__ __forceinline__ At at(int pos, int) const {
+        return {__ldg(uf + pos), __ldg(vf + pos)};
+    }
+    __device__ __forceinline__ T u(const At& x, int a) const {
+        return es_tap((x.u - T(a)) / (T(W) / T(2)), beta);
+    }
+    __device__ __forceinline__ T v(const At& x, int b) const {
+        return es_tap((x.v - T(b)) / (T(W) / T(2)), beta);
+    }
+};
+
+// The producer's taps of the table map: tap a of a sample with table
+// fraction f is K[(a + 1) * os + f] (fr along the rows, fc along the
+// columns, by sample index), read from the block's staged copy (s_tab)
+// or, a table too large to stage, from device memory through the
+// read-only path.
+template <typename T, int W>
+struct TableTaps {
+    const T* __restrict__ table;
+    const int* __restrict__ fr;
+    const int* __restrict__ fc;
+    int os, ntab, staged;
+    const T* s_tab;
+    static constexpr bool has_table = true;
+    // the facet cell's blocks hold few entries for their tile's cells, so
+    // that nearly every entry moves every residue's cell: a flush without a
+    // branch costs less there (spread_consume)
+    static constexpr bool sparse = true;
+    struct At { int r, c; };
+    __device__ __forceinline__ At at(int, int s) const { return {fr[s], fc[s]}; }
+    __device__ __forceinline__ T k(int i) const { return staged ? s_tab[i] : __ldg(table + i); }
+    __device__ __forceinline__ T u(const At& x, int a) const { return k((a + 1) * os + x.r); }
+    __device__ __forceinline__ T v(const At& x, int b) const { return k((b + 1) * os + x.c); }
+};
+
 // One staged residue of an entry along one axis: the owned cell's row
 // offset (lu * pitch) or column (lv), SPREAD_OUT where it is off the tile,
-// and the ES tap of that cell.
+// and the tap of that cell.
 template <typename T>
 struct __align__(2 * sizeof(T)) SpreadTap {
     int cell;
@@ -91,11 +183,10 @@ struct __align__(2 * sizeof(T)) SpreadTap {
 };
 
 // Bytes of one staging buffer: per entry W row and W column taps (one per
-// consumer residue), one value per plane of the block (w-tap times V,
-// zero off the entry's w-window; or the correlation's value) and the
-// entry's first plane in the block; CHUNK + 1 entries, so that a
-// consumer's load of the entry after the last is in bounds (its values
-// are never used).
+// residue), one value per plane of the block (w-tap times V, zero off the
+// entry's w-window; or the correlation's value) and the entry's first
+// plane in the block; CHUNK + 1 entries, so that a consumer's load of the
+// entry after the last is in bounds (its values are never used).
 template <typename T, int W>
 __host__ __device__ constexpr size_t spread_stage_bytes(int plane_block) {
     // rounded up to 16 bytes: the second buffer's taps stay aligned
@@ -105,57 +196,58 @@ __host__ __device__ constexpr size_t spread_stage_bytes(int plane_block) {
             + 15) / 16 * 16;
 }
 
+// Dynamic shared memory of a spread block: its planes of the tile (rows
+// padded to an odd pitch), two staging buffers and ntab staged table
+// values.
 template <typename T, int W>
-size_t spread_smem(int plane_block, int tile_u, int tile_v) {
+size_t spread_smem(int plane_block, int tile_u, int tile_v, int ntab) {
     return (size_t)plane_block * tile_u * (tile_v | 1) * sizeof(typename Vec2<T>::type)
-           + 2 * spread_stage_bytes<T, W>(plane_block);
+           + 2 * spread_stage_bytes<T, W>(plane_block) + (size_t)ntab * sizeof(T);
 }
 
 // A producer lane stages entry q of a chunk into buf (CHUNK is the
-// producers' lane count, so one entry a lane): for every consumer residue
-// r the owned cell's row (column) offset and ES tap, a = (r - du) mod W;
-// and per plane of the block the value to deposit. pos and o are the
-// entry's plan position and packed offsets, loaded a chunk ahead. wsc
-// non-null: a w-stack (one value per sample, ntaps w-taps, planes pb0 ..
-// pb0 + npb - 1); else the 2D map (npb correlations, vis element (c, s) at
-// vis[c * cs + s * ss]).
-template <typename T, int W>
+// producers' lane count, so one entry a lane): for every residue r along
+// each axis the owned cell's row (column) offset and tap, a = (r - du) mod
+// W; and per plane of the block the value to deposit. pos and o are the
+// entry's plan position and packed offsets ((du + W) << 5 | du mod W) |
+// ((dv + W) << 5 | dv mod W) << 16, loaded a chunk ahead. wsc non-null: a w-stack (one value per sample,
+// ntaps w-taps, planes pb0 .. pb0 + npb - 1); else the 2D or table map
+// (npb correlations, vis element (c, s) at vis[c * cs + s * ss]).
+template <typename T, int W, typename Taps>
 __device__ __forceinline__ void spread_stage(
-        unsigned char* buf, int q, int pos, int o, const int* __restrict__ order,
-        const int* __restrict__ p0, const T* __restrict__ uf, const T* __restrict__ vf,
+        unsigned char* buf, int q, int pos, int o, const Taps taps,
+        const int* __restrict__ order, const int* __restrict__ p0,
         const T* __restrict__ wsc, const typename Vec2<T>::type* __restrict__ vis,
         long long cs, long long ss, int n, int ntaps, int pb0, int npb, int plane_block,
-        int hu, int hv, int pitch, T beta) {
+        int hu, int hv, int pitch) {
     using V2 = typename Vec2<T>::type;
     SpreadTap<T>* s_u = reinterpret_cast<SpreadTap<T>*>(buf);
     SpreadTap<T>* s_v = s_u + (SPREAD_CHUNK + 1) * W;
     V2* s_w0 = reinterpret_cast<V2*>(s_v + (SPREAD_CHUNK + 1) * W);
     int* s_p = reinterpret_cast<int*>(s_w0 + (SPREAD_CHUNK + 1) * plane_block);
     V2* s_w = s_w0 + q * plane_block;
-    const T half = T(W) / T(2);
     const int s = order[pos];
-    const T u = uf[pos], v = vf[pos];
-    const int du = ((o >> 4) & 0xfff) - W, ru = o & 15;
-    const int dv = ((o >> 20) & 0xfff) - W, rv = (o >> 16) & 15;
+    const typename Taps::At x = taps.at(pos, s);
+    const int du = ((o >> 5) & 0x7ff) - W, ru = o & 31;
+    const int dv = ((o >> 21) & 0x7ff) - W, rv = (o >> 16) & 31;
 #pragma unroll
     for (int r = 0; r < W; ++r) {
         const int a = r - ru + (r < ru ? W : 0);
         const int lu = du + a;
         s_u[q * W + r] = {(unsigned)lu < (unsigned)hu ? lu * pitch : SPREAD_OUT,
-                          es_tap((u - T(a)) / half, beta)};
+                          taps.u(x, a)};
         const int b = r - rv + (r < rv ? W : 0);
         const int lv = dv + b;
-        s_v[q * W + r] = {(unsigned)lv < (unsigned)hv ? lv : SPREAD_OUT,
-                          es_tap((v - T(b)) / half, beta)};
+        s_v[q * W + r] = {(unsigned)lv < (unsigned)hv ? lv : SPREAD_OUT, taps.v(x, b)};
     }
     if (wsc != nullptr) {
-        const V2 x = vis[(long long)s * ss];
+        const V2 v = vis[(long long)s * ss];
         const int p = p0[pos] - pb0;
         s_p[q] = p;
         for (int pl = 0; pl < npb; ++pl) {
             const int t = pl - p;
             const T k = (unsigned)t < (unsigned)ntaps ? wsc[(size_t)t * n + pos] : T(0);
-            s_w[pl] = vec2(k * x.x, k * x.y);
+            s_w[pl] = vec2(k * v.x, k * v.y);
         }
     } else {
         s_p[q] = 0;
@@ -163,7 +255,7 @@ __device__ __forceinline__ void spread_stage(
     }
 }
 
-// Add a consumer's running sums to its owned cell cur of each of its NP
+// Add a residue's running sums to its owned cell cur of each of its NP
 // planes that it holds (acc + base[q]): the loads first, then the stores.
 template <typename T, int NP>
 __device__ __forceinline__ void spread_flush(typename Vec2<T>::type* acc,
@@ -181,82 +273,133 @@ __device__ __forceinline__ void spread_flush(typename Vec2<T>::type* acc,
     }
 }
 
-// A consumer (ra, rb) deposits the cn staged entries of buf, in order, into
-// its owned cells of its NP planes pl0 .. pl0 + NP - 1 (pl[q], held[q];
-// acc + base[q]), skipping the entries whose planes pw .. pw + ntaps - 1
-// miss them. Entry j + 1's operands are loaded before entry j is
-// deposited (and its cell flushed), so that their latency overlaps.
-template <typename T, int W, int NP>
+// A consumer deposits the cn staged entries of buf, in order, into the
+// owned cells of its R residues (ra[k], rb[k]; own[k]: the residue
+// exists) in its NP planes pl0 .. pl0 + NP - 1 (pl[q], held[q]; acc +
+// base[q]), skipping the entries whose planes pw .. pw + ntaps - 1 miss
+// them. Entry j + 1's operands are loaded before entry j is deposited (and
+// its cells flushed), so that their latency overlaps. SPARSE (the table
+// map): every entry loads the owned cells' old values and stores the flush
+// only where a cell moved, with no branch; else (the ES maps, one residue
+// a consumer) the flush is a branch, taken on the entries that move the
+// cell (a quarter or so of a dense block's).
+template <typename T, int W, int NP, int R, bool SPARSE>
 __device__ __forceinline__ void spread_consume(
-        const unsigned char* buf, int cn, int ra, int rb, int plane_block, int ntaps,
-        const int (&pl)[NP], const int (&base)[NP], const bool (&held)[NP],
-        typename Vec2<T>::type* acc, typename Vec2<T>::type (&sum)[NP], int& cur) {
+        const unsigned char* buf, int cn, const int (&ra)[R], const int (&rb)[R],
+        const bool (&own)[R], int plane_block, int ntaps, const int (&pl)[NP],
+        const int (&base)[NP], const bool (&held)[NP], typename Vec2<T>::type* acc,
+        typename Vec2<T>::type (&sum)[R][NP], int (&cur)[R]) {
     using V2 = typename Vec2<T>::type;
-    const int* s_p = reinterpret_cast<const int*>(
-        reinterpret_cast<const V2*>(reinterpret_cast<const SpreadTap<T>*>(buf)
-                                    + 2 * (SPREAD_CHUNK + 1) * W)
-        + (SPREAD_CHUNK + 1) * plane_block);
+    const SpreadTap<T>* s_u = reinterpret_cast<const SpreadTap<T>*>(buf);
+    const SpreadTap<T>* s_v = s_u + (SPREAD_CHUNK + 1) * W;
+    const V2* s_w = reinterpret_cast<const V2*>(s_u + 2 * (SPREAD_CHUNK + 1) * W);
+    const int* s_p = reinterpret_cast<const int*>(s_w + (SPREAD_CHUNK + 1) * plane_block);
     // the entry's first plane pw meets pl0 .. pl0 + NP - 1 iff
     // pl0 - ntaps < pw < pl0 + NP
     const int pw_lo = pl[0] - ntaps, pw_hi = pl[0] + NP;
-    const SpreadTap<T>* s_u = reinterpret_cast<const SpreadTap<T>*>(buf) + ra;
-    const SpreadTap<T>* s_v = reinterpret_cast<const SpreadTap<T>*>(buf)
-                              + (SPREAD_CHUNK + 1) * W + rb;
-    const V2* s_w = reinterpret_cast<const V2*>(
-        reinterpret_cast<const SpreadTap<T>*>(buf) + 2 * (SPREAD_CHUNK + 1) * W);
-    SpreadTap<T> nu = s_u[0], nv = s_v[0];
+    SpreadTap<T> nu[R], nv[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        nu[k] = s_u[ra[k]];
+        nv[k] = s_v[rb[k]];
+    }
     int np_ = s_p[0];
     V2 nw[NP];
 #pragma unroll
     for (int q = 0; q < NP; ++q)
         nw[q] = held[q] ? s_w[pl[q]] : vec2(T(0), T(0));
     for (int j = 0; j < cn; ++j) {
-        const SpreadTap<T> cu = nu, cv = nv;
+        SpreadTap<T> cu[R], cv[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            cu[k] = nu[k];
+            cv[k] = nv[k];
+        }
         const int pw = np_;
         V2 cw[NP];
 #pragma unroll
         for (int q = 0; q < NP; ++q) cw[q] = nw[q];
-        nu = s_u[(j + 1) * W];  // entry cn: in bounds, never used
-        nv = s_v[(j + 1) * W];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {  // entry cn: in bounds, never used
+            nu[k] = s_u[(j + 1) * W + ra[k]];
+            nv[k] = s_v[(j + 1) * W + rb[k]];
+        }
         np_ = s_p[j + 1];
         const V2* w = s_w + (j + 1) * plane_block;
 #pragma unroll
         for (int q = 0; q < NP; ++q)
             if (held[q]) nw[q] = w[pl[q]];
-        const int cell = cu.cell + cv.cell;
-        // the owned cell is off the tile, or the entry misses the planes
-        if (cell < 0 || pw <= pw_lo || pw >= pw_hi) continue;
-        if (cell != cur) {       // the owned cell moved: add the sums, start anew
-            if (cur >= 0) spread_flush<T, NP>(acc, base, held, cur, sum);
-            cur = cell;
-        }
-        const T tap = cu.k * cv.k;
+        if constexpr (SPARSE) {
+            if (pw <= pw_lo || pw >= pw_hi) continue;  // the entry misses the planes
 #pragma unroll
-        for (int q = 0; q < NP; ++q) {
-            if (held[q]) {
-                sum[q].x += tap * cw[q].x;
-                sum[q].y += tap * cw[q].y;
+            for (int k = 0; k < R; ++k) {
+                const int cell = cu[k].cell + cv[k].cell;
+                const bool dep = (R == 1 || own[k]) && cell >= 0;
+                const bool moved = dep && cell != cur[k];
+                const bool flush = moved && cur[k] >= 0;
+                const int at = flush ? cur[k] : 0;
+                V2 old[NP];
+#pragma unroll
+                for (int q = 0; q < NP; ++q) old[q] = acc[base[q] + at];
+#pragma unroll
+                for (int q = 0; q < NP; ++q) {
+                    const V2 x = vec2(old[q].x + sum[k][q].x, old[q].y + sum[k][q].y);
+                    if (flush && held[q]) acc[base[q] + at] = x;
+                    sum[k][q] = moved ? vec2(T(0), T(0)) : sum[k][q];
+                }
+                cur[k] = moved ? cell : cur[k];
+                const T tap = dep ? cu[k].k * cv[k].k : T(0);
+#pragma unroll
+                for (int q = 0; q < NP; ++q) {
+                    if (held[q]) {
+                        sum[k][q].x += tap * cw[q].x;
+                        sum[k][q].y += tap * cw[q].y;
+                    }
+                }
+            }
+        } else {
+            // the ES maps (W <= 10): one residue a consumer; this shape of
+            // the checks is the one that compiles to the fastest loop
+            static_assert(R == 1, "a dense map holds one residue a consumer");
+            const int cell = cu[0].cell + cv[0].cell;
+            // the owned cell is off the tile, or the entry misses the planes
+            if (cell < 0 || pw <= pw_lo || pw >= pw_hi) continue;
+            if (cell != cur[0]) {  // the owned cell moved: add the sums, start anew
+                if (cur[0] >= 0) spread_flush<T, NP>(acc, base, held, cur[0], sum[0]);
+                cur[0] = cell;
+            }
+            const T tap = cu[0].k * cv[0].k;
+#pragma unroll
+            for (int q = 0; q < NP; ++q) {
+                if (held[q]) {
+                    sum[0][q].x += tap * cw[q].x;
+                    sum[0][q].y += tap * cw[q].y;
+                }
             }
         }
     }
 }
 
 // One block per (tile, block of planes): grid (nplanes, nu, nv), every
-// cell of the block's tile and planes written. Entries of tile t are
-// ent_start[t] .. ent_start[t + 1] - 1; ent_pos is the sample's position
-// in plan order (geometry index), order[pos] its sample index (vis index);
-// ent_off packs ((du + W) << 4 | du mod W) | ((dv + W) << 4 | dv mod W) << 16.
-template <typename T, int W, int NP>
+// cell of the block's tile and planes written. Block b is tile b / nblk,
+// planes (b mod nblk) * plane_block ...; its entries are ent_start[l] ..
+// ent_start[l + 1] - 1 with l = b if block_lists (the table map: a list
+// per tile and band), else l = its tile (every block of planes of a tile
+// reads the tile's list). ent_pos is the sample's position in plan order
+// (the index of its geometry), order[pos] its sample index (of its value);
+// ent_off packs ((du + W) << 5 | du mod W) | ((dv + W) << 5 | dv mod W) << 16.
+template <typename T, int W, int NP, typename Taps>
 __global__ void __launch_bounds__(SPREAD_THREADS)
 tile_spread_kernel(const int* __restrict__ ent_pos, const int* __restrict__ ent_off,
                    const int* __restrict__ ent_start, const int* __restrict__ order,
-                   const int* __restrict__ p0, const T* __restrict__ uf,
-                   const T* __restrict__ vf, const T* __restrict__ wsc,
+                   const int* __restrict__ p0, Taps taps, const T* __restrict__ wsc,
                    const typename Vec2<T>::type* __restrict__ vis, long long cs,
                    long long ss, typename Vec2<T>::type* __restrict__ grid, int n,
                    int nu, int nv, int nplanes, int ntaps, int tile_u, int tile_v,
-                   int ntv, int plane_block, int nblk, int groups, T beta) {
+                   int ntv, int plane_block, int nblk, int groups, int block_lists) {
     using V2 = typename Vec2<T>::type;
+    constexpr int R = spread_residues<W>();
+    constexpr int C = spread_group<W>();
     extern __shared__ __align__(16) unsigned char smem[];
     const int tile = blockIdx.x / nblk;
     const int pb0 = (blockIdx.x % nblk) * plane_block;
@@ -272,45 +415,64 @@ tile_spread_kernel(const int* __restrict__ ent_pos, const int* __restrict__ ent_
 
     for (int i = threadIdx.x; i < npb * plane_cells; i += blockDim.x)
         acc[i] = vec2(T(0), T(0));
+    if constexpr (Taps::has_table) {
+        if (taps.staged) {
+            T* s_tab = reinterpret_cast<T*>(stage + 2 * stage_bytes);
+            for (int i = threadIdx.x; i < taps.ntab; i += blockDim.x)
+                s_tab[i] = taps.table[i];
+            taps.s_tab = s_tab;
+        }
+        __syncthreads();  // the table is in before the first chunk is staged
+    }
 
     const int tid = threadIdx.x;
-    const int consumers = groups * W * W;
+    const int consumers = groups * C;
     const int producer0 = (consumers + 31) & ~31;
     const bool producer = tid >= producer0;
     const int lane = tid - producer0;
-    const int lo = ent_start[tile], hi = ent_start[tile + 1];
+    const int list = block_lists ? (int)blockIdx.x : tile;
+    const int lo = ent_start[list], hi = ent_start[list + 1];
 
-    // consumer (g, ra, rb) and its NP planes g * NP + q < npb
-    const int g = tid / (W * W);
-    const int r = tid - g * W * W;
-    const int ra = r / W, rb = r - ra * W;
+    // consumer (g, c): its residues c + k * C and its NP planes g * NP + q < npb
+    const int g = tid / C;
+    const int c = tid - g * C;
     const bool active = tid < consumers;
+    int ra[R], rb[R], cur[R];
+    bool own[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const int r = c + k * C;
+        own[k] = r < W * W;
+        ra[k] = own[k] ? r / W : 0;
+        rb[k] = own[k] ? r - (r / W) * W : 0;
+        cur[k] = -1;
+    }
     int pl[NP], base[NP];
     bool held[NP];
-    V2 sum[NP];
+    V2 sum[R][NP];
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
         pl[q] = g * NP + q;
         base[q] = pl[q] * plane_cells;
         held[q] = active && pl[q] < npb;
-        sum[q] = vec2(T(0), T(0));
+#pragma unroll
+        for (int k = 0; k < R; ++k) sum[k][q] = vec2(T(0), T(0));
     }
-    int cur = -1;
 
     // a producer lane's entry of the chunk it stages next, loaded a chunk
     // ahead
     int npos = 0, noff = 0;
-#define SPREAD_AHEAD(C)                         \
-    if ((C) + lane < hi) {                      \
-        npos = ent_pos[(C) + lane];             \
-        noff = ent_off[(C) + lane];             \
+#define SPREAD_AHEAD(C0)                        \
+    if ((C0) + lane < hi) {                     \
+        npos = ent_pos[(C0) + lane];            \
+        noff = ent_off[(C0) + lane];            \
     }
 #define SPREAD_STAGE(BUF, C0)                                                          \
     if ((C0) + lane < hi) {                                                            \
         const int pos = npos, o = noff;                                                \
         SPREAD_AHEAD((C0) + SPREAD_CHUNK)                                              \
-        spread_stage<T, W>(BUF, lane, pos, o, order, p0, uf, vf, wsc, vis, cs, ss, n,  \
-                           ntaps, pb0, npb, plane_block, hu, hv, pitch, beta);         \
+        spread_stage<T, W, Taps>(BUF, lane, pos, o, taps, order, p0, wsc, vis, cs, ss, \
+                                 n, ntaps, pb0, npb, plane_block, hu, hv, pitch);      \
     }
     if (producer) {
         SPREAD_AHEAD(lo)
@@ -322,14 +484,17 @@ tile_spread_kernel(const int* __restrict__ ent_pos, const int* __restrict__ ent_
         if (producer) {
             SPREAD_STAGE(stage + ((k + 1) & 1) * stage_bytes, c0 + SPREAD_CHUNK)
         } else if (active) {
-            spread_consume<T, W, NP>(stage + (k & 1) * stage_bytes, min(SPREAD_CHUNK, hi - c0),
-                                 ra, rb, plane_block, ntaps, pl, base, held, acc, sum, cur);
+            spread_consume<T, W, NP, R, Taps::sparse>(
+                stage + (k & 1) * stage_bytes, min(SPREAD_CHUNK, hi - c0), ra, rb, own,
+                plane_block, ntaps, pl, base, held, acc, sum, cur);
         }
         __syncthreads();  // chunk k spread, chunk k + 1 staged
     }
 #undef SPREAD_STAGE
 #undef SPREAD_AHEAD
-    if (cur >= 0) spread_flush<T, NP>(acc, base, held, cur, sum);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+        if (cur[r] >= 0) spread_flush<T, NP>(acc, base, held, cur[r], sum[r]);
     __syncthreads();  // every sum is in
     const int cells = hu * hv;
     for (int i = threadIdx.x; i < npb * cells; i += blockDim.x) {
@@ -340,11 +505,42 @@ tile_spread_kernel(const int* __restrict__ ent_pos, const int* __restrict__ ent_
     }
 }
 
-// The launch of tile_spread_kernel, instantiated for each count of planes a
-// consumer holds (ceil(plane_block / groups)): refused (invalid value) if
-// the layout breaks a limit: more than SPREAD_MAXP planes a consumer, more threads
-// than SPREAD_THREADS, more shared memory than SPREAD_BUDGET, more w-taps
-// than W (or correlations than planes), or a zero count.
+// One launch of tile_spread_kernel with NP planes a consumer (ceil(plane_block
+// / groups)) and ntab table values staged: refused (invalid value) if the
+// layout breaks a limit: more than SPREAD_MAXP planes a consumer, more
+// threads than SPREAD_THREADS, more shared memory than SPREAD_BUDGET, more
+// w-taps than W (or correlations than planes), offsets that do not pack, or
+// a zero count.
+template <typename T, int W, int NP, typename Taps>
+int spread_launch(const int* ent_pos, const int* ent_off, const int* ent_start,
+                  const int* order, const int* p0, Taps taps, const void* wsc,
+                  const void* vis, long long cs, long long ss, void* grid, int n, int nu,
+                  int nv, int nplanes, int ntaps, int tile_u, int tile_v, int ntiles,
+                  int ntv, int plane_block, int groups, int block_lists, int chunk,
+                  int ntab, cudaStream_t stream) {
+    using V2 = typename Vec2<T>::type;
+    const int consumers = groups * spread_group<W>();
+    const int threads = ((consumers + 31) & ~31) + 32 * SPREAD_PRODUCERS;
+    if (ntiles <= 0 || nplanes <= 0 || plane_block <= 0 || groups <= 0
+        || tile_u <= 0 || tile_v <= 0 || ntaps <= 0 || ntaps > W
+        || (wsc == nullptr && ntaps != plane_block)
+        || (spread_residues<W>() > 1 && groups != 1)
+        || chunk != SPREAD_CHUNK || (plane_block + groups - 1) / groups != NP
+        || threads > SPREAD_THREADS || tile_u + 2 * W >= (1 << 11)
+        || tile_v + 2 * W >= (1 << 11))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = spread_smem<T, W>(plane_block, tile_u, tile_v, ntab);
+    if (smem > (size_t)SPREAD_BUDGET) return (int)cudaErrorInvalidValue;
+    const int nblk = (nplanes + plane_block - 1) / plane_block;
+    tile_spread_kernel<T, W, NP, Taps><<<ntiles * nblk, threads, smem, stream>>>(
+        ent_pos, ent_off, ent_start, order, p0, taps, static_cast<const T*>(wsc),
+        static_cast<const V2*>(vis), cs, ss, static_cast<V2*>(grid), n, nu, nv, nplanes,
+        ntaps, tile_u, tile_v, ntv, plane_block, nblk, groups, block_lists);
+    return (int)cudaGetLastError();
+}
+
+// The tile spread of the w-stack and 2D maps (ES taps), instantiated for
+// each count of planes a consumer holds.
 template <typename T, int W>
 int tile_spread(const int* ent_pos, const int* ent_off, const int* ent_start,
                 const int* order, const int* p0, const void* uf, const void* vf,
@@ -352,63 +548,256 @@ int tile_spread(const int* ent_pos, const int* ent_off, const int* ent_start,
                 int n, int nu, int nv, int nplanes, int ntaps, int tile_u, int tile_v,
                 int ntiles, int ntv, int plane_block, int groups, int chunk, double beta,
                 cudaStream_t stream) {
-    using V2 = typename Vec2<T>::type;
-    const int consumers = groups * W * W;
-    const int threads = ((consumers + 31) & ~31) + 32 * SPREAD_PRODUCERS;
+    const EsTaps<T, W> taps{static_cast<const T*>(uf), static_cast<const T*>(vf), (T)beta};
     const int np = (plane_block + groups - 1) / max(groups, 1);
-    if (ntiles <= 0 || nplanes <= 0 || plane_block <= 0 || groups <= 0
-        || tile_u <= 0 || tile_v <= 0 || ntaps <= 0 || ntaps > W
-        || (wsc == nullptr && ntaps != plane_block)
-        || chunk != SPREAD_CHUNK || np > SPREAD_MAXP
-        || threads > SPREAD_THREADS || tile_u + 2 * W >= 4096 || tile_v + 2 * W >= 4096)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = spread_smem<T, W>(plane_block, tile_u, tile_v);
-    if (smem > (size_t)SPREAD_BUDGET) return (int)cudaErrorInvalidValue;
-    const int nblk = (nplanes + plane_block - 1) / plane_block;
-#define SPREAD_LAUNCH(NP)                                                                 \
-    tile_spread_kernel<T, W, NP><<<ntiles * nblk, threads, smem, stream>>>(                \
-        ent_pos, ent_off, ent_start, order, p0, static_cast<const T*>(uf),                 \
-        static_cast<const T*>(vf), static_cast<const T*>(wsc),                             \
-        static_cast<const V2*>(vis), cs, ss, static_cast<V2*>(grid), n, nu, nv, nplanes,   \
-        ntaps, tile_u, tile_v, ntv, plane_block, nblk, groups, (T)beta)
+#define SPREAD_LAUNCH(NP)                                                                \
+    return spread_launch<T, W, NP, EsTaps<T, W>>(                                         \
+        ent_pos, ent_off, ent_start, order, p0, taps, wsc, vis, cs, ss, grid, n, nu, nv,  \
+        nplanes, ntaps, tile_u, tile_v, ntiles, ntv, plane_block, groups, 0, chunk, 0,    \
+        stream)
     switch (np) {  // the planes a consumer holds: a compile-time count
-        case 1: SPREAD_LAUNCH(1); break;
-        case 2: SPREAD_LAUNCH(2); break;
-        case 3: SPREAD_LAUNCH(3); break;
-        case 4: SPREAD_LAUNCH(4); break;
-        default: SPREAD_LAUNCH(5); break;
+        case 1: SPREAD_LAUNCH(1);
+        case 2: SPREAD_LAUNCH(2);
+        case 3: SPREAD_LAUNCH(3);
+        case 4: SPREAD_LAUNCH(4);
+        case 5: SPREAD_LAUNCH(5);
+        default: return (int)cudaErrorInvalidValue;
     }
 #undef SPREAD_LAUNCH
+}
+
+template <typename T, int W, int NP, typename Taps>
+int allow_spread_budget() {
+    return (int)cudaFuncSetAttribute(tile_spread_kernel<T, W, NP, Taps>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     SPREAD_BUDGET);
+}
+
+template <typename T, int W>
+int allow_es_spread_budget() {
+    int err = allow_spread_budget<T, W, 1, EsTaps<T, W>>();
+    err = err ? err : allow_spread_budget<T, W, 2, EsTaps<T, W>>();
+    err = err ? err : allow_spread_budget<T, W, 3, EsTaps<T, W>>();
+    err = err ? err : allow_spread_budget<T, W, 4, EsTaps<T, W>>();
+    return err ? err : allow_spread_budget<T, W, 5, EsTaps<T, W>>();
+}
+
+// Lets every ES tile spread instance of T take SPREAD_BUDGET bytes of
+// dynamic shared memory on the current device (a template, so that a file
+// that does not call it does not compile those instances).
+template <typename T>
+int allow_es_spread_budget_all() {
+    int err = allow_es_spread_budget<T, 4>();
+    err = err ? err : allow_es_spread_budget<T, 6>();
+    err = err ? err : allow_es_spread_budget<T, 8>();
+    return err ? err : allow_es_spread_budget<T, 10>();
+}
+
+// ------------------------------------------------------------ tile gather
+
+constexpr int GATHER_THREADS = 256;               // 8 warps: 16 samples at a time
+constexpr int GATHER_SLOTS = GATHER_THREADS / 16;  // one sample a half-warp
+
+// The row pitch (cells) of a staged tile of cols columns: the least >= cols
+// that is = W (mod 16), so that 16 consecutive taps of a window fall in 16
+// different bank pairs (complex64; 8 of 16 bank quads, complex128).
+__host__ __device__ constexpr int gather_pitch(int cols, int W) {
+    return cols + (((W - cols) % 16) + 16) % 16;
+}
+
+template <typename T, int NC>
+__host__ __device__ constexpr size_t gather_smem(int tile_u, int tile_v, int W) {
+    return (size_t)NC * (tile_u + W - 1) * gather_pitch(tile_v + W - 1, W)
+               * sizeof(typename Vec2<T>::type)
+           + (size_t)GATHER_SLOTS * 2 * W * sizeof(T);
+}
+
+// An asynchronous copy of one cell (8 or 16 bytes) from device memory to
+// shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_cell(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The sum over the 16 lanes of a half-warp of each of its lanes' values
+// acc[0 .. HELD - 1], in a fixed order: at offset M the lane with bit M
+// set keeps the upper half of the values held and its partner the lower,
+// each adding the other's half; once one value is left, the rest of the
+// offsets sum it. Lane h then holds value (h >> (4 - log2 V)).
+template <int HELD, int M, typename T, int V>
+__device__ __forceinline__ void gather_reduce(T (&acc)[V], int h) {
+    if constexpr (M >= 1) {
+        if constexpr (HELD > 1) {
+            constexpr int H = HELD / 2;
+            const bool upper = (h & M) != 0;
+#pragma unroll
+            for (int i = 0; i < H; ++i) {
+                const T send = upper ? acc[i] : acc[i + H];
+                const T keep = upper ? acc[i + H] : acc[i];
+                acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, M, 16);
+            }
+            gather_reduce<H, M / 2>(acc, h);
+        } else {
+            acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], M, 16);
+            gather_reduce<1, M / 2>(acc, h);
+        }
+    }
+}
+
+// One block per listed tile (tiles[blockIdx.x]) of the (NC, nu, nv) grid:
+// the values of its samples, plan positions home_start[tile] ..
+// home_start[tile + 1] - 1 (the samples whose window start lies in the
+// tile), written to out (n, NC) at their sample index order[pos].
+template <typename T, int W, int NC>
+__global__ void __launch_bounds__(GATHER_THREADS)
+tile_gather_kernel(const int* __restrict__ tiles, const int* __restrict__ home_start,
+                   const int* __restrict__ order, const int* __restrict__ iu0,
+                   const int* __restrict__ iv0, const T* __restrict__ uf,
+                   const T* __restrict__ vf,
+                   const typename Vec2<T>::type* __restrict__ grid,
+                   T* __restrict__ out, int nu, int nv, int tile_u, int tile_v, int ntv,
+                   T beta) {
+    using V2 = typename Vec2<T>::type;
+    constexpr int STEPS = (W * W + 15) / 16;  // taps a lane takes per sample
+    constexpr int V = 2 * NC;                 // partial sums a lane holds
+    constexpr int LV = V == 8 ? 3 : V == 4 ? 2 : 1;
+    static_assert(V == 2 || V == 4 || V == 8, "NC in 1, 2, 4");
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tile = tiles[blockIdx.x];
+    const int tu = tile / ntv, tv = tile - tu * ntv;
+    const int u0 = tu * tile_u, v0 = tv * tile_v;
+    const int hu = min(tile_u, nu - u0), hv = min(tile_v, nv - v0);
+    const int rows = hu + W - 1, cols = hv + W - 1;
+    const int pitch = gather_pitch(tile_v + W - 1, W);
+    const int plane = (tile_u + W - 1) * pitch;
+    V2* s_g = reinterpret_cast<V2*>(smem);                  // (NC, tile_u + W - 1, pitch)
+    T* s_es = reinterpret_cast<T*>(s_g + (size_t)NC * plane);  // (SLOTS, 2W)
+
+    // stage the tile and its halo, a warp a row (every plane of it), the
+    // wrap mod nu, nv by subtraction: u0 + r < nu + tile_u + W, and the
+    // loop runs more than once only on a grid narrower than the window
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < rows; r += GATHER_THREADS / 32) {
+        int gu = u0 + r;
+        while (gu >= nu) gu -= nu;
+        for (int j = lane; j < cols; j += 32) {
+            int gv = v0 + j;
+            while (gv >= nv) gv -= nv;
+            const V2* src = grid + (size_t)gu * nv + gv;
+            V2* dst = s_g + r * pitch + j;
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                cp_async_cell<sizeof(V2)>(dst + (size_t)c * plane,
+                                          src + (size_t)c * nu * nv);
+        }
+    }
+
+    // a lane's taps of a sample: k = 16 s + h at (k / W, k mod W)
+    const int h = threadIdx.x & 15;
+    const int slot = threadIdx.x >> 4;
+    int ka[STEPS], kb[STEPS], off[STEPS];
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+        const int k = 16 * s + h;
+        ka[s] = k < W * W ? k / W : -1;
+        kb[s] = k < W * W ? k - (k / W) * W : 0;
+        off[s] = ka[s] * pitch + kb[s];
+    }
+    T* es = s_es + slot * 2 * W;
+    // a half-warp's sample geometry, loaded a round ahead (the first round's
+    // while the tile stages); a listed tile has samples, so hi > lo
+    const int lo = home_start[tile], hi = home_start[tile + 1];
+    int next = min(lo + 2 * warp + (slot & 1), hi - 1);
+    T nuf = uf[next], nvf = vf[next];
+    int niu = iu0[next], niv = iv0[next], nout = order[next];
+    cp_async_wait_all();
+    __syncthreads();  // the tile is staged
+
+    const T half = T(W) / T(2);
+    // a warp takes two samples at a time (both halves run every shuffle)
+    for (int base = lo + 2 * warp; base < hi; base += GATHER_SLOTS) {
+        const bool valid = base + (slot & 1) < hi;
+        const T u = nuf, v = nvf;
+        int lu = niu, lv = niv;
+        const int sample = nout;
+        next = min(base + GATHER_SLOTS + (slot & 1), hi - 1);
+        nuf = uf[next];
+        nvf = vf[next];
+        niu = iu0[next];
+        niv = iv0[next];
+        nout = order[next];
+        // the window start mod nu, nv by subtraction (the planner's iu0 lies
+        // in [-(W/2 - 1), nu): the loops run at most once there)
+        while (lu < 0) lu += nu;
+        while (lu >= nu) lu -= nu;
+        while (lv < 0) lv += nv;
+        while (lv >= nv) lv -= nv;
+        lu -= u0;
+        lv -= v0;
+        for (int t = h; t < 2 * W; t += 16)
+            es[t] = es_tap(((t < W ? u : v) - T(t < W ? t : t - W)) / half, beta);
+        __syncwarp();
+        T acc[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = T(0);
+        const V2* win = s_g + lu * pitch + lv;
+#pragma unroll
+        for (int s = 0; s < STEPS; ++s) {
+            if (ka[s] < 0) continue;
+            const T w = es[ka[s]] * es[W + kb[s]];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                const V2 x = win[c * plane + off[s]];
+                acc[2 * c] += w * x.x;
+                acc[2 * c + 1] += w * x.y;
+            }
+        }
+        gather_reduce<V, 8>(acc, h);
+        // lane h holds value (h >> (4 - LV)) of [re0, im0, re1, ...]
+        if (valid && (h & ((1 << (4 - LV)) - 1)) == 0)
+            out[(size_t)sample * V + (h >> (4 - LV))] = acc[0];
+        __syncwarp();  // the taps are read before the next sample's are written
+    }
+}
+
+// A launch of tile_gather_kernel over ntiles listed tiles: refused
+// (invalid value) beyond SPREAD_BUDGET bytes of shared memory.
+template <typename T, int W, int NC>
+int tile_gather(const int* tiles, const int* home_start, const int* order,
+                const int* iu0, const int* iv0, const void* uf, const void* vf,
+                const void* grid, void* out, int ntiles, int nu, int nv, int tile_u,
+                int tile_v, int ntv, double beta, cudaStream_t stream) {
+    using V2 = typename Vec2<T>::type;
+    const size_t smem = gather_smem<T, NC>(tile_u, tile_v, W);
+    if (ntiles < 0 || tile_u <= 0 || tile_v <= 0 || smem > (size_t)SPREAD_BUDGET)
+        return (int)cudaErrorInvalidValue;
+    if (ntiles == 0) return (int)cudaSuccess;
+    tile_gather_kernel<T, W, NC><<<ntiles, GATHER_THREADS, smem, stream>>>(
+        tiles, home_start, order, iu0, iv0, static_cast<const T*>(uf),
+        static_cast<const T*>(vf), static_cast<const V2*>(grid), static_cast<T*>(out),
+        nu, nv, tile_u, tile_v, ntv, (T)beta);
     return (int)cudaGetLastError();
 }
 
 template <typename T, int W>
-int allow_spread_budget() {
-    int err = 0;
-#define SPREAD_ALLOW(NP)                                                            \
-    err = err ? err : (int)cudaFuncSetAttribute(tile_spread_kernel<T, W, NP>,        \
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                                SPREAD_BUDGET)
-    SPREAD_ALLOW(1);
-    SPREAD_ALLOW(2);
-    SPREAD_ALLOW(3);
-    SPREAD_ALLOW(4);
-    SPREAD_ALLOW(5);
-#undef SPREAD_ALLOW
-    return err;
-}
-
-// Lets every tile spread instance take SPREAD_BUDGET bytes of dynamic
-// shared memory on the current device.
-inline int allow_spread_budget_all() {
-    int err = allow_spread_budget<float, 4>();
-    err = err ? err : allow_spread_budget<float, 6>();
-    err = err ? err : allow_spread_budget<float, 8>();
-    err = err ? err : allow_spread_budget<float, 10>();
-    err = err ? err : allow_spread_budget<double, 4>();
-    err = err ? err : allow_spread_budget<double, 6>();
-    err = err ? err : allow_spread_budget<double, 8>();
-    return err ? err : allow_spread_budget<double, 10>();
+int allow_gather_budget() {
+    int err = (int)cudaFuncSetAttribute(tile_gather_kernel<T, W, 1>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        SPREAD_BUDGET);
+    err = err ? err : (int)cudaFuncSetAttribute(tile_gather_kernel<T, W, 2>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                SPREAD_BUDGET);
+    return err ? err : (int)cudaFuncSetAttribute(tile_gather_kernel<T, W, 4>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 SPREAD_BUDGET);
 }
 
 }  // namespace

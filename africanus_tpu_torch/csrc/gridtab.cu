@@ -25,52 +25,38 @@
 // ~90 MB (20 B of geometry and 8 B of value per sample, the 67 MB grid):
 // 0.027 ms at 3.35 TB/s, against ~0.12 G FP32 instructions (49 taps x 3):
 // 0.0035 ms. What the design does about it, and what it leaves for later:
-//  - grid: the host sorts the kept samples stably by (uv tile, band) of
-//    their window start on the grid shifted by W - 1 (so that a window
-//    starting up to W - 1 cells before the grid still starts in a tile).
-//    One block per (tile, band), one warp: the padded tile (32 + W - 1
-//    cells square, 11.5 KB at W = 7 in complex64) and the kernel table sit
-//    in shared memory; the block stages CHUNK samples at a time (the W row
-//    and W column taps read from the table once per sample, the value, the
-//    window offset), then the lanes split each sample's W^2 taps (distinct
-//    cells) in plan order, a __syncwarp between samples. One writer per
-//    cell, a fixed order: no atomics, bitwise-equal launches. wgrid.cu's
-//    fold kernel (bands as planes) then sums each grid cell's covering
-//    tile cells from host tables that drop every cell off the grid. One
-//    warp per block, idle lanes at W^2 = 49 on 64 lane slots, and the
-//    tiles' round trip through device memory are this design's cost.
+//  - grid: gridding.cuh's tile spread kernel (its header has the design),
+//    with the table's taps (TableTaps) and one block per (uv tile, band):
+//    the host (ops/cuda_gridtab.TableGridPlan) lists per (tile, band) the
+//    kept samples whose clipped window meets the tile, sorted by window
+//    start, and the block owns its tile of the grid itself, writing each
+//    cell once; windows never wrap, so cells off the grid have no owner and
+//    are dropped. Every W^2 taps of an entry go to W^2 consumer residues
+//    (2 or 3 residues a consumer above W = 21), which keep their sums in
+//    registers while their cell stays put and flush without a branch (a
+//    facet's blocks are sparse: nearly every entry moves every residue's
+//    cell). No padded tiles, no fold, no atomics: bitwise-equal launches.
+//    One band per block because every sample has one band: a block of two
+//    bands' planes would spread every entry twice, once into a plane it
+//    misses. What bounds it: the consumers' chain per entry (its loads,
+//    the compare and the flush), a few block-entries at a time per SM.
 //  - degrid: one thread per kept sample in tile order, the table in
 //    shared memory, the in-grid taps summed in a fixed order, written to
 //    the sample's own index (the wrapper zeroes the dropped samples).
 //  - A table too large for shared memory beside the kernel's other
 //    buffers (complex128 at W = 15, oversampling 1023: 139 KB) is read
 //    from device memory through the read-only path instead of staged
-//    (tab_smem = 0, the host's choice): a table read is 2W per sample
+//    (tab_smem = 0, the host's choice): a table read is 2W per entry
 //    against W^2 taps, so it costs little either way.
 //
 // No --use_fast_math.
 
-#include <cuda_runtime.h>
+#include "gridding.cuh"
 
 namespace {
 
-constexpr int BUDGET = 96 * 1024;  // both kernels: shared memory per block, at most
-constexpr int CHUNK = 64;          // grid kernel: samples staged per pass
+constexpr int BUDGET = 96 * 1024;  // degrid kernel: shared memory per block, at most
 constexpr int DEGRID_THREADS = 128;
-
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
-
-__device__ __forceinline__ float2 vec2(float x, float y) { return make_float2(x, y); }
-__device__ __forceinline__ double2 vec2(double x, double y) { return make_double2(x, y); }
-
-template <typename T, int W>
-constexpr size_t spread_smem(size_t ru, size_t rv, size_t ntab) {
-    using V2 = typename Vec2<T>::type;
-    return ru * rv * sizeof(V2) + CHUNK * sizeof(V2)
-           + (ntab + 2 * CHUNK * W) * sizeof(T) + CHUNK * sizeof(int);
-}
 
 // Table value i: from the staged copy in shared memory, or (a table too
 // large to stage) from device memory through the read-only path.
@@ -78,74 +64,6 @@ template <typename T>
 __device__ __forceinline__ T tab_at(const T* s_tab, const T* __restrict__ table,
                                     bool staged, int i) {
     return staged ? s_tab[i] : __ldg(table + i);
-}
-
-// One block (one warp) per (uv tile, band): tiles (ntiles * nband, ru, rv)
-// with ru = tile_r + W - 1, rv = tile_c + W - 1, tile index (tr * ntc +
-// tc) * nband + band, every cell written. Samples are placed on the grid
-// shifted by W - 1.
-template <typename T, int W>
-__global__ void __launch_bounds__(32)
-gridtab_spread_kernel(const int* __restrict__ order, const int* __restrict__ tile_start,
-                      const int* __restrict__ ir0, const int* __restrict__ ic0,
-                      const int* __restrict__ fr, const int* __restrict__ fc,
-                      const T* __restrict__ table, int ntab, int os, int tab_smem,
-                      const typename Vec2<T>::type* __restrict__ vals,
-                      typename Vec2<T>::type* __restrict__ tiles, int tile_r,
-                      int tile_c, int ntc, int nband) {
-    using V2 = typename Vec2<T>::type;
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int ru = tile_r + W - 1, rv = tile_c + W - 1;
-    const int cells = ru * rv;
-
-    V2* acc = reinterpret_cast<V2*>(smem);                   // (ru, rv)
-    V2* s_val = acc + (size_t)cells;                         // (CHUNK,)
-    T* s_tab = reinterpret_cast<T*>(s_val + CHUNK);         // (ntab,) if staged
-    T* s_kr = s_tab + (tab_smem ? ntab : 0);                 // (CHUNK, W) each
-    T* s_kc = s_kr + CHUNK * W;
-    int* s_off = reinterpret_cast<int*>(s_kc + CHUNK * W);  // local row * rv + col
-
-    if (tab_smem)
-        for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = table[i];
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = vec2(T(0), T(0));
-
-    const int uv = blockIdx.x / nband;
-    const int tr = uv / ntc, tc = uv - tr * ntc;
-    const int lo = tile_start[blockIdx.x], hi = tile_start[blockIdx.x + 1];
-    const int lane = threadIdx.x;
-    __syncthreads();  // the table is in
-    for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-        const int cn = min(CHUNK, hi - c0);
-        for (int q = lane; q < cn; q += blockDim.x) {  // stage sample c0 + q
-            const int s = order[c0 + q];
-            s_off[q] = (ir0[s] + W - 1 - tr * tile_r) * rv + ic0[s] + W - 1 - tc * tile_c;
-            const int f_r = fr[s], f_c = fc[s];
-#pragma unroll
-            for (int a = 0; a < W; ++a) {
-                s_kr[q * W + a] = tab_at(s_tab, table, tab_smem, (a + 1) * os + f_r);
-                s_kc[q * W + a] = tab_at(s_tab, table, tab_smem, (a + 1) * os + f_c);
-            }
-            s_val[q] = vals[s];
-        }
-        __syncthreads();  // staged, and (first pass) the tile zeroed
-        for (int j = 0; j < cn; ++j) {
-            const V2 x = s_val[j];
-            const T* kr = s_kr + j * W;
-            const T* kc = s_kc + j * W;
-            V2* win = acc + s_off[j];
-            for (int k = lane; k < W * W; k += 32) {
-                const int a = k / W, b = k - a * W;
-                const T tap = kr[a] * kc[b];
-                V2& cell = win[a * rv + b];
-                cell.x += tap * x.x;
-                cell.y += tap * x.y;
-            }
-            __syncwarp();  // sample j lands before sample j + 1 reads
-        }
-        __syncthreads();  // done with the staged chunk
-    }
-    V2* dst = tiles + (size_t)blockIdx.x * cells;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = acc[i];
 }
 
 // One thread per kept sample, in the plan's tile order; grid (nband, npix,
@@ -199,20 +117,20 @@ gridtab_degrid_kernel(const int* __restrict__ order, const int* __restrict__ ir0
     out[s] = vec2(ar, ai);
 }
 
+// The table map's tile spread: one block per (tile, band), the entries
+// listed per block, the table staged (tab_smem) or read from device memory.
 template <typename T, int W>
-int spread(const int* order, const int* tile_start, const int* ir0, const int* ic0,
-           const int* fr, const int* fc, const void* table, int ntab, int os,
-           int tab_smem, const void* vals, void* tiles, int tile_r, int tile_c,
-           int ntiles, int ntc, int nband, cudaStream_t stream) {
-    using V2 = typename Vec2<T>::type;
-    const size_t smem = spread_smem<T, W>(tile_r + W - 1, tile_c + W - 1,
-                                          tab_smem ? ntab : 0);
-    if (smem > (size_t)BUDGET || ntab < os * (W + 2)) return (int)cudaErrorInvalidValue;
-    gridtab_spread_kernel<T, W><<<ntiles * nband, 32, smem, stream>>>(
-        order, tile_start, ir0, ic0, fr, fc, static_cast<const T*>(table), ntab, os,
-        tab_smem, static_cast<const V2*>(vals), static_cast<V2*>(tiles), tile_r,
-        tile_c, ntc, nband);
-    return (int)cudaGetLastError();
+int spread(const int* ent_pos, const int* ent_off, const int* ent_start,
+           const int* order, const int* fr, const int* fc, const void* table, int ntab,
+           int os, int tab_smem, const void* vals, void* grid, int npix, int nband,
+           int tile, int ntiles, int ntc, int chunk, cudaStream_t stream) {
+    if (ntab < os * (W + 2) || nband <= 0) return (int)cudaErrorInvalidValue;
+    const TableTaps<T, W> taps{static_cast<const T*>(table), fr, fc, os, ntab, tab_smem,
+                               nullptr};
+    return spread_launch<T, W, 1, TableTaps<T, W>>(
+        ent_pos, ent_off, ent_start, order, nullptr, taps, nullptr, vals, 0, 1, grid, 0,
+        npix, npix, nband, 1, tile, tile, ntiles, ntc, 1, 1, 1, chunk,
+        tab_smem ? ntab : 0, stream);
 }
 
 template <typename T, int W>
@@ -232,9 +150,7 @@ int degrid(const int* order, const int* ir0, const int* ic0, const int* fr,
 
 template <typename T, int W>
 int allow_budget() {
-    int err = (int)cudaFuncSetAttribute(gridtab_spread_kernel<T, W>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        BUDGET);
+    int err = allow_spread_budget<T, W, 1, TableTaps<T, W>>();
     return err ? err : (int)cudaFuncSetAttribute(
         gridtab_degrid_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         BUDGET);
@@ -261,8 +177,9 @@ int allow_budget_all() {
 
 }  // namespace
 
-// Lets every kernel instance take BUDGET bytes of dynamic shared memory on
-// the current device (above the default 48 KB). Called once per device
+// Lets every spread instance take SPREAD_BUDGET and every degrid instance
+// BUDGET bytes of dynamic shared memory on the current device (above the
+// default 48 KB). Called once per device
 // before the first launch, outside any CUDA-graph capture.
 extern "C" int gridtab_init() {
     const int err = allow_budget_all<float>();
@@ -289,27 +206,28 @@ extern "C" int gridtab_init() {
         default: return (int)cudaErrorInvalidValue; \
     }
 
-// order: (nkeep,) int32 kept samples sorted stably by block (uv tile,
-// band); tile_start: (ntiles * nband + 1,) int32 offsets into it. ir0, ic0,
-// fr, fc: (n,) int32 window starts (rows v, cols u) and table fractions;
-// table: (ntab,) T, ntab >= os * (W + 2), staged in shared memory when
-// tab_smem, else read from device memory; vals: (n,) complex T. tiles:
-// (ntiles * nband, tile_r + W - 1, tile_c + W - 1) complex T, every cell
-// written; fold them with wgrid_fold_launch (nplanes = nband) and the
-// plan's clipping tables. Refused (invalid value) if a block would take
-// more than BUDGET bytes. T is double when is_double, else float. Returns
+// ent_pos, ent_off: (nent,) int32 entries, block by block (ent_start:
+// (ntiles * nband + 1,) int32 offsets; block (tile, band) = tile * nband +
+// band), as gridding.cuh's tile_spread_kernel reads them; ent_pos indexes
+// order, the kept samples in plan order. fr, fc: (n,) int32 table
+// fractions by sample; table: (ntab,) T, ntab >= os * (W + 2), staged in
+// shared memory when tab_smem, else read from device memory; vals: (n,)
+// complex T by sample. grid: (nband, npix, npix) complex T, every cell
+// written; tile x tile uv tiles, ntiles of them, ntc a row. chunk entries
+// staged per pass: refused (invalid value) where the layout breaks a limit
+// of the tile spread. T is double when is_double, else float. Returns
 // cudaGetLastError() after the launch.
-extern "C" int gridtab_spread_launch(const int* order, const int* tile_start,
-                                     const int* ir0, const int* ic0, const int* fr,
-                                     const int* fc, const void* table, const void* vals,
-                                     void* tiles, int support, int ntab, int os,
-                                     int tab_smem, int tile_r, int tile_c, int ntiles,
-                                     int ntc, int nband, int is_double, void* stream) {
-    if (ntiles <= 0 || nband <= 0) return (int)cudaErrorInvalidValue;
+extern "C" int gridtab_spread_launch(const int* ent_pos, const int* ent_off,
+                                     const int* ent_start, const int* order,
+                                     const int* fr, const int* fc, const void* table,
+                                     const void* vals, void* grid, int support, int ntab,
+                                     int os, int tab_smem, int npix, int nband, int tile,
+                                     int ntiles, int ntc, int chunk, int is_double,
+                                     void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, W) spread<T, W>(order, tile_start, ir0, ic0, fr, fc, table, ntab, os, \
-                                tab_smem, vals, tiles, tile_r, tile_c, ntiles, ntc,  \
-                                nband, st)
+#define CALL(T, W) spread<T, W>(ent_pos, ent_off, ent_start, order, fr, fc, table, ntab, \
+                                os, tab_smem, vals, grid, npix, nband, tile, ntiles,  \
+                                ntc, chunk, st)
     if (is_double) { GRIDTAB_SUPPORTS(CALL, double) }
     GRIDTAB_SUPPORTS(CALL, float)
 #undef CALL

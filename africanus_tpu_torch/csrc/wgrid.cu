@@ -67,43 +67,7 @@
 
 namespace {
 
-constexpr int FOLD_THREADS = 256;
 constexpr int DEGRID_THREADS = 128;
-
-// grid[p, gu, gv] = sum of the padded-tile cells that cover (gu, gv), in
-// the fixed order of the host tables src_u (nu, ku) and src_v (nv, kv):
-// entries tile_row * ru + local_row (resp. tile_col * rv + local_col),
-// -1 past the end.
-template <typename T>
-__global__ void __launch_bounds__(FOLD_THREADS)
-wgrid_fold_kernel(const typename Vec2<T>::type* __restrict__ tiles,
-                  const int* __restrict__ src_u, const int* __restrict__ src_v,
-                  typename Vec2<T>::type* __restrict__ grid, int nplanes, int nu,
-                  int nv, int ku, int kv, int ntv, int ru, int rv) {
-    using V2 = typename Vec2<T>::type;
-    const size_t total = (size_t)nplanes * nu * nv;
-    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int gv = (int)(idx % nv);
-    const size_t rest = idx / nv;
-    const int gu = (int)(rest % nu);
-    const int p = (int)(rest / nu);
-    T sr = T(0), si = T(0);
-    for (int i = 0; i < ku; ++i) {
-        const int eu = src_u[(size_t)gu * ku + i];
-        if (eu < 0) break;
-        const int tu = eu / ru, r = eu - tu * ru;
-        for (int j = 0; j < kv; ++j) {
-            const int ev = src_v[(size_t)gv * kv + j];
-            if (ev < 0) break;
-            const int tv = ev / rv, c = ev - tv * rv;
-            const V2 x = tiles[(((size_t)(tu * ntv + tv) * nplanes + p) * ru + r) * rv + c];
-            sr += x.x;
-            si += x.y;
-        }
-    }
-    grid[idx] = vec2(sr, si);
-}
 
 // One thread per sample, in plan order: geometry at plan position i,
 // the value to sample order[i].
@@ -177,7 +141,10 @@ int degrid(const int* order, const int* iu0, const int* iv0, const int* p0,
 // Lets every grid kernel instance take SPREAD_BUDGET bytes of dynamic
 // shared memory on the current device (above the default 48 KB). Called
 // once per device before the first launch, outside any CUDA-graph capture.
-extern "C" int wgrid_init() { return allow_spread_budget_all(); }
+extern "C" int wgrid_init() {
+    const int err = allow_es_spread_budget_all<float>();
+    return err ? err : allow_es_spread_budget_all<double>();
+}
 
 // ent_pos, ent_off: (nent,) int32 entries, tile by tile (ent_start:
 // (ntiles + 1,) int32 offsets), as gridding.cuh's tile_spread_kernel reads
@@ -206,28 +173,6 @@ extern "C" int wgrid_spread_launch(const int* ent_pos, const int* ent_off,
     if (is_double) { GRIDDING_SUPPORTS(CALL, double) }
     GRIDDING_SUPPORTS(CALL, float)
 #undef CALL
-}
-
-// The fold of the table gridder (ops/cuda_gridtab.py): padded tiles
-// (ntiles, nplanes, ru, rv) summed onto the grid. src_u (nu, ku), src_v (nv,
-// kv) int32 fold tables; grid: (nplanes, nu, nv) complex T.
-extern "C" int wgrid_fold_launch(const void* tiles, const int* src_u,
-                                 const int* src_v, void* grid, int nplanes,
-                                 int nu, int nv, int ku, int kv, int ntv, int ru,
-                                 int rv, int is_double, void* stream) {
-    const size_t total = (size_t)nplanes * nu * nv;
-    if (total == 0) return (int)cudaSuccess;
-    const unsigned blocks = (unsigned)((total + FOLD_THREADS - 1) / FOLD_THREADS);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (is_double)
-        wgrid_fold_kernel<double><<<blocks, FOLD_THREADS, 0, st>>>(
-            static_cast<const double2*>(tiles), src_u, src_v,
-            static_cast<double2*>(grid), nplanes, nu, nv, ku, kv, ntv, ru, rv);
-    else
-        wgrid_fold_kernel<float><<<blocks, FOLD_THREADS, 0, st>>>(
-            static_cast<const float2*>(tiles), src_u, src_v,
-            static_cast<float2*>(grid), nplanes, nu, nv, ku, kv, ntv, ru, rv);
-    return (int)cudaGetLastError();
 }
 
 // order, and iu0, iv0, p0, uf, vf, wsc in plan order as for the spread;

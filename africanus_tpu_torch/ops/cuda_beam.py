@@ -24,6 +24,13 @@ padding). Outputs are written in the layout the caller wants, sample
 major: (nsamp, rows, 3C) raw sums, or (nsamp, rows or channels, C)
 complex.
 
+Any number of correlations C is taken. On the card the kernels are
+instantiated for 1, 2 or 4 (:data:`CORRS`): each wrapper splits the
+correlation axis into such groups (3 = 2 + 1, 8 = 4 + 4), launches its
+kernel once per group on that group's [re | im | |v|] columns, and puts
+the groups' outputs together. The split is exact: each correlation's
+sums and its normalisation are independent of the others'.
+
 Each wrapper launches its kernel on CUDA tensors (float32, or float64 for
 the double instances) and counts the launches in ``.launches``; on CPU
 tensors it takes the plain PyTorch version (``*_reference``), which the
@@ -46,7 +53,8 @@ __all__ = ["beam_slabs", "beam_interp", "beam_blend", "beam_blend_cell",
 
 _SOURCES = ("beam.cu",)
 
-# correlation counts csrc/beam.cu is instantiated for (feed rotation: 4)
+# correlation counts csrc/beam.cu is instantiated for (feed rotation: 4);
+# the wrappers split other counts into launches of these
 CORRS = (1, 2, 4)
 # a blend block's shared memory, at most (beam.cu's BLEND_SMEM): one
 # sample's nud x 3C raw sums, four times over for the cell route
@@ -118,19 +126,39 @@ def _aligned(name, **tensors):
 def beam_slabs(beam):
     """The cube as kernel slabs.
 
-    ``beam`` is a complex (lw, mh, nud, corr…) tensor (C = prod(corr) in
-    :data:`CORRS`). Returns (nud, lw, mh, 3C) real values of its dtype,
-    each cell [re·C | im·C | |v|·C] with |v| = sqrt(re² + im²).
+    ``beam`` is a complex (lw, mh, nud, corr…) tensor, any C = prod(corr).
+    Returns (nud, lw, mh, 3C) real values of its dtype, each cell
+    [re·C | im·C | |v|·C] with |v| = sqrt(re² + im²).
     """
     if not beam.is_complex() or beam.ndim < 3:
         raise ValueError("beam_slabs: beam must be a complex (lw, mh, nud, corr…) tensor")
     lw, mh, nud = beam.shape[:3]
     ncorr = beam[0, 0, 0].numel()
-    if ncorr not in CORRS:
-        raise ValueError(f"beam_slabs: {ncorr} correlations, not one of {CORRS}")
     b = beam.reshape(lw, mh, nud, ncorr).permute(2, 0, 1, 3)
     re, im = b.real, b.imag
     return torch.cat([re, im, torch.sqrt(re * re + im * im)], dim=-1).contiguous()
+
+
+def _groups(ncorr):
+    """(first, count) of the correlation groups the kernels take."""
+    return _build.groups(ncorr, CORRS)
+
+
+def _columns(x, ncorr, c0, k):
+    """The [re | im | |v|] columns of correlations c0 … c0+k−1 of (…, 3C)
+    values, contiguous (``x`` itself when they are all of them)."""
+    if k == ncorr:
+        return x
+    idx = torch.cat([torch.arange(c0, c0 + k, device=x.device) + j * ncorr
+                     for j in range(3)])
+    return x.index_select(-1, idx).contiguous()
+
+
+def _join_raw(parts):
+    """(…, 3C) raw sums [re·C | im·C | |v|·C] from the groups' (…, 3k)."""
+    ks = [p.shape[-1] // 3 for p in parts]
+    return torch.cat([p[..., j * k:(j + 1) * k] for j in range(3)
+                      for p, k in zip(parts, ks)], dim=-1)
 
 
 def _normalise(sums, ncorr):
@@ -157,8 +185,8 @@ def apply_feed(e, feed):
 # ------------------------------------------------------------ beam_interp
 
 def _interp_args(name, slabs, vl, vm, gc0, gc1, wlo):
-    if slabs.ndim != 4 or slabs.shape[-1] % 3 or slabs.shape[-1] // 3 not in CORRS:
-        raise ValueError(f"{name}: slabs must be (nud, lw, mh, 3C), C in {CORRS}")
+    if slabs.ndim != 4 or slabs.shape[-1] % 3 or slabs.shape[-1] == 0:
+        raise ValueError(f"{name}: slabs must be (nud, lw, mh, 3C)")
     if slabs.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: slabs must be float32 or float64, got {slabs.dtype}")
     _check(name, slabs.dtype, slabs.device, slabs=slabs, vl=vl, vm=vm, gc0=gc0,
@@ -195,23 +223,29 @@ def beam_interp(slabs, vl, vm, gc0, gc1, wlo, normalize=True):
     nsamp, nrows, ncorr = _interp_args("beam_interp", slabs, vl, vm, gc0, gc1, wlo)
     if slabs.device.type == "cpu":
         return beam_interp_reference(slabs, vl, vm, gc0, gc1, wlo, normalize)
-    _aligned("beam_interp", slabs=slabs)
     nud, lw, mh = slabs.shape[:3]
-    if normalize:
-        out = torch.empty((nsamp, nrows, ncorr), dtype=_complex(slabs.dtype),
-                          device=slabs.device)
-    else:
-        out = torch.empty((nsamp, nrows, 3 * ncorr), dtype=slabs.dtype,
-                          device=slabs.device)
-    if out.numel() == 0:
-        return out
-    interp, _, _ = _library()
-    _launch(interp, "beam_interp", slabs.device, slabs.data_ptr(), vl.data_ptr(),
-            vm.data_ptr(), gc0.data_ptr(), gc1.data_ptr(), wlo.data_ptr(),
-            out.data_ptr(), nsamp, nrows, vl.shape[1], nud, lw, mh, ncorr,
-            int(normalize), int(slabs.dtype == torch.float64))
-    beam_interp.launches += 1
-    return out
+    outs = []
+    for c0, k in _groups(ncorr):
+        part = _columns(slabs, ncorr, c0, k)
+        _aligned("beam_interp", slabs=part)
+        if normalize:
+            out = torch.empty((nsamp, nrows, k), dtype=_complex(slabs.dtype),
+                              device=slabs.device)
+        else:
+            out = torch.empty((nsamp, nrows, 3 * k), dtype=slabs.dtype,
+                              device=slabs.device)
+        outs.append(out)
+        if out.numel() == 0:
+            continue
+        interp, _, _ = _library()
+        _launch(interp, "beam_interp", slabs.device, part.data_ptr(), vl.data_ptr(),
+                vm.data_ptr(), gc0.data_ptr(), gc1.data_ptr(), wlo.data_ptr(),
+                out.data_ptr(), nsamp, nrows, vl.shape[1], nud, lw, mh, k,
+                int(normalize), int(slabs.dtype == torch.float64))
+        beam_interp.launches += 1
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat(outs, dim=-1) if normalize else _join_raw(outs)
 
 
 beam_interp.launches = 0
@@ -256,8 +290,8 @@ def _blend_args(name, coef, nterms, lda, mda, gc0, wlo, feed):
            wlo=wlo, feed=feed)
     shape = "(nsamp, nud, 3C)" if nterms == 1 else "(nsamp, 4, nud, 3C)"
     if (coef.ndim != (3 if nterms == 1 else 4) or coef.shape[-1] % 3
-            or coef.shape[-1] // 3 not in CORRS or (nterms == 4 and coef.shape[1] != 4)):
-        raise ValueError(f"{name}: coefficients must be {shape}, C in {CORRS}; "
+            or coef.shape[-1] == 0 or (nterms == 4 and coef.shape[1] != 4)):
+        raise ValueError(f"{name}: coefficients must be {shape}; "
                          f"got {tuple(coef.shape)}")
     nsamp, nud, ncorr = coef.shape[0], coef.shape[-2], coef.shape[-1] // 3
     nchan = gc0.shape[0]
@@ -265,9 +299,6 @@ def _blend_args(name, coef, nterms, lda, mda, gc0, wlo, feed):
         raise ValueError(f"{name}: {nud} frequency slabs; the blend needs 2")
     if gc0.shape != (nchan,) or wlo.shape != (nchan,):
         raise ValueError(f"{name}: gc0 and wlo must be (nchan,)")
-    if nterms * nud * 3 * ncorr * coef.element_size() > _BLEND_SMEM:
-        raise ValueError(f"{name}: {nud} slabs do not fit a block's "
-                         f"{_BLEND_SMEM} bytes of shared memory")
     if lda is not None and (lda.shape != (nsamp, nchan) or mda.shape != (nsamp, nchan)):
         raise ValueError(f"{name}: lda and mda must be (nsamp, nchan) = ({nsamp}, {nchan})")
     nta = 1
@@ -282,9 +313,36 @@ def _blend_args(name, coef, nterms, lda, mda, gc0, wlo, feed):
     return nsamp, nud, nchan, ncorr, nta
 
 
-def _blend_out(coef, nsamp, nchan, ncorr):
-    return torch.empty((nsamp, nchan, ncorr), dtype=_complex(coef.dtype),
-                       device=coef.device)
+def _check_blend_smem(name, nterms, nud, k, real_bytes):
+    """The card's limit of a blend block: one sample's nterms × nud × 3k
+    coefficients in shared memory (checked only where a kernel
+    launches)."""
+    if nterms * nud * 3 * k * real_bytes > _BLEND_SMEM:
+        raise ValueError(f"{name}: {nud} slabs of {k} correlations do not fit "
+                         f"a block's {_BLEND_SMEM} bytes of shared memory")
+
+
+def _blend(fn, wrapper, coef, nterms, ncorr, nchan, nta, operands, feed):
+    """Launch a blend kernel ``fn`` once per correlation group, on that
+    group's columns of ``coef`` (the pointers ``operands`` and ``feed``
+    after them), counting each launch on ``wrapper``: (nsamp, nchan, C)
+    complex."""
+    name = wrapper.__name__
+    nsamp, nud = coef.shape[0], coef.shape[-2]
+    outs = []
+    for c0, k in _groups(ncorr):
+        out = torch.empty((nsamp, nchan, k), dtype=_complex(coef.dtype),
+                          device=coef.device)
+        outs.append(out)
+        if out.numel() == 0:
+            continue
+        _check_blend_smem(name, nterms, nud, k, coef.element_size())
+        part = _columns(coef, ncorr, c0, k)
+        _launch(fn, name, coef.device, part.data_ptr(),
+                *(x.data_ptr() for x in operands), _ptr(feed), out.data_ptr(),
+                nsamp, nud, nchan, k, nta, int(coef.dtype == torch.float64))
+        wrapper.launches += 1
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 def beam_blend(raw, gc0, wlo, feed=None):
@@ -311,15 +369,8 @@ def beam_blend(raw, gc0, wlo, feed=None):
     if raw.device.type == "cpu":
         return beam_blend_reference(raw, gc0, wlo, feed)
     _aligned("beam_blend", feed=feed)
-    out = _blend_out(raw, nsamp, nchan, ncorr)
-    if out.numel() == 0:
-        return out
     _, blend, _ = _library()
-    _launch(blend, "beam_blend", raw.device, raw.data_ptr(), gc0.data_ptr(),
-            wlo.data_ptr(), _ptr(feed), out.data_ptr(), nsamp, nud, nchan, ncorr,
-            nta, int(raw.dtype == torch.float64))
-    beam_blend.launches += 1
-    return out
+    return _blend(blend, beam_blend, raw, 1, ncorr, nchan, nta, (gc0, wlo), feed)
 
 
 beam_blend.launches = 0
@@ -357,16 +408,9 @@ def beam_blend_cell(bterms, lda, mda, gc0, wlo, feed=None):
     if bterms.device.type == "cpu":
         return beam_blend_cell_reference(bterms, lda, mda, gc0, wlo, feed)
     _aligned("beam_blend_cell", feed=feed)
-    out = _blend_out(bterms, nsamp, nchan, ncorr)
-    if out.numel() == 0:
-        return out
     _, _, cell = _library()
-    _launch(cell, "beam_blend_cell", bterms.device, bterms.data_ptr(),
-            lda.data_ptr(), mda.data_ptr(), gc0.data_ptr(), wlo.data_ptr(),
-            _ptr(feed), out.data_ptr(), nsamp, nud, nchan, ncorr, nta,
-            int(bterms.dtype == torch.float64))
-    beam_blend_cell.launches += 1
-    return out
+    return _blend(cell, beam_blend_cell, bterms, 4, ncorr, nchan, nta,
+                  (lda, mda, gc0, wlo), feed)
 
 
 beam_blend_cell.launches = 0

@@ -5,8 +5,9 @@ the nifty-API gridder runs: ``grid_tiles_pallas`` (Q2-9) and
 ``grid_tiles_mxu`` (Q2-11a) compute one map, ``degrid_tiles_pallas``
 (Q2-10) and ``degrid_tiles_mxu`` (Q2-11b) its adjoint. Here each map is
 one hand-written CUDA kernel in ``csrc/grid2d.cu`` (its header says what
-bounds them and how they are laid out; the grid kernel is the tile spread
-of ``csrc/gridding.cuh``, shared with the w-stack map):
+bounds them and how they are laid out): the grid kernel is the tile
+spread of ``csrc/gridding.cuh``, shared with the w-stack and table maps,
+the degrid kernel its mirror there, the tile gather:
 
     grid:    G[c, iu0+a, iv0+b] += es((uf−a)/½W)·es((vf−b)/½W)·V[c]
     degrid:  V[c] = Σ_a Σ_b es((uf−a)/½W)·es((vf−b)/½W)·G[c, iu0+a, iv0+b]
@@ -58,6 +59,28 @@ CORRS = (1, 2, 4)
 MAX_GRID_CORRS = cw._GRID_CORRS
 
 
+# the degrid kernel (gridding.cuh's tile gather): one sample a half-warp
+# of its GATHER_THREADS threads; the staged rows' pitch and the block's
+# shared memory (its gather_pitch and gather_smem), which the launch
+# refuses above cw._SMEM_BYTES
+_GATHER_SLOTS = 256 // 16
+
+
+def _gather_pitch(cols, support):
+    """The least pitch ≥ cols that is ≡ W (mod 16): a step's 16
+    consecutive taps then fall in 16 different bank pairs."""
+    return cols + (support - cols) % 16
+
+
+def _gather_smem(plan, ncorr):
+    """Shared memory of one gather block of ``plan`` at ``ncorr``
+    correlations: the staged tile and halo, and the slots' ES taps."""
+    w, rb = plan.support, 4 if plan.dtype == torch.float32 else 8
+    pitch = _gather_pitch(plan.tile_v + w - 1, w)
+    return (ncorr * (plan.tile_u + w - 1) * pitch * 2 * rb
+            + _GATHER_SLOTS * 2 * w * rb)
+
+
 def build_grid2d():
     """Compile ``csrc/grid2d.cu`` if needed: (library path, seconds spent
     compiling, compiler log)."""
@@ -72,7 +95,7 @@ def _library():
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
         spread.argtypes = [ptr] * 7 + [i64, i64, ptr] + [i32] * 11 + [f64, i32, ptr]
-        degrid.argtypes = [ptr] * 7 + [i32] * 5 + [f64, i32, ptr]
+        degrid.argtypes = [ptr] * 9 + [i32] * 8 + [f64, i32, ptr]
         for fn in (spread, degrid):
             fn.restype = ctypes.c_int
     return spread, degrid
@@ -166,12 +189,13 @@ def degrid_2d(plan, grid):
     """Degrid (ncorr, nu, nv) grids at the plan's N samples.
 
     ``grid`` is complex in the plan's dtype, on its device, any ncorr.
-    CUDA tensors launch ``csrc/grid2d.cu`` (one thread per sample, the ES
-    window once for all correlations of a launch — 1, 2 or 4 of them —, a
-    fixed sum order: deterministic); CPU tensors take
-    :func:`degrid_2d_reference`. Returns (ncorr, N) complex: on the card
-    the transpose of an (N, ncorr) tensor, so that a caller wanting
-    correlations last reads it without a copy.
+    CUDA tensors launch ``csrc/grid2d.cu``'s tile gather (one block per
+    uv tile that has samples stages the tile and its halo in shared
+    memory; a half-warp per sample, the ES window once for all
+    correlations of a launch — 1, 2 or 4 of them —, a fixed sum order:
+    deterministic); CPU tensors take :func:`degrid_2d_reference`. Returns
+    (ncorr, N) complex: on the card the transpose of an (N, ncorr) tensor,
+    so that a caller wanting correlations last reads it without a copy.
     """
     _check("degrid_2d", plan, grid, 3, (plan.nu, plan.nv))
     if grid.device.type == "cpu":
@@ -183,12 +207,15 @@ def degrid_2d(plan, grid):
                         device=grid.device) for _, k in groups]
     if plan.nsamples:
         _, degrid = _library()
+        _build.init_once("grid2d", _SOURCES, grid.device)
         for (c0, k), out in zip(groups, outs):
-            _build.launch(degrid, "degrid_2d", plan, plan.order.data_ptr(),
+            _build.launch(degrid, "degrid_2d", plan, plan.gather_tiles.data_ptr(),
+                          plan.home_start.data_ptr(), plan.order.data_ptr(),
                           plan.iu0.data_ptr(), plan.iv0.data_ptr(),
                           plan.uf.data_ptr(), plan.vf.data_ptr(),
-                          grid[c0].data_ptr(), out.data_ptr(), plan.nsamples,
-                          plan.nu, plan.nv, plan.support, k, plan.beta)
+                          grid[c0].data_ptr(), out.data_ptr(), plan.ngather,
+                          plan.nu, plan.nv, plan.tile_u, plan.tile_v, plan.ntv,
+                          plan.support, k, plan.beta)
             degrid_2d.launches += 1
     return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).T
 

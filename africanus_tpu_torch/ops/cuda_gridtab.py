@@ -3,9 +3,10 @@
 Port of the table-mode tile kernels of ``africanus_tpu/ops/pallas_grid.py``
 that the Perley-polyhedron facet gridder runs: ``grid_tiles_table_pallas``
 (Q2-12a) and ``degrid_tiles_table_pallas`` (Q2-12b). Here each is one
-hand-written CUDA kernel in ``csrc/gridtab.cu`` (its header says what
-bounds them and how they are laid out), the grid's halo fold the fold
-kernel of ``csrc/wgrid.cu`` with tables that clip:
+hand-written CUDA kernel (``csrc/gridtab.cu``'s header says what bounds
+them and how they are laid out): the grid kernel is the tile spread of
+``csrc/gridding.cuh`` with the table's taps, one block per (uv tile,
+band), writing each grid cell once (no padded tiles, no fold):
 
     grid:    G[band, ir0+a, ic0+b] += K[(a+1)·os + fr]·K[(b+1)·os + fc]·S
     degrid:  S = Σ_a Σ_b K[(a+1)·os + fr]·K[(b+1)·os + fc]·G[band, ir0+a, ic0+b]
@@ -48,18 +49,28 @@ _SOURCES = ("gridtab.cu",)
 # limit); on the card a support outside these raises
 SUPPORTS = tuple(range(3, 32, 2))
 
-# gridtab.cu's samples staged per pass and shared-memory budget per
-# block (its CHUNK and BUDGET)
-_CHUNK, _SMEM_BYTES = 64, 96 * 1024
-# uv tile edge (cells): the largest in [8, 32] whose padded tile, (edge +
-# W - 1)² complex cells, fits 32 KB of shared memory
-_TILE_MIN, _TILE_MAX, _TILE_BYTES = 8, 32, 32 * 1024
+# the degrid kernel's shared-memory budget per block (gridtab.cu's
+# BUDGET): the table is staged there where it fits, else read from device
+# memory
+_DEGRID_SMEM = 96 * 1024
+# the grid kernel (gridding.cuh's tile spread, one band a block): its uv
+# tile edge, the largest in [cw._TILE_MIN, cw._TILE_MAX] whose one plane
+# fits _TILE_BYTES (8 KB: 32 cells in complex64, the fastest of a sweep of
+# 22, 32 and 45 at the facet cell on the H100); the table staged in
+# shared memory where the block then stays within _TABLE_SMEM (two blocks
+# an SM), else read from device memory
+_TILE_BYTES = 8 * 1024
+_TABLE_SMEM = 96 * 1024
 
 
-def _tile_edge(n, support, cell_bytes):
-    """The grid kernel's tile edge along an axis of ``n`` cells."""
-    pad = int(np.sqrt(_TILE_BYTES / cell_bytes))
-    return min(n, max(_TILE_MIN, min(_TILE_MAX, pad - support + 1)))
+def _tile_edge(npix, support, real_bytes):
+    """The grid kernel's tile edge on an npix² grid."""
+    edge = int(np.sqrt(_TILE_BYTES / (2 * real_bytes)))
+    edge = max(cw._TILE_MIN, min(cw._TILE_MAX, edge))
+    while edge > cw._TILE_MIN and cw._spread_smem(1, edge, edge, support,
+                                                  real_bytes) > cw._SMEM_BYTES:
+        edge -= 1
+    return min(npix, edge)
 
 
 def build_gridtab():
@@ -75,7 +86,7 @@ def _library():
     if spread.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
+        spread.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
         degrid.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
         for fn in (spread, degrid):
             fn.restype = ctypes.c_int
@@ -105,11 +116,14 @@ class TableGridPlan(nn.Module):
     reach the kernels.
 
     Buffers (moved by ``.to()``): ``ir0``, ``ic0``, ``fr``, ``fc``,
-    ``band`` (N,) int32; ``order`` (the kept samples sorted stably by the
-    (uv tile, band) of their window start on the grid shifted by W − 1);
-    ``tile_start`` (ntr·ntc·nband + 1 offsets into it); the clipping fold
-    tables ``src_r``, ``src_c``. ``tile`` × ``tile`` uv tiles, ``ntr`` ×
-    ``ntc`` of them.
+    ``band`` (N,) int32 by sample; ``order`` (int32, the kept samples in
+    plan order: sorted by the (uv tile, band) of their window's first grid
+    cell, then by window start); the grid kernel's entries
+    (``cuda_wgrid.tile_entries`` with windows cut to the grid, a list per
+    (tile, band)): ``ent_pos`` (the plan position of each entry's sample),
+    ``ent_off`` (``cuda_wgrid.pack_offsets``) and ``ent_start``
+    (ntr·ntc·nband + 1 offsets, list tile·nband + band). ``tile`` ×
+    ``tile`` uv tiles of the grid, ``ntr`` × ``ntc`` of them.
     """
 
     def __init__(self, ir0, ic0, fr, fc, band, npix, nband, support, oversample,
@@ -139,26 +153,36 @@ class TableGridPlan(nn.Module):
         self.dtype = dtype
         self.complex_dtype = (torch.complex64 if dtype == torch.float32
                               else torch.complex128)
-        span = self.npix + support - 1  # the grid shifted by W − 1
-        self.tile = _tile_edge(span, support, 2 * real_bytes)
-        self.ntr = self.ntc = -(-span // self.tile)
+        self.tile = _tile_edge(self.npix, support, real_bytes)
+        self.ntr = self.ntc = -(-self.npix // self.tile)
 
         keep = ((ir0 + support - 1 >= 0) & (ir0 < npix)
                 & (ic0 + support - 1 >= 0) & (ic0 < npix))
         kept = np.nonzero(keep)[0]
-        block = (((ir0[kept] + support - 1) // self.tile) * self.ntc
-                 + (ic0[kept] + support - 1) // self.tile) * self.nband + band[kept]
-        nblocks = self.ntr * self.ntc * self.nband
-        tile_start = np.zeros(nblocks + 1, np.int64)
-        np.cumsum(np.bincount(block, minlength=nblocks), out=tile_start[1:])
+        # plan order: by the (tile, band) of the window's first grid cell,
+        # then by the window start within that tile
+        tr = np.clip(ir0[kept], 0, None) // self.tile
+        tc = np.clip(ic0[kept], 0, None) // self.tile
+        key = cw._spatial_key(ir0[kept] - tr * self.tile, ic0[kept] - tc * self.tile,
+                              support, self.tile)
+        order = kept[np.lexsort((key, (tr * self.ntc + tc) * self.nband
+                                 + band[kept]))]
         self.nkeep = int(kept.size)
-        fold = cw._fold_table(self.npix, self.tile, support, clip=True)
+        lists, pos, du, dv = cw.tile_entries(ir0[order], ic0[order], self.npix,
+                                             self.npix, self.tile, self.tile,
+                                             support, wrap=False, band=band[order],
+                                             nband=self.nband)
+        if lists.size >= 2**31:
+            raise ValueError(f"{lists.size} entries: the kernel indexes them with int32")
+        self.nentries = int(lists.size)
+        nlists = self.ntr * self.ntc * self.nband
+        ent_start = np.zeros(nlists + 1, np.int64)
+        np.cumsum(np.bincount(lists, minlength=nlists), out=ent_start[1:])
 
         for name, x in (("ir0", ir0), ("ic0", ic0), ("fr", fr), ("fc", fc),
-                        ("band", band),
-                        ("order", kept[np.argsort(block, kind="stable")]),
-                        ("tile_start", tile_start), ("src_r", fold),
-                        ("src_c", fold)):
+                        ("band", band), ("order", order), ("ent_pos", pos),
+                        ("ent_off", cw.pack_offsets(du, dv, support)),
+                        ("ent_start", ent_start)):
             self.register_buffer(
                 name, torch.as_tensor(np.ascontiguousarray(x)).to(
                     device=device, dtype=torch.int32), persistent=False)
@@ -200,54 +224,40 @@ def _check_support(name, plan):
 
 def _spread_table_smem(plan):
     """Whether the grid kernel stages the table in shared memory (1) or
-    reads it from device memory (0). Raises where the padded tile and the
-    staged samples alone pass the kernel's budget."""
+    reads it from device memory (0): staged where the block then stays
+    within _TABLE_SMEM bytes."""
     _check_support("grid_table", plan)
     w, rb = plan.support, _real_bytes(plan)
-    pad = plan.tile + w - 1
-    rest = pad * pad * 2 * rb + _CHUNK * 2 * rb + 2 * _CHUNK * w * rb + _CHUNK * 4
-    if rest > _SMEM_BYTES:
-        raise ValueError(f"grid_table: a {pad}² padded tile and {_CHUNK} staged "
-                         f"samples take {rest} bytes of shared memory > "
-                         f"{_SMEM_BYTES}")
-    return int(rest + plan.ntab * rb <= _SMEM_BYTES)
+    block = cw._spread_smem(1, plan.tile, plan.tile, w, rb)
+    return int(block + plan.ntab * rb <= _TABLE_SMEM)
 
 
 # ------------------------------------------------------------ grid
-
-def _spread(plan, table, values):
-    """The grid kernel: padded tiles (ntr·ntc·nband, tile+W−1, tile+W−1),
-    each kept sample's window in the tile of its shifted start."""
-    pad = plan.tile + plan.support - 1
-    tiles = torch.empty((plan.ntr * plan.ntc, plan.nband, pad, pad),
-                        dtype=plan.complex_dtype, device=values.device)
-    tab_smem = _spread_table_smem(plan)
-    spread, _ = _library()
-    _build.init_once("gridtab", _SOURCES, values.device)
-    _build.launch(spread, "grid_table", plan, plan.order.data_ptr(),
-                  plan.tile_start.data_ptr(), plan.ir0.data_ptr(), plan.ic0.data_ptr(),
-                  plan.fr.data_ptr(), plan.fc.data_ptr(), table.data_ptr(),
-                  values.data_ptr(), tiles.data_ptr(), plan.support, plan.ntab,
-                  plan.oversample, tab_smem, plan.tile, plan.tile, plan.ntr * plan.ntc,
-                  plan.ntc, plan.nband)
-    return tiles
-
 
 def grid_table(plan, table, values):
     """Grid (N,) values onto (nband, npix, npix) grids.
 
     ``table`` is the (oversample·(W+2),) kernel table in the plan's dtype,
     ``values`` (N,) complex in its complex dtype, both on its device. CUDA
-    tensors launch ``csrc/gridtab.cu`` and fold the halos with
-    ``csrc/wgrid.cu``'s fold kernel, dropping off-grid cells
-    (deterministic, no atomics); CPU tensors take
+    tensors launch ``csrc/gridtab.cu``'s tile spread, one kernel (each
+    block writes its tile of one band once, off-grid cells dropped:
+    deterministic, no atomics, no fold); CPU tensors take
     :func:`grid_table_reference`.
     """
     _check("grid_table", plan, table, values, (plan.nsamples,))
     if values.device.type == "cpu":
         return grid_table_reference(plan, table, values)
-    grid = cw.fold_tiles(_spread(plan, table, values), plan.src_r, plan.src_c,
-                         plan.ntc)
+    grid = torch.empty((plan.nband, plan.npix, plan.npix), dtype=plan.complex_dtype,
+                       device=values.device)
+    tab_smem = _spread_table_smem(plan)
+    spread, _ = _library()
+    _build.init_once("gridtab", _SOURCES, values.device)
+    _build.launch(spread, "grid_table", plan, plan.ent_pos.data_ptr(),
+                  plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
+                  plan.order.data_ptr(), plan.fr.data_ptr(), plan.fc.data_ptr(),
+                  table.data_ptr(), values.data_ptr(), grid.data_ptr(), plan.support,
+                  plan.ntab, plan.oversample, tab_smem, plan.npix, plan.nband,
+                  plan.tile, plan.ntr * plan.ntc, plan.ntc, cw._CHUNK)
     grid_table.launches += 1
     return grid
 
@@ -314,7 +324,7 @@ def degrid_table(plan, table, grid):
     out = torch.zeros(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
     _check_support("degrid_table", plan)
     if plan.nkeep:
-        tab_smem = int(plan.ntab * _real_bytes(plan) <= _SMEM_BYTES)
+        tab_smem = int(plan.ntab * _real_bytes(plan) <= _DEGRID_SMEM)
         _, degrid = _library()
         _build.init_once("gridtab", _SOURCES, grid.device)
         _build.launch(degrid, "degrid_table", plan, plan.order.data_ptr(),

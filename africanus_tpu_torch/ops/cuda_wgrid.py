@@ -46,7 +46,7 @@ from africanus_tpu_torch.ops.es import es_np, es_torch
 
 __all__ = ["WGridPlan", "sample_geometry", "grid_wstack", "degrid_wstack",
            "grid_wstack_reference", "degrid_wstack_reference", "build_wgrid",
-           "fold_tiles", "SUPPORTS"]
+           "SUPPORTS"]
 
 _SOURCES = ("wgrid.cu",)
 
@@ -64,6 +64,7 @@ SUPPORTS = (4, 6, 8, 10)
 # planes of its tile and two staging buffers)
 _CHUNK, _MAXP, _PRODUCERS, _THREADS = 64, 5, 2, 512
 _SMEM_BYTES = 227 * 1024
+_CONSUMERS = _THREADS - 32 * _PRODUCERS
 # uv tile edge (cells): the largest in [_TILE_MIN, _TILE_MAX] whose
 # planes fit _TILE_BYTES of shared memory; a one-plane plan's tile holds
 # the _GRID_CORRS correlations of one launch of the 2D map in
@@ -95,17 +96,15 @@ def build_wgrid():
 def _library():
     lib = _build.load("wgrid", _SOURCES)
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    spread, fold, degrid = (lib.wgrid_spread_launch, lib.wgrid_fold_launch,
-                            lib.wgrid_degrid_launch)
+    spread, degrid = lib.wgrid_spread_launch, lib.wgrid_degrid_launch
     if spread.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
         spread.argtypes = [ptr] * 10 + [i32] * 13 + [f64, i32, ptr]
-        fold.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         degrid.argtypes = [ptr] * 9 + [i32] * 5 + [f64, i32, ptr]
-        for fn in (spread, fold, degrid):
+        for fn in (spread, degrid):
             fn.restype = ctypes.c_int
-    return spread, fold, degrid
+    return spread, degrid
 
 
 # ------------------------------------------------------------ host planning
@@ -161,7 +160,7 @@ def _spread_smem(plane_block, tile_u, tile_v, support, real_bytes):
 def _max_groups(support):
     """Consumer groups of W² threads that fit a block beside the
     producer warps, the consumers in whole warps."""
-    return (_THREADS - 32 * _PRODUCERS) // support ** 2
+    return _CONSUMERS // support ** 2
 
 
 def _plane_layout(nplanes, support, real_bytes):
@@ -196,51 +195,23 @@ def _tile_edge(n, planes, support, real_bytes):
     return min(n, edge)
 
 
-def _fold_table(n, tile, support, clip=False):
-    """(n, k) int32 table of the padded-tile cells that cover each grid
-    index along one axis (the fold of the table gridder,
-    ``ops/cuda_gridtab.py``): entries tile_index·(tile+W−1) + local index,
-    in tile order, −1 past the end. Tile t covers local indices below its
-    height + W − 1 (its own cells and the halo its windows spill into),
-    which land at (t·tile + local) mod n.
-
-    With ``clip`` (windows that hang off the grid are cut, never wrapped)
-    the tiles cover the axis shifted by W − 1, n + W − 1 cells, so that a
-    window starting up to W − 1 cells before the grid starts inside a
-    tile; local index l of tile t lands at t·tile + l − (W − 1) and is
-    dropped off [0, n)."""
-    pad = tile + support - 1
-    span = n + support - 1 if clip else n
-    ntile = -(-span // tile)
-    t = np.repeat(np.arange(ntile), pad)
-    local = np.tile(np.arange(pad), ntile)
-    height = np.minimum(tile, span - np.arange(ntile) * tile)
-    keep = local < height[t] + support - 1
-    if clip:
-        keep &= ((t * tile + local >= support - 1)
-                 & (t * tile + local < n + support - 1))
-    t, local = t[keep], local[keep]
-    target = t * tile + local - (support - 1) if clip else (t * tile + local) % n
-    order = np.argsort(target, kind="stable")
-    target, entry = target[order], (t * pad + local)[order]
-    counts = np.bincount(target, minlength=n)
-    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    table = np.full((n, int(counts.max())), -1, np.int32)
-    table[target, np.arange(target.size) - start[target]] = entry
-    return table
-
-
-def _axis_entries(start, n, tile, support):
+def _axis_entries(start, n, tile, support, wrap=True):
     """The tiles along one axis of ``n`` cells that each window [start,
-    start + W) (mod n; ``start`` in [0, n)) meets: (sample, tile, offset)
-    with offset the window start relative to the tile's first cell, in
-    (−W, tile), one per periodic copy of the tile that the window meets
-    (two where a window wraps onto a lone tile, more where n < W)."""
+    start + W) meets: (sample, tile, offset) with offset the window start
+    relative to the tile's first cell, in (−W, tile). With ``wrap`` the
+    window is taken mod n (``start`` in [0, n)), one entry per periodic
+    copy of the tile that it meets (two where a window wraps onto a lone
+    tile, more where n < W); without, the window is cut to [0, n) (the
+    table map), and a window with no cell there meets no tile."""
     c = start[:, None] + np.arange(support)
-    k = c // n
-    t = (c - k * n) // tile
-    new = np.ones(c.shape, bool)
-    new[:, 1:] = (t[:, 1:] != t[:, :-1]) | (k[:, 1:] != k[:, :-1])
+    if wrap:
+        k = c // n
+        t = (c - k * n) // tile
+    else:
+        k = np.zeros_like(c)
+        t = np.where((c >= 0) & (c < n), c // tile, -1)
+    new = t >= 0
+    new[:, 1:] &= (t[:, 1:] != t[:, :-1]) | (k[:, 1:] != k[:, :-1])
     s, a = np.nonzero(new)
     t, k = t[s, a], k[s, a]
     return s, t, start[s] - t * tile - k * n
@@ -257,22 +228,28 @@ def _spatial_key(du, dv, support, tile_v):
             + dv + support) * (2 * support) + (du + support) % strip
 
 
-def tile_entries(pu, pv, nu, nv, tile_u, tile_v, support):
+def tile_entries(pu, pv, nu, nv, tile_u, tile_v, support, wrap=True, band=None,
+                 nband=1):
     """The spread kernel's entries: every (sample, tile) whose window
-    meets the tile, sorted stably by (tile, :func:`_spatial_key`).
+    meets the tile, sorted stably by (list, :func:`_spatial_key`).
 
-    ``pu``, ``pv`` are (N,) window starts mod (nu, nv). Returns (tile,
-    sample, du, dv) int64 arrays: du, dv the window start relative to the
-    tile's first cell, in (−W, tile)."""
+    ``pu``, ``pv`` are (N,) window starts: mod (nu, nv) with ``wrap``,
+    else as they are, the windows cut to the grid (:func:`_axis_entries`).
+    With ``band`` ((N,) in [0, nband)) each tile has a list per band, list
+    tile·nband + band; else one, list = tile. Returns (list, sample, du,
+    dv) int64 arrays: du, dv the window start relative to the tile's
+    first cell, in (−W, tile)."""
     ntv = -(-nv // tile_v)
-    su, tu, du = _axis_entries(pu, nu, tile_u, support)
-    sv, tv, dv = _axis_entries(pv, nv, tile_v, support)
+    su, tu, du = _axis_entries(pu, nu, tile_u, support, wrap)
+    sv, tv, dv = _axis_entries(pv, nv, tile_v, support, wrap)
     cv = np.bincount(sv, minlength=pu.size)
     first_v = np.cumsum(cv) - cv
     rep = cv[su]
     ui = np.repeat(np.arange(su.size), rep)
     vi = first_v[su[ui]] + np.arange(ui.size) - np.repeat(np.cumsum(rep) - rep, rep)
     tile = tu[ui] * ntv + tv[vi]
+    if band is not None:
+        tile = tile * nband + band[su[ui]]
     du, dv = du[ui], dv[vi]
     span = (tile_u + 2 * support) * (tile_v + 2 * support) * 2 * support
     key = tile * span + _spatial_key(du, dv, support, tile_v)
@@ -282,9 +259,10 @@ def tile_entries(pu, pv, nu, nv, tile_u, tile_v, support):
 
 def pack_offsets(du, dv, support):
     """The packed int32 entry offsets that the spread kernel reads:
-    ((du + W) << 4 | du mod W) | ((dv + W) << 4 | dv mod W) << 16."""
+    ((du + W) << 5 | du mod W) | ((dv + W) << 5 | dv mod W) << 16 (W ≤ 31,
+    du + W < 2048: the residue ready, no division in the kernel)."""
     def part(d):
-        return ((d + support) << 4) | (d % support)
+        return ((d + support) << 5) | (d % support)
 
     return (part(du) | (part(dv) << 16)).astype(np.int32)
 
@@ -314,10 +292,13 @@ class WGridPlan(nn.Module):
     ``wsc`` (wsup, N) in ``dtype``; the grid kernel's entries
     (:func:`tile_entries`): ``ent_pos`` (the plan position of each
     entry's sample), ``ent_off`` (:func:`pack_offsets`) and ``ent_start``
-    (ntiles + 1 offsets). The grid kernel's layout: ``tile_u`` ×
-    ``tile_v`` uv tiles (``ntu`` × ``ntv`` of them), ``plane_block``
-    planes per block and ``groups`` consumer groups of a w-stack (a
-    one-plane plan's tile holds up to 4 correlations of the 2D map).
+    (ntiles + 1 offsets); the 2D degrid kernel's ``home_start`` (ntiles +
+    1 offsets of each tile's run of plan positions, the samples whose
+    window start lies in it) and ``gather_tiles`` (the ``ngather`` tiles
+    that have samples). The grid kernel's layout: ``tile_u`` × ``tile_v``
+    uv tiles (``ntu`` × ``ntv`` of them), ``plane_block`` planes per block
+    and ``groups`` consumer groups of a w-stack (a one-plane plan's tile
+    holds up to 4 correlations of the 2D map).
     """
 
     def __init__(self, iu0, iv0, uf, vf, p0, wsc, nu, nv, nplanes, support,
@@ -358,12 +339,19 @@ class WGridPlan(nn.Module):
         self.ntu, self.ntv = -(-self.nu // self.tile_u), -(-self.nv // self.tile_v)
         self.ntiles = self.ntu * self.ntv
 
-        # plan order: by home tile, then by the window start within it
+        # plan order: by home tile (the tile of the window start), then by
+        # the window start within it; the degrid kernel's tiles that have
+        # samples and each tile's run of plan positions
         pu, pv = np.mod(iu0, nu), np.mod(iv0, nv)
         hu, hv = pu // self.tile_u, pv // self.tile_v
         key = _spatial_key(pu - hu * self.tile_u, pv - hv * self.tile_v,
                            support, self.tile_v)
-        order = np.lexsort((key, hu * self.ntv + hv))
+        home = hu * self.ntv + hv
+        order = np.lexsort((key, home))
+        counts = np.bincount(home, minlength=self.ntiles)
+        home_start = np.zeros(self.ntiles + 1, np.int64)
+        np.cumsum(counts, out=home_start[1:])
+        self.ngather = int((counts > 0).sum())
         tile, pos, du, dv = tile_entries(pu[order], pv[order], self.nu, self.nv,
                                          self.tile_u, self.tile_v, support)
         if tile.size >= 2**31:
@@ -380,7 +368,8 @@ class WGridPlan(nn.Module):
         for name, x in (("order", order), ("iu0", iu0[order]), ("iv0", iv0[order]),
                         ("p0", p0[order]), ("ent_pos", pos),
                         ("ent_off", pack_offsets(du, dv, support)),
-                        ("ent_start", ent_start)):
+                        ("ent_start", ent_start), ("home_start", home_start),
+                        ("gather_tiles", np.nonzero(counts)[0])):
             buf(name, x, torch.int32)
         for name, x in (("uf", uf[order]), ("vf", vf[order]), ("wsc", wsc[:, order])):
             buf(name, x, dtype)
@@ -404,27 +393,6 @@ def _check(name, plan, x, shape):
 
 # ------------------------------------------------------------ grid
 
-def fold_tiles(tiles, src_u, src_v, ntv):
-    """The fold kernel of ``csrc/wgrid.cu``: the (nplanes, nu, nv) grid
-    whose every cell sums, in the fixed order of the fold tables ``src_u``
-    (nu, ku) and ``src_v`` (nv, kv) (:func:`_fold_table`), the cells of
-    the padded tiles (ntiles, nplanes, ru, rv) that cover it; tile index
-    tu·ntv + tv. Complex64 or complex128 tiles on a CUDA device. The fold
-    of ``ops/cuda_gridtab.py`` (planes = bands, clipping tables)."""
-    nplanes, nu, nv = tiles.shape[1], src_u.shape[0], src_v.shape[0]
-    grid = torch.empty((nplanes, nu, nv), dtype=tiles.dtype, device=tiles.device)
-    _, fold, _ = _library()
-    with torch.cuda.device(tiles.device):
-        rc = fold(tiles.data_ptr(), src_u.data_ptr(), src_v.data_ptr(),
-                  grid.data_ptr(), nplanes, nu, nv, src_u.shape[1],
-                  src_v.shape[1], ntv, tiles.shape[2], tiles.shape[3],
-                  int(tiles.dtype == torch.complex128),
-                  torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wgrid fold launch failed: CUDA error {rc}")
-    return grid
-
-
 def grid_wstack(plan, vis):
     """Grid (N,) visibilities onto the (nplanes, nu, nv) w-stack.
 
@@ -441,7 +409,7 @@ def grid_wstack(plan, vis):
                        device=vis.device)
     if plan.nsamples == 0:  # nothing to launch (as degrid_wstack)
         return grid.zero_()
-    spread, _, _ = _library()
+    spread, _ = _library()
     _build.init_once("wgrid", _SOURCES, vis.device)
     _build.launch(spread, "grid_wstack", plan, plan.ent_pos.data_ptr(),
                   plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
@@ -516,7 +484,7 @@ def degrid_wstack(plan, grid):
     out = torch.empty(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
     if plan.nsamples == 0:
         return out
-    _, _, degrid = _library()
+    _, degrid = _library()
     _build.launch(degrid, "degrid_wstack", plan, plan.order.data_ptr(),
                   plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.p0.data_ptr(),
                   plan.uf.data_ptr(), plan.vf.data_ptr(), plan.wsc.data_ptr(),

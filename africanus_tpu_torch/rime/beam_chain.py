@@ -34,13 +34,15 @@ NSRC, NTIME = 8, 1
 
 
 class BeamDDEChain(nn.Module):
-    """E·F of a 2x2 beam cube at fixed sources, pointing errors, antenna
-    scalings and frequencies, for the parallactic angles of a call.
+    """E·F of a 2x2 beam cube (or E of a cube of any correlations) at
+    fixed sources, pointing errors, antenna scalings and frequencies, for
+    the parallactic angles of a call.
 
     Parameters
     ----------
-    beam : (lw, mh, nud, 4) or (lw, mh, nud, 2, 2) complex tensor
-        (complex64: the float32 kernels; complex128: the float64 ones)
+    beam : (lw, mh, nud, corr…) complex tensor (complex64: the float32
+        kernels; complex128: the float64 ones); 2x2 or flat 4 with a feed
+        type, any correlations without one
     extents, freq_map, lm, point_errors, antenna_scaling, frequency : as
         :func:`~africanus_tpu_torch.rime.fast_beam_cubes.beam_cube_dde`
     feed_type : "linear", "circular", or None for E alone
@@ -61,9 +63,13 @@ class BeamDDEChain(nn.Module):
         super().__init__()
         beam = torch.as_tensor(beam)
         lw, mh, nud = beam.shape[:3]
-        if beam[0, 0, 0].numel() != 4 or min(lw, mh, nud) < 2:
-            raise ValueError("BeamDDEChain: a 2x2 beam with lw, mh, nud >= 2")
+        ncorr = beam[0, 0, 0].numel()
+        if min(lw, mh, nud) < 2 or (feed_type is not None and ncorr != 4):
+            raise ValueError("BeamDDEChain: lw, mh, nud >= 2, and a 2x2 beam "
+                             "for feed rotation")
         self.lw, self.mh = lw, mh
+        # the output's correlation axes: 2x2 for four correlations
+        self.corrs = (2, 2) if ncorr == 4 else tuple(beam.shape[3:])
         self.feed_type = feed_type
         self.chan_invariant, self.cell_residual = chan_invariant, cell_residual
         dtype = beam.real.dtype
@@ -87,10 +93,13 @@ class BeamDDEChain(nn.Module):
 
     def forward(self, parallactic_angles):
         """(src, time, ant, chan, 2, 2) complex E·F (E alone without a
-        feed type) for (time, ant) parallactic angles."""
+        feed type) for (time, ant) parallactic angles; a cube of other
+        than four correlations gives its own correlation axes in place of
+        (2, 2)."""
         pa = parallactic_angles
         _, e = self._dde(pa)
-        return e.reshape(self.lm.shape[0], *pa.shape, self.frequency.shape[0], 2, 2)
+        return e.reshape(self.lm.shape[0], *pa.shape, self.frequency.shape[0],
+                         *self.corrs)
 
     def kernel_operands(self, parallactic_angles):
         """(route, {wrapper name: its positional operands}) of the kernels

@@ -61,10 +61,11 @@ that each print one line (some several):
    (1,000,000 rows × 8 channels, a 1024² image, w extent widened to
    ≥ 16 planes), its kernels held against their plain versions first;
 13. beam kernels vs plain: beam_interp, beam_blend and beam_blend_cell
-   against their plain versions on the card (corr 1/2/4 × float32 and
-   float64 × normalised and raw × no, linear and circular feeds, ragged
-   sample and channel counts, frequencies outside the cube), corner
-   values exact, and two launches bitwise equal;
+   against their plain versions on the card (corr 1/2/4, and 3 and 8 as
+   2 + 1 and 4 + 4 launches, × float32 and float64 × normalised and raw ×
+   no, linear and circular feeds, ragged sample and channel counts,
+   frequencies outside the cube), corner values exact, and two launches
+   bitwise equal;
 14. config 3 (bench.py:677-875) at full width through BeamDDEChain:
    MeerKAT-64, 4096 channels, 8 sources, 1 time, a 129² × 8 × 4 cube —
    the chan-invariant E·F leg against the bench's float64 oracle, the
@@ -73,18 +74,20 @@ that each print one line (some several):
    (their difference, and the cell route on in-cell samples), each leg's
    launches counted;
 15. beam times: CUDA-graph replays of the three kernels at the legs'
-   shapes with their bounds and the grid_sample yardstick, CUDA-event
+   shapes with their bounds (beam_interp's on each of its three routes)
+   and the grid_sample yardstick, CUDA-event
    medians of each leg (Msamples/s), one run of each plain version, peak
    device memory and a torch.profiler breakdown of each leg;
 16. gridder kernels vs plain: grid_2d and degrid_2d (supports 4/6/8/10 ×
    corr 1/2/3/4 — 3 as one grid and 2 + 1 degrid launches — × square,
    odd, one-tile and narrower-than-the-window grids, edge-wrapping
    windows, windows over tile corners and in a tile's last cells) and
-   grid_table and degrid_table (odd supports 3/5/7/15/17/31 ×
+   grid_table and degrid_table (odd supports 3/5/7/15/17/29/31 ×
    oversampling 5 and 63 × 2 bands, windows off every edge, samples with
    no in-grid tap; complex128 at W 15, oversampling 1023, the table read
    from device memory) against their plain versions in float32 and
-   float64, and two launches bitwise equal;
+   float64, and two launches bitwise equal (also grid_table at W 29 and
+   31 in float64);
 17. both gridders at full width: nifty grid → dirty and model → degrid
    at config 4's draws (100,000 rows × 8 channels × 4 correlations, a
    1024² image, 2048² grids, ε 1e-5: W = 8), launches counted, kernels
@@ -94,10 +97,12 @@ that each print one line (some several):
    bands, kbsinc W 7 × 63 packed, the image centre 0.5° off, rotate +
    phase_rotate) on plans made once, launches counted, kernels vs plain
    and the table pair's adjoint identity;
-18. gridder times: CUDA-graph replays of the four kernels (grid_2d one
-   launch, no fold) with their bounds, CUDA-event medians of nifty grid + dirty and model + degrid
-   and of the PP gridder and degridder (Mvis/s), one run of each plain
-   version, peak device memory and a torch.profiler breakdown of each.
+18. gridder times: CUDA-graph replays of the four kernels (grid_2d and
+   grid_table one launch each, no fold; degrid_2d the tile gather) with
+   their bounds and the previous designs' times, CUDA-event medians of
+   nifty grid + dirty and model + degrid and of the PP gridder and
+   degridder (Mvis/s), one run of each plain version, peak device memory
+   and a torch.profiler breakdown of each.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -154,6 +159,10 @@ FACET_BANDS, FACET_DEC, FACET_OFFSET_DEG = 2, -np.pi / 6, 0.5
 # gridder kernels vs plain, relative to max|out|: f32 sums in another
 # order than index_add_'s and the gather-sum's
 GRIDDER_BOUND = 1e-5
+# the times of the designs that the tile gather and the table map's tile
+# spread replaced (a thread a sample; padded tiles and a fold), on an H100
+# 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's times
+PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"}
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 PHASES = 18
@@ -1188,12 +1197,13 @@ def beam_kernel_checks(device):
     worst = {}
     cases = 0
 
-    def compare(key, fn, reference, args, tol):
+    def compare(key, fn, reference, args, tol, launches=1):
         before = _beam_counts()
         got = fn(*args)
         torch.cuda.synchronize()
         after = _beam_counts()
-        check(after[fn.__name__] == before[fn.__name__] + 1, f"{key}: no launch")
+        n = after[fn.__name__] - before[fn.__name__]
+        check(n == launches, f"{key}: {n} launches, not {launches}")
         want = reference(*args)
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"{key}: {tuple(got.shape)} {got.dtype}")
@@ -1204,14 +1214,16 @@ def beam_kernel_checks(device):
     for dtype in (torch.float32, torch.float64):
         tol = BEAM_BOUND if dtype == torch.float32 else BEAM_BOUND_F64
         prec = "f32" if dtype == torch.float32 else "f64"
-        for ncorr in cb.CORRS:
+        # 3 and 8 correlations: launches of 2 + 1 and 4 + 4
+        for ncorr in (*cb.CORRS, 3, 8):
+            k = len(cb._groups(ncorr))
             for nsamp, nchan in ((1000, 300), (37, 5)):
                 p = beam_problem(rng, nsamp, nchan, ncorr, dtype, device)
                 slabs, nud = p["slabs"], p["slabs"].shape[0]
                 for norm in (True, False):
                     compare(f"interp/{prec}", cb.beam_interp, cb.beam_interp_reference,
                             (slabs, p["vl"], p["vm"], p["gc0"], p["gc1"], p["wlo"],
-                             norm), tol)
+                             norm), tol, k)
                 for ncol in (1, 4):  # rows sharing coordinate columns
                     rows = torch.arange(nud, dtype=torch.int32,
                                         device=device).repeat(ncol)
@@ -1219,18 +1231,18 @@ def beam_kernel_checks(device):
                     compare(f"interp/{prec}", cb.beam_interp, cb.beam_interp_reference,
                             (slabs, p["vl"][:, :ncol].contiguous(),
                              p["vm"][:, :ncol].contiguous(), rows, rows, ones,
-                             False), tol)
+                             False), tol, k)
                 feeds = [None]
                 if ncorr == 4:
                     feeds += [feed_rotation(p["pa"], ft).contiguous()
                               for ft in ("linear", "circular")]
                 for feed in feeds:
                     compare(f"blend/{prec}", cb.beam_blend, cb.beam_blend_reference,
-                            (p["raw"], p["gc0"], p["wlo"], feed), tol)
+                            (p["raw"], p["gc0"], p["wlo"], feed), tol, k)
                     compare(f"blend_cell/{prec}", cb.beam_blend_cell,
                             cb.beam_blend_cell_reference,
                             (p["bt"], p["lda"], p["mda"], p["gc0"], p["wlo"], feed),
-                            tol)
+                            tol, k)
                 cases += 1
 
         # corners: integer coordinates, one slab per row, exact
@@ -1253,7 +1265,8 @@ def beam_kernel_checks(device):
                                            p["wlo"], feed))):
         check(torch.equal(fn(*args), fn(*args)), f"{fn.__name__} is not deterministic")
     print(f"[13/{PHASES}] beam kernels vs plain on the card ({cases} problems: "
-          "C 1/2/4 x f32/f64 x (1000 samples x 300 chan, 37 x 5), interp "
+          "C 1/2/4 and 3/8 (2 + 1 and 4 + 4 launches) x f32/f64 x (1000 samples "
+          "x 300 chan, 37 x 5), interp "
           "normalised, raw and on shared columns, blend and blend_cell with no, "
           "linear and circular feeds, out-of-cube frequencies; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
@@ -1393,6 +1406,16 @@ def beam_chain(device, card):
     fast_interp_ms = kernel_median_ms(lambda: cb.beam_interp(*fast_ops["beam_interp"]))
     cell_interp_ms = kernel_median_ms(lambda: cb.beam_interp(*cell_ops["beam_interp"]))
 
+    def interp_bound(ops):
+        """beam_interp's bound at a route's own shapes: its operands and
+        raw sums, BEAM_INTERP_INSTR per (sample, row)."""
+        out = cb.beam_interp(*ops)
+        return bound(nbytes(_tensors(ops), out),
+                     out.shape[0] * out.shape[1] * BEAM_INTERP_INSTR)
+
+    fast_interp_bound = interp_bound(fast_ops["beam_interp"])
+    cell_interp_bound = interp_bound(cell_ops["beam_interp"])
+
     # the library yardstick of beam_interp: grid_sample's trilinear
     # interpolation of the (1, 3C, nud, mh, lw) volume at the general
     # route's coordinates and fractional slab gc0 + 1 - wlo
@@ -1428,8 +1451,10 @@ def beam_chain(device, card):
                       for k, v in leg_ms.items())
           + f"; kernels (CUDA graph of {BURST}): beam_interp general "
           f"{times['beam_interp'][0]:.4f} ms (bound {entries[0]['bound_ms']:.4f}), "
-          f"chan-invariant {fast_interp_ms:.4f} ms, cell corners {cell_interp_ms:.4f} "
-          f"ms; beam_blend {times['beam_blend'][0]:.4f} ms (bound "
+          f"chan-invariant {fast_interp_ms:.4f} ms (bound "
+          f"{fast_interp_bound['bound_ms']:.4f}, {fast_interp_bound['bound_by']}), cell "
+          f"corners {cell_interp_ms:.4f} ms (bound {cell_interp_bound['bound_ms']:.4f}, "
+          f"{cell_interp_bound['bound_by']}); beam_blend {times['beam_blend'][0]:.4f} ms (bound "
           f"{entries[1]['bound_ms']:.4f}); beam_blend_cell "
           f"{times['beam_blend_cell'][0]:.4f} ms (bound {entries[2]['bound_ms']:.4f}); "
           f"grid_sample {library_ms:.4f} ms (vs raw interp {lib_err:.1e}); plain "
@@ -1485,8 +1510,9 @@ def gridder_kernel_checks(device):
                     compare(f"degrid_2d/{prec}", g2.degrid_2d,
                             g2.degrid_2d_reference, (plan, grid), tol, ndegrid)
                     cases += 1
-        # supports 17 and 31: the widest instances of gridtab.cu
-        for support in (3, 5, 7, 15, 17, 31):
+        # supports 17, 29 and 31: one, two and three residues a consumer
+        # of the table spread (gridding.cuh)
+        for support in (3, 5, 7, 15, 17, 29, 31):
             for oversample in (5, 63):
                 for npix, n in ((64, 1007), (37, 333), (5, 40)):
                     plan, table, vals, grid = table_problem(
@@ -1521,14 +1547,21 @@ def gridder_kernel_checks(device):
     check(torch.equal(gt.degrid_table(plan, table, grid),
                       gt.degrid_table(plan, table, grid)),
           "degrid_table is not deterministic")
+    for support in (29, 31):  # several residues a consumer, in float64
+        plan, table, vals, _ = table_problem(rng, 20_000, 256, 2, support, 63,
+                                             torch.float64, device)
+        check(torch.equal(gt.grid_table(plan, table, vals),
+                          gt.grid_table(plan, table, vals)),
+              f"grid_table at W {support} is not deterministic")
     print(f"[16/{PHASES}] gridder kernels vs plain on the card ({cases} problems: "
           f"2D W {'/'.join(map(str, SUPPORTS))} x corr 1/2/3/4 x 64², 70x45, 12x10, "
           "5x7 grids with edge-wrapping windows, windows over tile corners and "
-          "in a tile's last cells; table W 3/5/7/15/17/31 x os 5/63 x 2 bands "
+          "in a tile's last cells; table W 3/5/7/15/17/29/31 x os 5/63 x 2 bands "
           "x 64², 37², 5² grids with windows off every edge; f32/f64; and "
           "complex128 W 15 os 1023 with the table in device memory; rel to "
           "max|out|): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + "; deterministic (200k samples, 1024²)", flush=True)
+          + "; deterministic (200k samples, 1024²; table W 29 and 31 in float64)",
+          flush=True)
 
 
 def _mvis(n, ms):
@@ -1779,8 +1812,11 @@ def gridders(device, card):
           f"{_mvis(pvis_n, pp_degrid_ms):.1f} Mvis/s; kernels (CUDA graph of "
           f"{BURST}): grid_2d {grid2d_ms:.4f} ms (one kernel, no fold; tiles of "
           f"{wplan.tile_u}, {wplan.nentries / max(wplan.nsamples, 1):.3f} entries "
-          f"per sample), "
-          f"degrid_2d {degrid2d_ms:.4f} ms, grid_table {gtab_ms:.4f} ms, "
+          f"per sample), degrid_2d {degrid2d_ms:.4f} ms (tile gather, "
+          f"{wplan.ngather} tiles with samples; was {PREVIOUS_MS['degrid_2d']}), "
+          f"grid_table {gtab_ms:.4f} ms (tile spread, one kernel, no fold; tiles "
+          f"of {gplan.tile}, {gplan.nentries / max(gplan.nkeep, 1):.3f} entries per "
+          f"kept sample; was {PREVIOUS_MS['grid_table']}), "
           f"degrid_table {dtab_ms:.4f} ms; plain grid_2d {grid2d_plain_ms:.1f} ms, "
           f"degrid_2d {degrid2d_plain_ms:.1f} ms, grid_table {gtab_plain_ms:.1f} ms, "
           f"degrid_table {dtab_plain_ms:.1f} ms; peak device memory nifty "

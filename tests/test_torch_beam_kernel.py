@@ -236,8 +236,9 @@ def test_wrappers_check_their_operands(rng):
         cb.beam_interp(slabs, vl, vl, idx.long(), idx, w)
     with pytest.raises(ValueError, match="float32"):
         cb.beam_interp(slabs, vl.double(), vl.double(), idx, idx, w)
-    with pytest.raises(ValueError, match="correlations"):
-        cb.beam_slabs(torch.zeros(LW, MH, NUD, 3, dtype=torch.complex64))
+    # any correlation count (the card splits it into launches of 1, 2, 4)
+    assert cb.beam_slabs(torch.zeros(LW, MH, NUD, 3, dtype=torch.complex64)
+                         ).shape == (NUD, LW, MH, 9)
     raw = torch.as_tensor(_raw(rng, 6, NUD, 2))
     gc0, wlo = torch.zeros(3, dtype=torch.int32), torch.ones(3)
     with pytest.raises(ValueError, match="2x2"):
@@ -245,8 +246,12 @@ def test_wrappers_check_their_operands(rng):
     raw4 = torch.as_tensor(_raw(rng, 6, NUD, 4))
     with pytest.raises(ValueError, match="whole number"):
         cb.beam_blend(raw4, gc0, wlo, torch.zeros(1, 4, 2, 2, dtype=torch.complex64))
+    # the blend block's shared memory is the card's limit, checked where a
+    # kernel launches (per correlation group): the CPU computes
+    assert cb.beam_blend(torch.zeros(2, 1100, 12), gc0, wlo).shape == (2, 3, 4)
     with pytest.raises(ValueError, match="shared memory"):
-        cb.beam_blend(torch.zeros(2, 1100, 12), gc0, wlo)
+        cb._check_blend_smem("beam_blend", 1, 1100, 4, 4)
+    cb._check_blend_smem("beam_blend", 1, 1024, 4, 4)
     bt = torch.zeros(6, 4, NUD, 12)
     with pytest.raises(ValueError, match="lda and mda"):
         cb.beam_blend_cell(bt, torch.zeros(6, 2), torch.zeros(6, 2), gc0, wlo)

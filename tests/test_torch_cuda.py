@@ -21,7 +21,7 @@ versions' index_add_ and gather-sum); w-stacked imaging on the card
 the beam chain's routes on the card 1e-5·max against the CPU. The 2D
 multi-correlation and table gridder kernels 1e-5·max|out| in float32
 and 1e-12 in float64 (sums in another order than index_add_ and the
-gather-sum); the nifty and Perley-polyhedron gridders on the card
+gather-sum), two launches bitwise equal; the nifty and Perley-polyhedron gridders on the card
 against the CPU 1e-5·max in float32, 1e-12 in float64.
 """
 
@@ -356,6 +356,33 @@ def test_beam_kernels_match_plain(device, ncorr, dtype, nsamp, nchan):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ncorr", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_beam_kernels_split_correlations(device, ncorr, dtype):
+    """Counts csrc/beam.cu is not instantiated for launch each kernel per
+    group (3 = 2 + 1, 8 = 4 + 4: two launches), against the plain
+    versions on the whole axis."""
+    p = beam_problem(np.random.default_rng(ncorr), 300, 70, ncorr, dtype, device)
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    for fn, plain, args in (
+            (cb.beam_interp, cb.beam_interp_reference,
+             (p["slabs"], p["vl"], p["vm"], p["gc0"], p["gc1"], p["wlo"], True)),
+            (cb.beam_interp, cb.beam_interp_reference,
+             (p["slabs"], p["vl"], p["vm"], p["gc0"], p["gc1"], p["wlo"], False)),
+            (cb.beam_blend, cb.beam_blend_reference, (p["raw"], p["gc0"], p["wlo"])),
+            (cb.beam_blend_cell, cb.beam_blend_cell_reference,
+             (p["bt"], p["lda"], p["mda"], p["gc0"], p["wlo"]))):
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        want = plain(*args)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        _assert_close(got, want, bound)
+        assert torch.equal(fn(*args), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_beam_interp_corners_are_exact(device, dtype):
     rng = np.random.default_rng(3)
@@ -634,7 +661,7 @@ def test_dft_and_predict_split_three_correlations(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("support", [17, 21, 31])
+@pytest.mark.parametrize("support", [17, 21, 23, 29, 31])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_gridtab_kernels_wide_supports(device, support, dtype):
     rng = np.random.default_rng(support)
@@ -649,6 +676,27 @@ def test_gridtab_kernels_wide_supports(device, support, dtype):
     bound = 1e-5 if dtype == torch.float32 else 1e-12
     _assert_close(got_g, gt.grid_table_reference(plan, table, vals), bound)
     _assert_close(got_d, gt.degrid_table_reference(plan, table, grid), bound)
+    # one, two or three residues a consumer: launches bitwise equal
+    assert torch.equal(gt.grid_table(plan, table, vals), got_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_degrid_2d_gathers_listed_tiles_only(device, dtype):
+    """Samples in a few tiles of a wide grid, some in a tile's last cells
+    and at the grid's far edges (windows wrapping): the tile gather
+    launches on the tiles that have samples only."""
+    rng = np.random.default_rng(7)
+    plan, _, grid = grid2d_problem(rng, 12, 300, 260, 4, 8, dtype, device,
+                                   edges=True)
+    assert 0 < plan.ngather < plan.ntiles
+    before = g2.degrid_2d.launches
+    got = g2.degrid_2d(plan, grid)
+    torch.cuda.synchronize()
+    assert g2.degrid_2d.launches == before + 1
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    _assert_close(got, g2.degrid_2d_reference(plan, grid), bound)
+    assert torch.equal(g2.degrid_2d(plan, grid), got)
 
 
 @pytest.mark.cuda

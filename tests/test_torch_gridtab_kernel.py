@@ -25,7 +25,6 @@ from africanus_tpu.ops.pallas_grid import (
     grid_tiles_table_pallas, plan_tiles_table,
 )
 from africanus_tpu_torch.ops import cuda_gridtab as gt
-from africanus_tpu_torch.ops import cuda_wgrid as cw
 
 NPIX, NBAND = 48, 2
 
@@ -132,30 +131,44 @@ def test_table_plain_versions_match_literal_loops(w):
     assert_allclose(got_d, want_d, rtol=1e-12, atol=1e-12 * np.abs(want_d).max())
 
 
-def test_table_plan_order_and_clipping_fold_tables():
-    """The kept samples sorted stably by (uv tile, band) of their start on
-    the grid shifted by W − 1; every shifted padded-tile cell that lands
-    in the grid folds onto exactly one grid cell, the rest nowhere."""
+def test_table_plan_order_and_entries():
+    """The kept samples in plan order, by the (uv tile, band) of their
+    window's first grid cell; each (tile, band) list holds exactly the
+    kept samples of that band whose window, cut to the grid, meets the
+    tile, with its offset from the tile's first cell packed as
+    cuda_wgrid.pack_offsets packs it; samples with no cell in the grid have
+    no entry."""
     rng = np.random.default_rng(5)
     w, os_ = 7, 63
     ir0, ic0, fr, fc, band = _geometry(rng, 400, w, os_)
     plan = gt.TableGridPlan(ir0, ic0, fr, fc, band, NPIX, NBAND, w, os_)
-    span = NPIX + w - 1
-    assert plan.tile == min(32, span) and plan.ntr == -(-span // plan.tile)
-    order, start = plan.order.numpy(), plan.tile_start.numpy()
-    block = (((ir0 + w - 1) // plan.tile) * plan.ntc
-             + (ic0 + w - 1) // plan.tile) * NBAND + band
-    assert (np.diff(block[order]) >= 0).all()
-    for b in range(plan.ntr * plan.ntc * NBAND):
-        assert (block[order[start[b]:start[b + 1]]] == b).all()
-    for n, tile in ((NPIX, 32), (10, 16), (5, 11)):
-        table = cw._fold_table(n, tile, w, clip=True)
-        pad = tile + w - 1
-        for g in range(n):
-            for e in table[g][table[g] >= 0]:
-                assert (e // pad) * tile + e % pad - (w - 1) == g
-        entries = table[table >= 0]
-        assert entries.size == len(set(entries.tolist()))
+    tile = plan.tile
+    assert tile == min(NPIX, gt._tile_edge(NPIX, w, 4)) and plan.ntr == -(-NPIX // tile)
+    keep = ((ir0 + w - 1 >= 0) & (ir0 < NPIX) & (ic0 + w - 1 >= 0) & (ic0 < NPIX))
+    order = plan.order.numpy()
+    assert sorted(order.tolist()) == np.nonzero(keep)[0].tolist()
+    home = ((np.clip(ir0, 0, None) // tile) * plan.ntc
+            + np.clip(ic0, 0, None) // tile) * NBAND + band
+    assert (np.diff(home[order]) >= 0).all()
+    start, pos = plan.ent_start.numpy(), plan.ent_pos.numpy()
+    off = plan.ent_off.numpy().astype(np.int64)
+    assert start[-1] == plan.nentries == pos.size
+    for tr in range(plan.ntr):
+        for tc in range(plan.ntc):
+            for b in range(NBAND):
+                lst = (tr * plan.ntc + tc) * NBAND + b
+                got = order[pos[start[lst]:start[lst + 1]]]
+                rows = np.arange(w)[None, :] + ir0[:, None]
+                cols = np.arange(w)[None, :] + ic0[:, None]
+                r_lo, r_hi = tr * tile, min(NPIX, (tr + 1) * tile)
+                c_lo, c_hi = tc * tile, min(NPIX, (tc + 1) * tile)
+                meets = (((rows >= r_lo) & (rows < r_hi)).any(1)
+                         & ((cols >= c_lo) & (cols < c_hi)).any(1))
+                want = np.nonzero(keep & meets & (band == b))[0]
+                assert sorted(got.tolist()) == want.tolist()
+                o = off[start[lst]:start[lst + 1]]
+                assert (((o >> 5) & 0x7ff) - w == ir0[got] - tr * tile).all()
+                assert (((o >> 21) & 0x7ff) - w == ic0[got] - tc * tile).all()
 
 
 def test_table_plan_and_wrappers_check_operands():

@@ -31,6 +31,7 @@ from africanus_tpu.ops.pallas_grid import (
     grid_tiles_wstack_pallas, plan_tiles, plan_tiles_wstack,
 )
 from africanus_tpu_torch.ops import cuda_grid2d as g2
+from africanus_tpu_torch.ops import cuda_gridtab as gt
 from africanus_tpu_torch.ops import cuda_wgrid as cw
 from africanus_tpu_torch.ops.es import es_np
 
@@ -58,23 +59,106 @@ def _cplx(rng, shape):
     return rng.normal(size=shape) + 1j * rng.normal(size=shape)
 
 
+# gridding.cuh's consumer threads per block (SPREAD_CONSUMERS): a wider
+# window's residues are held 2 or 3 a consumer
+CONSUMERS = 448
+
+
+def _spread(w, nu, nv, tile_u, tile_v, ntv, nblocks, nblk, block, groups,
+            ntaps, lists, order, pos_of, off, taps, values, first_plane,
+            nplanes, deposits):
+    """The tile spread kernel's schedule over ``nblocks`` blocks, thread by
+    thread: block b is tile b // nblk, planes (b % nblk)·block…, entries
+    lists(b, tile); ``taps(pos, s)`` the (W,) row and column taps,
+    ``values(pos, s)`` the deposit per w-tap or correlation,
+    ``first_plane(pos, pb0)`` the entry's first plane relative to the
+    block's (the staged s_p: 0 on the 2D and table maps). Consumer (g, c) holds
+    residues c + k·C (k < R) as the kernel does. Returns (grid, flushes,
+    consumer-entry pairs with a cell in the tile); ``deposits`` counts
+    every (sample, a, b, tap)."""
+    nres = -(-w * w // CONSUMERS)
+    cons = -(-w * w // nres)
+    assert nres == 1 or groups == 1
+    g, c = np.divmod(np.arange(groups * cons), cons)
+    r = (c[:, None] + cons * np.arange(nres)[None, :]).reshape(-1)  # (slot,)
+    thread = np.repeat(np.arange(groups * cons), nres)
+    gs = np.repeat(g, nres)
+    own = r < w * w
+    ra, rb = np.divmod(np.where(own, r, 0), w)
+    nslot = r.size
+    grid = np.zeros((nplanes, nu, nv), complex)
+    flushes, entries = [], 0
+    nph = -(-block // groups)
+    planes = gs[:, None] * nph + np.arange(nph)[None, :]
+    for blk in range(nblocks):
+        tile, pb0 = blk // nblk, (blk % nblk) * block
+        npb = min(block, nplanes - pb0)
+        tu, tv = divmod(tile, ntv)
+        hu = min(tile_u, nu - tu * tile_u)
+        hv = min(tile_v, nv - tv * tile_v)
+        pitch = tile_v | 1
+        acc = np.zeros((npb, tile_u * pitch), complex)
+        held = planes < npb
+        cur = np.full(nslot, -1)
+        sums = np.zeros((nslot, nph), complex)
+
+        def flush(who, e):
+            for sl in who:
+                for k in np.nonzero(held[sl])[0]:
+                    acc[planes[sl, k], cur[sl]] += sums[sl, k]
+                    flushes.append((blk, planes[sl, k], cur[sl], thread[sl], e))
+            sums[who] = 0
+
+        lo, hi = lists(blk, tile)
+        for e in range(lo, hi):
+            o = int(off[e])
+            du, dv = ((o >> 5) & 0x7ff) - w, ((o >> 21) & 0x7ff) - w
+            assert (o & 31) == du % w and ((o >> 16) & 31) == dv % w
+            a = ra - (o & 31)
+            a = a + np.where(a < 0, w, 0)
+            b = rb - ((o >> 16) & 31)
+            b = b + np.where(b < 0, w, 0)
+            lu, lv = du + a, dv + b
+            pos = pos_of[e]
+            pw = first_plane(pos, pb0)
+            meets = (pw > planes[:, 0] - ntaps) & (pw < planes[:, 0] + nph)
+            inside = (lu >= 0) & (lu < hu) & (lv >= 0) & (lv < hv) & meets & own
+            entries += int(inside.sum())
+            cell = lu * pitch + lv
+            moved = np.nonzero(inside & (cell != cur))[0]
+            flush(moved[cur[moved] >= 0], e)
+            cur[moved] = cell[moved]
+            s = order[pos]
+            ku, kv = taps(pos, s)
+            wv = values(pos, s)
+            p = pw
+            for sl in np.nonzero(inside)[0]:
+                tap = ku[a[sl]] * kv[b[sl]]
+                for k in np.nonzero(held[sl])[0]:
+                    t = planes[sl, k] - p
+                    if 0 <= t < ntaps:
+                        sums[sl, k] += tap * wv[t]
+                        deposits[(s, a[sl], b[sl]) + ((t,) if deposits.ndim == 4 else ())] += 1
+        flush(np.nonzero(cur >= 0)[0], hi)
+        tiles = acc.reshape(npb, tile_u, pitch)[:, :hu, :hv]
+        grid[pb0:pb0 + npb, tu * tile_u:tu * tile_u + hu,
+             tv * tile_v:tv * tile_v + hv] = tiles
+    return grid, flushes, entries
+
+
 def replay(plan, vis, ncorr=None):
     """Run the tile spread kernel's schedule on ``plan`` in numpy.
 
     ``vis``: (N,) complex for the w-stack map, or (ncorr, N) for the 2D
     map (``ncorr`` given; then the correlations are the planes and the
-    taps, p0 = 0, one group of consumers holding all of them). A consumer group holds consecutive planes and skips the
-    entries whose w-window misses them. Returns (grid, log):
-    log["deposits"] counts every (sample,
-    a, b, w-tap or correlation), log["flushes"] lists (block, plane,
-    cell, thread, entry) in the order they happen, log["entries"] the
-    consumer-entry pairs with a cell in the tile."""
+    taps, p0 = 0, one group of consumers holding all of them). A consumer
+    group holds consecutive planes and skips the entries whose w-window
+    misses them. Returns (grid, log): log["deposits"] counts every
+    (sample, a, b, w-tap or correlation), log["flushes"] lists (block,
+    plane, cell, thread, entry) in the order they happen, log["entries"]
+    the consumer-entry pairs with a cell in the tile."""
     w = plan.support
     vis = np.asarray(vis, np.complex128)
-    order = plan.order.numpy()
-    pos_of = plan.ent_pos.numpy()
-    off = plan.ent_off.numpy().astype(np.int64)
-    start = plan.ent_start.numpy()
     uf, vf = plan.uf.double().numpy(), plan.vf.double().numpy()
     if ncorr is None:
         nplanes, ntaps = plan.nplanes, plan.wsup
@@ -85,73 +169,55 @@ def replay(plan, vis, ncorr=None):
         groups = 1
     assert -(-block // groups) <= cw._MAXP
     nblk = -(-nplanes // block)
-    consumers = groups * w * w
-    g, r = np.divmod(np.arange(consumers), w * w)
-    ra, rb = np.divmod(r, w)
-    grid = np.zeros((nplanes, plan.nu, plan.nv), complex)
+    start = plan.ent_start.numpy()
+    half = w / 2
+
+    def taps(pos, s):
+        return (es_np((uf[pos] - np.arange(w)) / half, plan.beta),
+                es_np((vf[pos] - np.arange(w)) / half, plan.beta))
+
+    def values(pos, s):
+        return wsc[:, pos] * vis[s] if ncorr is None else vis[:, s]
+
+    def first_plane(pos, pb0):
+        return p0[pos] - pb0 if ncorr is None else 0
+
     deposits = np.zeros((plan.nsamples, w, w, ntaps), np.int64)
-    flushes, entries = [], 0
+    grid, flushes, entries = _spread(
+        w, plan.nu, plan.nv, plan.tile_u, plan.tile_v, plan.ntv, plan.ntiles * nblk,
+        nblk, block, groups, ntaps, lambda b, t: (start[t], start[t + 1]),
+        plan.order.numpy(), plan.ent_pos.numpy(), plan.ent_off.numpy(), taps, values,
+        first_plane, nplanes, deposits)
+    return grid, dict(deposits=deposits, flushes=flushes, entries=entries)
 
-    for blk in range(plan.ntiles * nblk):
-        tile, pb0 = blk // nblk, (blk % nblk) * block
-        npb = min(block, nplanes - pb0)
-        tu, tv = divmod(tile, plan.ntv)
-        hu = min(plan.tile_u, plan.nu - tu * plan.tile_u)
-        hv = min(plan.tile_v, plan.nv - tv * plan.tile_v)
-        pitch = plan.tile_v | 1
-        acc = np.zeros((npb, plan.tile_u * pitch), complex)
-        # consumer (g, ra, rb)'s planes g·NP + k < npb, k < NP = ⌈block /
-        # groups⌉; the group skips an entry whose w-window misses them
-        nph = -(-block // groups)
-        planes = g[:, None] * nph + np.arange(nph)[None, :]
-        held = planes < npb
-        cur = np.full(consumers, -1)
-        sums = np.zeros((consumers, nph), complex)
 
-        def flush(who, e):
-            for th in who:
-                for k in np.nonzero(held[th])[0]:
-                    acc[planes[th, k], cur[th]] += sums[th, k]
-                    flushes.append((blk, planes[th, k], cur[th], th, e))
-            sums[who] = 0
+def replay_table(plan, table, vals):
+    """Run the table map's tile spread (one block per (tile, band), a
+    list each, the table's taps, windows cut to the grid) on a
+    TableGridPlan in numpy. Returns (grid, log) as
+    :func:`replay`, the deposits per (sample, a, b)."""
+    w, os_ = plan.support, plan.oversample
+    table = np.asarray(table, np.float64)
+    vals = np.asarray(vals, np.complex128)
+    fr, fc, band = plan.fr.numpy(), plan.fc.numpy(), plan.band.numpy()
+    start = plan.ent_start.numpy()
+    t = np.arange(w)
 
-        for e in range(start[tile], start[tile + 1]):
-            o = off[e]
-            du, dv = ((o >> 4) & 0xfff) - w, ((o >> 20) & 0xfff) - w
-            assert (o & 15) == du % w and ((o >> 16) & 15) == dv % w
-            a = ra - (o & 15)
-            a = a + np.where(a < 0, w, 0)
-            b = rb - ((o >> 16) & 15)
-            b = b + np.where(b < 0, w, 0)
-            lu, lv = du + a, dv + b
-            pos = pos_of[e]
-            pw = (p0[pos] - pb0) if ncorr is None else 0
-            meets = (pw > planes[:, 0] - ntaps) & (pw < planes[:, 0] + nph)
-            inside = (lu >= 0) & (lu < hu) & (lv >= 0) & (lv < hv) & meets
-            entries += int(inside.sum())
-            cell = lu * pitch + lv
-            moved = np.nonzero(inside & (cell != cur))[0]
-            flush(moved[cur[moved] >= 0], e)
-            cur[moved] = cell[moved]
-            s = order[pos]
-            half = w / 2
-            ku = es_np((uf[pos] - np.arange(w)) / half, plan.beta)
-            kv = es_np((vf[pos] - np.arange(w)) / half, plan.beta)
-            if ncorr is None:
-                wv, p = wsc[:, pos] * vis[s], p0[pos] - pb0
-            else:
-                wv, p = vis[:, s], 0
-            for th in np.nonzero(inside)[0]:
-                tap = ku[a[th]] * kv[b[th]]
-                for k in np.nonzero(held[th])[0]:
-                    t = planes[th, k] - p
-                    if 0 <= t < ntaps:
-                        sums[th, k] += tap * wv[t]
-                        deposits[s, a[th], b[th], t] += 1
-        flush(np.nonzero(cur >= 0)[0], start[tile + 1])
-        tiles = acc.reshape(npb, plan.tile_u, pitch)[:, :hu, :hv]
-        grid[pb0:pb0 + npb, tu * plan.tile_u:tu * plan.tile_u + hu,
-             tv * plan.tile_v:tv * plan.tile_v + hv] = tiles
+    def taps(pos, s):
+        return table[(t + 1) * os_ + fr[s]], table[(t + 1) * os_ + fc[s]]
+
+    deposits = np.zeros((plan.nsamples, w, w), np.int64)
+    order = plan.order.numpy()
+    grid, flushes, entries = _spread(
+        w, plan.npix, plan.npix, plan.tile, plan.tile, plan.ntc,
+        plan.ntr * plan.ntc * plan.nband, plan.nband, 1, 1, 1,
+        lambda b, tile: (start[b], start[b + 1]), order, plan.ent_pos.numpy(),
+        plan.ent_off.numpy(), taps, lambda pos, s: vals[s:s + 1], lambda pos, pb0: 0,
+        plan.nband, deposits)
+    # a block's list holds its band's samples only
+    for b in range(plan.ntr * plan.ntc * plan.nband):
+        sel = order[plan.ent_pos.numpy()[start[b]:start[b + 1]]]
+        assert (band[sel] == b % plan.nband).all()
     return grid, dict(deposits=deposits, flushes=flushes, entries=entries)
 
 
@@ -159,10 +225,7 @@ def _check_log(plan, log, p0=None):
     """Every (sample, tap) deposited once; every cell one owner, which
     adds to it in entry order."""
     dep = log["deposits"]
-    if p0 is None:  # 2D: every correlation of every tap
-        assert (dep == 1).all()
-    else:  # w-stack: the taps of every sample's own planes
-        assert (dep == 1).all(), np.argwhere(dep != 1)[:5]
+    assert (dep == 1).all(), np.argwhere(dep != 1)[:5]
     owner, last = {}, {}
     for blk, pl, cell, th, e in log["flushes"]:
         key = (blk, pl, cell)
@@ -228,12 +291,17 @@ def test_entries_of_wrapping_and_narrow_windows():
     assert (t.tolist(), d.tolist()) == ([0, 0], [6, -4])
     s, t, d = cw._axis_entries(np.array([3]), 5, 5, 8)
     assert (t.tolist(), d.tolist()) == ([0, 0, 0], [3, -2, -7])
-    # the packed offsets round-trip
-    du, dv = np.array([-9, 0, 5, 63]), np.array([63, -9, 7, 0])
-    o = cw.pack_offsets(du, dv, 10).astype(np.int64)
-    assert (((o >> 4) & 0xfff) - 10).tolist() == du.tolist()
-    assert (((o >> 20) & 0xfff) - 10).tolist() == dv.tolist()
-    assert ((o & 15) == du % 10).all() and (((o >> 16) & 15) == dv % 10).all()
+    # the packed offsets round-trip (W up to 31: five bits of residue)
+    for w in (10, 31):
+        du, dv = np.array([-w + 1, 0, 5, 63]), np.array([63, -w + 1, 7, 0])
+        o = cw.pack_offsets(du, dv, w).astype(np.int64)
+        assert (((o >> 5) & 0x7ff) - w).tolist() == du.tolist()
+        assert (((o >> 21) & 0x7ff) - w).tolist() == dv.tolist()
+        assert ((o & 31) == du % w).all() and (((o >> 16) & 31) == dv % w).all()
+    # windows cut to the grid (the table map): no copy past an edge, and a
+    # window wholly off the grid meets no tile
+    s, t, d = cw._axis_entries(np.array([-3, 62, 70, -9]), 64, 32, 5, wrap=False)
+    assert (s.tolist(), t.tolist(), d.tolist()) == ([0, 1], [0, 1], [-3, 30])
 
 
 def test_samples_in_a_tiles_last_cells_and_over_corners():
@@ -311,3 +379,90 @@ def test_2d_schedule_matches_pallas_kernel():
     ref_re, ref_im = (np.asarray(x)[:, 0] for x in assemble_tiles(t_re, t_im, pallas))
     assert_allclose(got.real, ref_re, rtol=2e-5, atol=2e-5)
     assert_allclose(got.imag, ref_im, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------ the table map
+
+def _table_problem(rng, n, npix, w, os_, nband):
+    """A float64 TableGridPlan of n samples whose windows hang off every
+    edge (a few wholly off the grid), its table and values."""
+    ir0 = rng.integers(-w - 1, npix + 1, n)
+    ic0 = rng.integers(-w - 1, npix + 1, n)
+    ir0[:6] = [-(w - 1), npix - 1, 0, -w, npix, npix - w][:n]
+    ic0[:6] = [npix - 1, -(w - 1), -w, 0, npix - w, npix][:n]
+    fr, fc = (rng.integers(-(os_ // 2), os_ // 2 + 1, n) for _ in range(2))
+    band = rng.integers(0, nband, n)
+    plan = gt.TableGridPlan(ir0, ic0, fr, fc, band, npix, nband, w, os_,
+                            dtype=torch.float64)
+    table = rng.uniform(0.1, 1.0, os_ * (w + 2))
+    return plan, table, _cplx(rng, n)
+
+
+@pytest.mark.parametrize("w", [3, 7, 15, 31])
+@pytest.mark.parametrize("npix", ["wide", "narrow"])
+@pytest.mark.parametrize("nband", [1, 2])
+def test_table_schedule_deposits_every_tap_once(w, npix, nband):
+    """Every in-grid (sample, tap) deposited once, every cell one owner
+    adding in entry order, equal to the plain version; W 31 holds three
+    residues a consumer. "narrow": a grid narrower than the window."""
+    rng = np.random.default_rng(w * 10 + nband)
+    size = {"wide": 40 if w < 31 else 70, "narrow": max(2, w // 2)}[npix]
+    plan, table, vals = _table_problem(rng, 60 if w < 31 else 30, size, w, 5, nband)
+    got, log = replay_table(plan, table, vals)
+    _check_table_log(plan, log)
+    want = gt.grid_table_reference(plan, torch.as_tensor(table),
+                                   torch.as_tensor(vals)).numpy()
+    assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def _check_table_log(plan, log):
+    """Each kept sample's in-grid taps deposited once, its off-grid taps
+    and the dropped samples' never; one owner a cell, in entry order."""
+    w, npix = plan.support, plan.npix
+    ir0, ic0 = plan.ir0.numpy(), plan.ic0.numpy()
+    t = np.arange(w)
+    rows = (ir0[:, None] + t >= 0) & (ir0[:, None] + t < npix)
+    cols = (ic0[:, None] + t >= 0) & (ic0[:, None] + t < npix)
+    want = (rows[:, :, None] & cols[:, None, :]).astype(np.int64)
+    assert np.array_equal(log["deposits"], want)
+    _check_log(plan, dict(deposits=np.ones(1), flushes=log["flushes"]))
+
+
+def test_table_schedule_matches_pallas_kernel():
+    """The replayed table schedule against grid_tiles_table_pallas in
+    interpret mode (48², 2 bands, W 7, oversampling 63, float32
+    operands), assembled without wrapping."""
+    from africanus_tpu.gridding.perleypolyhedron.kernels import kbsinc
+    from africanus_tpu.ops.pallas_grid import grid_tiles_table_pallas, plan_tiles_table
+
+    rng = np.random.default_rng(77)
+    w, os_, npix, n = 7, 63, 48, 160
+    plan, _, _ = _table_problem(rng, n, npix, w, os_, 2)
+    table = np.asarray(kbsinc(w, oversample=os_), np.float32)
+    vre = rng.normal(size=n).astype(np.float32)
+    vim = rng.normal(size=n).astype(np.float32)
+    got, log = replay_table(plan, table, vre + 1j * vim)
+    _check_table_log(plan, log)
+    ir0, ic0, fr, fc, band = (getattr(plan, k).numpy()
+                              for k in ("ir0", "ic0", "fr", "fc", "band"))
+    sel = np.sort(plan.order.numpy())
+    pallas = plan_tiles_table(ir0[sel], ic0[sel], fr[sel], fc[sel], w, os_, npix,
+                              npix, group=32, sample_id=sel, plane=band[sel],
+                              nplanes=2)
+    t_re, t_im = grid_tiles_table_pallas(pallas, jnp.asarray(table), jnp.asarray(vre),
+                                         jnp.asarray(vim), interpret=True)
+    ref_re, ref_im = (np.asarray(x) for x in assemble_tiles(t_re, t_im, pallas))
+    scale = max(np.abs(ref_re).max(), np.abs(ref_im).max())
+    assert_allclose(got.real, ref_re, rtol=2e-5, atol=2e-5 * scale)
+    assert_allclose(got.imag, ref_im, rtol=2e-5, atol=2e-5 * scale)
+
+
+def test_table_consumers_hold_residues_by_support():
+    """gridding.cuh's residues a consumer (R) and consumers a group (C):
+    one residue to W = 21, then 2, and 3 at W = 31; the block's threads
+    (consumers in whole warps and two producer warps) stay within 512."""
+    for w in range(3, 32, 2):
+        nres = -(-w * w // CONSUMERS)
+        cons = -(-w * w // nres)
+        assert nres == (1 if w <= 21 else 3 if w == 31 else 2)
+        assert nres * cons >= w * w and (cons + 31) // 32 * 32 + 64 <= 512

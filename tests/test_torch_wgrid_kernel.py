@@ -126,24 +126,6 @@ def test_sample_geometry_matches_spread_indices(wstack):
     assert geo["wsc"].shape == ((w if wstack else 1), nrow * nchan)
 
 
-def test_fold_table_covers_every_padded_cell_once():
-    """Every padded-tile cell a window can reach folds onto exactly one
-    grid cell, including ragged edge tiles and grids narrower than the
-    window."""
-    for n, tile, w in ((64, 32, 6), (70, 32, 8), (10, 10, 6), (5, 5, 8)):
-        table = cw._fold_table(n, tile, w)
-        entries = table[table >= 0]
-        assert entries.size == len(set(entries.tolist()))
-        pad = tile + w - 1
-        ntile = -(-n // tile)
-        want = {t * pad + r for t in range(ntile)
-                for r in range(min(tile, n - t * tile) + w - 1)}
-        assert set(entries.tolist()) == want
-        for g in range(n):
-            for e in table[g][table[g] >= 0]:
-                assert ((e // pad) * tile + e % pad) % n == g
-
-
 def test_plan_rejects_out_of_stack_and_bad_support():
     n, w = 10, 6
     iu0 = iv0 = np.zeros(n, np.int64)
