@@ -1,6 +1,6 @@
 // Shared by wgrid.cu, grid2d.cu and gridtab.cu: the ES kernel, the complex
 // vector types, the tile spread kernel that grids all three maps, and the
-// tile gather kernel that degrids the 2D map.
+// tile gather that degrids them (a kernel per map: their taps differ).
 //
 //   w-stack:  G[p0+t, iu0+a, iv0+b] += wsc[t] * es((uf-a)/(W/2)) * es((vf-b)/(W/2)) * V
 //   2D:       G[c, iu0+a, iv0+b]    += es((uf-a)/(W/2)) * es((vf-b)/(W/2)) * V[c]
@@ -56,25 +56,52 @@
 //    once per block where it fits the host's budget, else read through the
 //    read-only path.
 //
-// The gather (the 2D degrid; the mirror of the spread):
-//  - One block per uv tile that has samples (the host lists them). It
-//    stages the tile and its W - 1 halo, (hu + W - 1) x (hv + W - 1) cells
-//    of each of the launch's NC planes, from device memory into shared
-//    memory with cp.async, row by row (coalesced); the wrap mod nu, nv is
-//    resolved here, once per staged cell, never per tap, by subtraction
-//    (an integer division per cell made the staging as costly in issued
-//    instructions as the gather itself).
-//  - The tile's samples are the plan-order run whose window start lies in
-//    the tile. A half-warp takes one sample: its 16 lanes compute the 2W ES
-//    taps once (one each), then split the W^2 taps 16 at a time, tap k =
-//    16 s + lane at (a, b) = (k / W, k mod W), and each adds tap x cell for
-//    every correlation. The staged rows have a pitch = W (mod 16) cells, so
-//    the 16 consecutive taps of a step fall in 16 different bank pairs:
-//    one shared load reads them without a bank conflict. The 2 NC partial
-//    sums are then reduced over the 16 lanes by shuffles in a fixed pattern
-//    (halving the values held at each step), so two launches give
-//    bitwise-equal values; the sample's NC complex values are written to
-//    its own row of the (n, NC) output.
+// The gather (the three degrids; the mirror of the spread):
+//  - One block per uv tile that has samples (the host lists them; on a
+//    w-stack whose planes do not fit, per tile and block of planes; on the
+//    table map per tile and band). It stages the tile and its W - 1 halo,
+//    from device memory into shared memory with cp.async, row by row
+//    (coalesced), every plane of a cell from one index: the 2D map's NC
+//    correlations, the w-stack's planes of the block, the table map's band.
+//    The ES maps wrap mod nu, nv, resolved here once per staged cell, never
+//    per tap, by subtraction (an integer division per cell made the staging
+//    as costly in issued instructions as the gather itself). The table map
+//    never wraps: cells off the grid are staged as zero, and on the first
+//    tile row and column W - 1 lead rows and columns of them precede the
+//    tile, since a window there may start before the grid.
+//  - The block's samples are one run of positions: the plan-order run whose
+//    window start (the table map: window's first grid cell) lies in the
+//    tile; on a w-stack of several blocks of planes, a separate gather
+//    order, each sample in the block that holds its whole w-window. The
+//    host lists the w-stack's and the table map's blocks by rows of tiles,
+//    the heaviest rows first (the longest blocks then do not start last),
+//    and the 2D map's in tile order. A group of lanes takes one sample,
+//    its geometry loaded a round ahead, and splits its window:
+//      2D: a half-warp forms the 2W ES taps once into a slot of shared
+//        memory, then takes tap k = 16 s + h at (k / W, k mod W), each lane
+//        adding tap x cell for every correlation; the staged rows have a
+//        pitch = W (mod 16) cells, so the 16 consecutive taps of a step
+//        fall in 16 different bank pairs and one shared load reads them
+//        without a bank conflict.
+//      w-stack: L lanes (4 up to W = 8, else 16) form the 2W ES taps and
+//        the wsup w-taps once, then take the W * wsup window rows q = t * W
+//        + a (w-tap t, row a), row q = L s + h to lane h: W cells times the
+//        column taps, which the lane holds in registers, then times the
+//        row's w-tap x ES tap (a flat split of the W^2 wsup taps would look
+//        up two taps per cell instead). The rows have an odd pitch and the
+//        planes a stride = W * pitch (mod 16), so row q lies at pitch * q
+//        (mod 16) and a step's L rows in L bank pairs. Fewer lanes a sample
+//        share its overhead (geometry, taps, reduction) among more samples a
+//        warp, at the cost of conflicts between the samples of a half-warp:
+//        on the H100 four were faster than eight, and eight than sixteen,
+//        at both config-4 cells (PERF.md §6).
+//      table: 4 lanes a sample up to W = 8 (else 16) take the window rows,
+//        a lane a row, with the column taps in registers, read from the
+//        block's staged table (or device memory) with no slot: the
+//        sample's overhead is shared by eight samples a warp.
+//    The partial sums are then reduced over the group's lanes by shuffles
+//    in a fixed pattern (halving the values held at each step), so two
+//    launches give bitwise-equal values, written to the sample's own index.
 //
 // No --use_fast_math: expf/exp and sqrtf/sqrt are the accurate library
 // versions, and the strict |z| < 1 cutoff is decided on the same
@@ -612,6 +639,47 @@ __host__ __device__ constexpr size_t gather_smem(int tile_u, int tile_v, int W) 
            + (size_t)GATHER_SLOTS * 2 * W * sizeof(T);
 }
 
+// The w-stack gather's row pitch (odd) and plane stride (= W * pitch mod
+// 16) of a staged tile of rows x cols cells: the window row (t, a), at
+// t * plane + a * pitch = pitch * (t * W + a) (mod 16), so the 16 rows q =
+// t * W + a that a half-warp reads at once lie in 16 different bank pairs
+// (pitch odd is a unit mod 16).
+__host__ __device__ constexpr int stack_pitch(int cols) { return cols | 1; }
+
+__host__ __device__ constexpr int stack_plane(int rows, int cols, int W) {
+    return rows * stack_pitch(cols)
+           + (((W * stack_pitch(cols) - rows * stack_pitch(cols)) % 16) + 16) % 16;
+}
+
+// The stack gather's lanes a sample (a group takes the W * WS window
+// rows): 4 up to W = 8, else 16.
+__host__ __device__ constexpr int stack_lanes(int W) { return W <= 8 ? 4 : 16; }
+
+template <typename T, int W>
+__host__ __device__ constexpr size_t stack_gather_smem(int plane_block, int tile_u,
+                                                       int tile_v) {
+    return (size_t)plane_block * stack_plane(tile_u + W - 1, tile_v + W - 1, W)
+               * sizeof(typename Vec2<T>::type)
+           + (size_t)(GATHER_THREADS / stack_lanes(W)) * 3 * W * sizeof(T);
+}
+
+// The table gather's lanes a sample: 4 up to W = 8, else 16.
+__host__ __device__ constexpr int table_lanes(int W) { return W <= 8 ? 4 : 16; }
+
+// The table gather's staged tile: the tile, its W - 1 halo after it and,
+// on the grid's first tile row or column, W - 1 lead cells before it (off
+// the grid, staged as zero), rows at an odd pitch.
+template <int W>
+__host__ __device__ constexpr size_t table_gather_cells(int tile) {
+    return (size_t)(tile + 2 * (W - 1)) * stack_pitch(tile + 2 * (W - 1));
+}
+
+template <typename T, int W>
+__host__ __device__ constexpr size_t table_gather_smem(int tile, int ntab) {
+    return table_gather_cells<W>(tile) * sizeof(typename Vec2<T>::type)
+           + (size_t)ntab * sizeof(T);
+}
+
 // An asynchronous copy of one cell (8 or 16 bytes) from device memory to
 // shared memory.
 template <int BYTES>
@@ -627,11 +695,49 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The sum over the 16 lanes of a half-warp of each of its lanes' values
-// acc[0 .. HELD - 1], in a fixed order: at offset M the lane with bit M
-// set keeps the upper half of the values held and its partner the lower,
-// each adding the other's half; once one value is left, the rest of the
-// offsets sum it. Lane h then holds value (h >> (4 - log2 V)).
+// A block stages rows x cols cells of np planes of the grid (plane stride
+// gplane cells; nu x nv a plane), the first at grid row r0 and column c0,
+// into s_g (plane stride splane, row pitch pitch): a warp a row, every
+// plane of a cell from one index, cp.async. WRAP: the rows and columns
+// wrap mod nu, nv (r0, c0 in [0, nu), [0, nv)), resolved by subtraction
+// once per cell (an integer division per cell made the staging as costly
+// in issued instructions as the gather itself; the loops run more than
+// once only on a grid narrower than the window); else a cell off [0, nu)
+// x [0, nv) is staged as zero.
+template <bool WRAP, typename V2>
+__device__ __forceinline__ void gather_stage(V2* s_g, const V2* __restrict__ grid, int np,
+                                             size_t gplane, int splane, int rows, int cols,
+                                             int pitch, int r0, int c0, int nu, int nv) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < rows; r += GATHER_THREADS / 32) {
+        int gu = r0 + r;
+        if constexpr (WRAP) {
+            while (gu >= nu) gu -= nu;
+        }
+        for (int j = lane; j < cols; j += 32) {
+            int gv = c0 + j;
+            if constexpr (WRAP) {
+                while (gv >= nv) gv -= nv;
+            }
+            V2* dst = s_g + r * pitch + j;
+            if (WRAP || ((unsigned)gu < (unsigned)nu && (unsigned)gv < (unsigned)nv)) {
+                const V2* src = grid + (size_t)gu * nv + gv;
+#pragma unroll 4
+                for (int c = 0; c < np; ++c)
+                    cp_async_cell<sizeof(V2)>(dst + (size_t)c * splane, src + c * gplane);
+            } else {
+                for (int c = 0; c < np; ++c) dst[(size_t)c * splane] = V2{};
+            }
+        }
+    }
+}
+
+// The sum over the 2M lanes of a group (a half-warp: M = 8) of each of its
+// lanes' values acc[0 .. HELD - 1], in a fixed order: at offset M the lane
+// with bit M set keeps the upper half of the values held and its partner
+// the lower, each adding the other's half; once one value is left, the
+// rest of the offsets sum it. Lane h then holds value (h >> (log2 2M -
+// log2 V)).
 template <int HELD, int M, typename T, int V>
 __device__ __forceinline__ void gather_reduce(T (&acc)[V], int h) {
     if constexpr (M >= 1) {
@@ -652,9 +758,20 @@ __device__ __forceinline__ void gather_reduce(T (&acc)[V], int h) {
     }
 }
 
-// One block per listed tile (tiles[blockIdx.x]) of the (NC, nu, nv) grid:
-// the values of its samples, plan positions home_start[tile] ..
-// home_start[tile + 1] - 1 (the samples whose window start lies in the
+// A sample's real and imaginary sums (re, im on every lane h < L of its
+// group of L = 8 or 16 lanes) reduced over the group and written by lanes
+// 0 and L / 2 to the sample's own complex value out[sample].
+template <int L, typename T>
+__device__ __forceinline__ void gather_write(T re, T im, int h, bool valid, T* out,
+                                             int sample) {
+    T acc[2] = {re, im};
+    gather_reduce<2, L / 2>(acc, h);
+    if (valid && (h & (L / 2 - 1)) == 0) out[(size_t)sample * 2 + h / (L / 2)] = acc[0];
+}
+
+// The 2D map: one block per listed tile (tiles[blockIdx.x]) of the (NC,
+// nu, nv) grid: the values of its samples, plan positions home_start[tile]
+// .. home_start[tile + 1] - 1 (the samples whose window start lies in the
 // tile), written to out (n, NC) at their sample index order[pos].
 template <typename T, int W, int NC>
 __global__ void __launch_bounds__(GATHER_THREADS)
@@ -675,34 +792,19 @@ tile_gather_kernel(const int* __restrict__ tiles, const int* __restrict__ home_s
     const int tu = tile / ntv, tv = tile - tu * ntv;
     const int u0 = tu * tile_u, v0 = tv * tile_v;
     const int hu = min(tile_u, nu - u0), hv = min(tile_v, nv - v0);
-    const int rows = hu + W - 1, cols = hv + W - 1;
     const int pitch = gather_pitch(tile_v + W - 1, W);
     const int plane = (tile_u + W - 1) * pitch;
     V2* s_g = reinterpret_cast<V2*>(smem);                  // (NC, tile_u + W - 1, pitch)
     T* s_es = reinterpret_cast<T*>(s_g + (size_t)NC * plane);  // (SLOTS, 2W)
 
-    // stage the tile and its halo, a warp a row (every plane of it), the
-    // wrap mod nu, nv by subtraction: u0 + r < nu + tile_u + W, and the
-    // loop runs more than once only on a grid narrower than the window
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < rows; r += GATHER_THREADS / 32) {
-        int gu = u0 + r;
-        while (gu >= nu) gu -= nu;
-        for (int j = lane; j < cols; j += 32) {
-            int gv = v0 + j;
-            while (gv >= nv) gv -= nv;
-            const V2* src = grid + (size_t)gu * nv + gv;
-            V2* dst = s_g + r * pitch + j;
-#pragma unroll
-            for (int c = 0; c < NC; ++c)
-                cp_async_cell<sizeof(V2)>(dst + (size_t)c * plane,
-                                          src + (size_t)c * nu * nv);
-        }
-    }
+    // the tile and its halo, every correlation (u0 + r < nu + tile_u + W)
+    gather_stage<true>(s_g, grid, NC, (size_t)nu * nv, plane, hu + W - 1, hv + W - 1,
+                       pitch, u0, v0, nu, nv);
 
     // a lane's taps of a sample: k = 16 s + h at (k / W, k mod W)
     const int h = threadIdx.x & 15;
     const int slot = threadIdx.x >> 4;
+    const int warp = threadIdx.x >> 5;
     int ka[STEPS], kb[STEPS], off[STEPS];
 #pragma unroll
     for (int s = 0; s < STEPS; ++s) {
@@ -798,6 +900,296 @@ int allow_gather_budget() {
     return err ? err : (int)cudaFuncSetAttribute(tile_gather_kernel<T, W, 4>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  SPREAD_BUDGET);
+}
+
+// The w-stack map: one block per listed (uv tile, block of planes),
+// blocks[4 b ..] = (tile, first plane pb0, lo, hi): planes pb0 .. pb0 +
+// plane_block - 1 (cut to the stack) of the (nplanes, nu, nv) grid,
+// staged with the tile's halo; its samples are gather positions lo .. hi
+// - 1, plan position gpos[i] (i itself where gpos is null: one block of
+// planes, the plan's own order), each with its whole w-window p0 .. p0 +
+// WS - 1 in the block's planes. L = stack_lanes(W) lanes take a
+// sample: the 2W ES taps and the WS w-taps once, then the W * WS window
+// rows (t, a), q = t * W + a = L s + h, a lane a row: the row's W cells
+// times the column taps (held in registers), times the row's w-tap x ES
+// tap. The value goes to out[order[pos]].
+template <typename T, int W, int WS>
+__global__ void __launch_bounds__(GATHER_THREADS)
+stack_gather_kernel(const int* __restrict__ blocks, const int* __restrict__ gpos,
+                    const int* __restrict__ order, const int* __restrict__ iu0,
+                    const int* __restrict__ iv0, const int* __restrict__ p0,
+                    const T* __restrict__ uf, const T* __restrict__ vf,
+                    const T* __restrict__ wsc,
+                    const typename Vec2<T>::type* __restrict__ grid,
+                    T* __restrict__ out, int n, int nu, int nv, int nplanes, int tile_u,
+                    int tile_v, int ntv, int plane_block, T beta) {
+    using V2 = typename Vec2<T>::type;
+    constexpr int L = stack_lanes(W);
+    constexpr int ROWS = W * WS;                // (w-tap, row) pairs of a window
+    constexpr int STEPS = (ROWS + L - 1) / L;  // rows a lane takes per sample
+    constexpr int SLOTS = GATHER_THREADS / L;  // samples a block takes at once
+    constexpr int PER_WARP = 32 / L;
+    constexpr int NW = (WS + L - 1) / L;       // w-taps a lane loads
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int* blk = blocks + 4 * (size_t)blockIdx.x;
+    const int tile = blk[0], pb0 = blk[1];
+    const int npb = min(plane_block, nplanes - pb0);
+    const int tu = tile / ntv, tv = tile - tu * ntv;
+    const int u0 = tu * tile_u, v0 = tv * tile_v;
+    const int hu = min(tile_u, nu - u0), hv = min(tile_v, nv - v0);
+    const int pitch = stack_pitch(tile_v + W - 1);
+    const int plane = stack_plane(tile_u + W - 1, tile_v + W - 1, W);
+    V2* s_g = reinterpret_cast<V2*>(smem);  // (plane_block, tile_u + W - 1, pitch)
+    T* s_k = reinterpret_cast<T*>(s_g + (size_t)plane_block * plane);  // (SLOTS, 3W)
+
+    gather_stage<true>(s_g, grid + (size_t)pb0 * nu * nv, npb, (size_t)nu * nv, plane,
+                       hu + W - 1, hv + W - 1, pitch, u0, v0, nu, nv);
+
+    // a lane's rows of a window: q = L s + h = t * W + a, at t * plane + a
+    // * pitch, with its ES tap k[a] and w-tap k[2W + t]
+    const int h = threadIdx.x % L;
+    const int slot = threadIdx.x / L, sub = slot % PER_WARP;
+    const int warp = threadIdx.x >> 5;
+    int roff[STEPS], ra[STEPS], rt[STEPS];
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+        const int q = L * s + h;
+        const int t = q / W, a = q - (q / W) * W;
+        ra[s] = q < ROWS ? a : -1;
+        rt[s] = 2 * W + t;
+        roff[s] = t * plane + a * pitch;
+    }
+    T* k = s_k + slot * 3 * W;  // eu[W], ev[W], ws[WS]
+    // a group's sample, loaded a round ahead (the first round's while the
+    // tile stages); a listed block has samples, so hi > lo
+    const int lo = blk[2], hi = blk[3];
+    int next = min(lo + PER_WARP * warp + sub, hi - 1);
+    int npos = gpos != nullptr ? gpos[next] : next;
+    T nuf = uf[npos], nvf = vf[npos];
+    T nws[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+        nws[j] = h + j * L < WS ? wsc[(size_t)(h + j * L) * n + npos] : T(0);
+    int niu = iu0[npos], niv = iv0[npos], np0 = p0[npos], nout = order[npos];
+    cp_async_wait_all();
+    __syncthreads();  // the planes are staged
+
+    const T half = T(W) / T(2);
+    for (int base = lo + PER_WARP * warp; base < hi; base += SLOTS) {
+        const bool valid = base + sub < hi;
+        const T u = nuf, v = nvf;
+        T ws[NW];
+#pragma unroll
+        for (int j = 0; j < NW; ++j) ws[j] = nws[j];
+        int lu = niu, lv = niv;
+        const int p = np0 - pb0, sample = nout;
+        next = min(base + SLOTS + sub, hi - 1);
+        npos = gpos != nullptr ? gpos[next] : next;
+        nuf = uf[npos];
+        nvf = vf[npos];
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+            if (h + j * L < WS) nws[j] = wsc[(size_t)(h + j * L) * n + npos];
+        niu = iu0[npos];
+        niv = iv0[npos];
+        np0 = p0[npos];
+        nout = order[npos];
+        while (lu < 0) lu += nu;
+        while (lu >= nu) lu -= nu;
+        while (lv < 0) lv += nv;
+        while (lv >= nv) lv -= nv;
+        lu -= u0;
+        lv -= v0;
+        for (int t = h; t < 2 * W; t += L)
+            k[t] = es_tap(((t < W ? u : v) - T(t < W ? t : t - W)) / half, beta);
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+            if (h + j * L < WS) k[2 * W + h + j * L] = ws[j];
+        __syncwarp();
+        T ev[W];
+#pragma unroll
+        for (int b = 0; b < W; ++b) ev[b] = k[W + b];
+        T re = T(0), im = T(0);
+        const V2* win = s_g + (size_t)p * plane + lu * pitch + lv;
+#pragma unroll
+        for (int s = 0; s < STEPS; ++s) {
+            if (ra[s] < 0) continue;
+            const V2* row = win + roff[s];
+            T xr = T(0), xi = T(0);
+#pragma unroll
+            for (int b = 0; b < W; ++b) {
+                const V2 x = row[b];
+                xr += ev[b] * x.x;
+                xi += ev[b] * x.y;
+            }
+            const T w = k[rt[s]] * k[ra[s]];
+            re += w * xr;
+            im += w * xi;
+        }
+        gather_write<L>(re, im, h, valid, out, sample);
+        __syncwarp();  // the taps are read before the next sample's are written
+    }
+}
+
+// A launch of stack_gather_kernel over nblocks listed (tile, plane block)
+// blocks: refused (invalid value) beyond SPREAD_BUDGET bytes of shared
+// memory or with fewer planes a block than w-taps.
+template <typename T, int W, int WS>
+int stack_gather(const int* blocks, const int* gpos, const int* order, const int* iu0,
+                 const int* iv0, const int* p0, const void* uf, const void* vf, const void* wsc,
+                 const void* grid, void* out, int nblocks, int n, int nu, int nv,
+                 int nplanes, int tile_u, int tile_v, int ntv, int plane_block,
+                 double beta, cudaStream_t stream) {
+    using V2 = typename Vec2<T>::type;
+    const size_t smem = stack_gather_smem<T, W>(plane_block, tile_u, tile_v);
+    if (nblocks < 0 || tile_u <= 0 || tile_v <= 0 || plane_block < WS
+        || smem > (size_t)SPREAD_BUDGET)
+        return (int)cudaErrorInvalidValue;
+    if (nblocks == 0) return (int)cudaSuccess;
+    stack_gather_kernel<T, W, WS><<<nblocks, GATHER_THREADS, smem, stream>>>(
+        blocks, gpos, order, iu0, iv0, p0,
+        static_cast<const T*>(uf), static_cast<const T*>(vf), static_cast<const T*>(wsc),
+        static_cast<const V2*>(grid), static_cast<T*>(out), n, nu, nv, nplanes, tile_u,
+        tile_v, ntv, plane_block, (T)beta);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+int allow_stack_gather_budget() {
+    const int err = (int)cudaFuncSetAttribute(stack_gather_kernel<T, W, 1>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              SPREAD_BUDGET);
+    return err ? err : (int)cudaFuncSetAttribute(stack_gather_kernel<T, W, W>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 SPREAD_BUDGET);
+}
+
+// The table map: one block per listed (uv tile, band), list l =
+// blocks[blockIdx.x] = tile * nband + band of the (nband, npix, npix)
+// grids, its samples plan positions home_start[l] .. home_start[l + 1] -
+// 1 (the kept samples whose window's first grid cell lies in the tile),
+// their window starts ir0, ic0 and table fractions fr, fc in plan order.
+// The tile and its halo are staged cut to the grid, with W - 1 lead rows
+// (columns) of zeros on the first tile row (column), where a window may
+// start before the grid: no tap wraps, and an off-grid tap reads a zero.
+// L = table_lanes(W) lanes take a sample, a lane a window row a = L s + h
+// (one step up to W = L): the row's W cells times the column taps
+// K[(b + 1) os + fc], which every lane holds in registers, then times the
+// row tap K[(a + 1) os + fr]; the taps are read from the block's staged
+// table, or from device memory where tab_smem is 0. The rows have an odd
+// pitch, so a sample's rows lie in different bank pairs. The value goes to
+// out[order[pos]].
+template <typename T, int W>
+__global__ void __launch_bounds__(GATHER_THREADS)
+table_gather_kernel(const int* __restrict__ blocks, const int* __restrict__ home_start,
+                    const int* __restrict__ order, const int* __restrict__ ir0,
+                    const int* __restrict__ ic0, const int* __restrict__ fr,
+                    const int* __restrict__ fc, const T* __restrict__ table, int ntab,
+                    int os, int tab_smem, const typename Vec2<T>::type* __restrict__ grid,
+                    T* __restrict__ out, int npix, int nband, int tile, int ntc) {
+    using V2 = typename Vec2<T>::type;
+    constexpr int L = table_lanes(W);
+    constexpr int STEPS = (W + L - 1) / L;        // rows a lane takes per sample
+    constexpr int SLOTS = GATHER_THREADS / L;     // samples a block takes at once
+    constexpr int PER_WARP = 32 / L;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int list = blocks[blockIdx.x];
+    const int t = list / nband, band = list - t * nband;
+    const int tr = t / ntc, tc = t - tr * ntc;
+    const int r0 = tr * tile, c0 = tc * tile;
+    const int lr = r0 == 0 ? W - 1 : 0, lc = c0 == 0 ? W - 1 : 0;
+    const int rows = lr + min(tile, npix - r0) + W - 1;
+    const int cols = lc + min(tile, npix - c0) + W - 1;
+    const int pitch = stack_pitch(tile + 2 * (W - 1));
+    V2* s_g = reinterpret_cast<V2*>(smem);
+    T* s_tab = reinterpret_cast<T*>(s_g + table_gather_cells<W>(tile));
+
+    gather_stage<false>(s_g, grid + (size_t)band * npix * npix, 1, 0, 0, rows, cols,
+                        pitch, r0 - lr, c0 - lc, npix, npix);
+    if (tab_smem)
+        for (int i = threadIdx.x; i < ntab; i += GATHER_THREADS) s_tab[i] = table[i];
+    // generic loads: the staged copy in shared memory, or device memory
+    const T* tab = tab_smem ? s_tab : table;
+
+    const int h = threadIdx.x % L;
+    const int sub = (threadIdx.x / L) % PER_WARP;
+    const int warp = threadIdx.x >> 5;
+    int ra[STEPS], roff[STEPS];
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+        const int a = L * s + h;
+        ra[s] = a < W ? a : -1;
+        roff[s] = a * pitch;
+    }
+    // a group's sample geometry, loaded a round ahead (the first round's
+    // while the tile stages); a listed block has samples, so hi > lo
+    const int lo = home_start[list], hi = home_start[list + 1];
+    int next = min(lo + PER_WARP * warp + sub, hi - 1);
+    int nr = ir0[next], nc = ic0[next], nfr = fr[next], nfc = fc[next];
+    int nout = order[next];
+    cp_async_wait_all();
+    __syncthreads();  // the tile and the table are staged
+
+    for (int base = lo + PER_WARP * warp; base < hi; base += SLOTS) {
+        const bool valid = base + sub < hi;
+        const V2* win = s_g + (nr - (r0 - lr)) * pitch + nc - (c0 - lc);
+        const int f_r = nfr, f_c = nfc, sample = nout;
+        next = min(base + SLOTS + sub, hi - 1);
+        nr = ir0[next];
+        nc = ic0[next];
+        nfr = fr[next];
+        nfc = fc[next];
+        nout = order[next];
+        T kc[W];
+#pragma unroll
+        for (int b = 0; b < W; ++b) kc[b] = tab[(b + 1) * os + f_c];
+        T re = T(0), im = T(0);
+#pragma unroll
+        for (int s = 0; s < STEPS; ++s) {
+            if (ra[s] < 0) continue;
+            const V2* row = win + roff[s];
+            T xr = T(0), xi = T(0);
+#pragma unroll
+            for (int b = 0; b < W; ++b) {
+                const V2 x = row[b];
+                xr += kc[b] * x.x;
+                xi += kc[b] * x.y;
+            }
+            const T kr = tab[(ra[s] + 1) * os + f_r];
+            re += kr * xr;
+            im += kr * xi;
+        }
+        gather_write<L>(re, im, h, valid, out, sample);
+    }
+}
+
+// A launch of table_gather_kernel over nblocks listed (tile, band) blocks:
+// refused (invalid value) beyond SPREAD_BUDGET bytes of shared memory or
+// with a table shorter than os * (W + 2).
+template <typename T, int W>
+int table_gather(const int* blocks, const int* home_start, const int* order,
+                 const int* ir0, const int* ic0, const int* fr, const int* fc,
+                 const void* table, int ntab, int os, int tab_smem, const void* grid,
+                 void* out, int nblocks, int npix, int nband, int tile, int ntc,
+                 cudaStream_t stream) {
+    using V2 = typename Vec2<T>::type;
+    const size_t smem = table_gather_smem<T, W>(tile, tab_smem ? ntab : 0);
+    if (nblocks < 0 || tile <= 0 || nband <= 0 || ntab < os * (W + 2)
+        || smem > (size_t)SPREAD_BUDGET)
+        return (int)cudaErrorInvalidValue;
+    if (nblocks == 0) return (int)cudaSuccess;
+    table_gather_kernel<T, W><<<nblocks, GATHER_THREADS, smem, stream>>>(
+        blocks, home_start, order, ir0, ic0, fr, fc, static_cast<const T*>(table), ntab,
+        os, tab_smem, static_cast<const V2*>(grid), static_cast<T*>(out), npix, nband,
+        tile, ntc);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+int allow_table_gather_budget() {
+    return (int)cudaFuncSetAttribute(table_gather_kernel<T, W>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     SPREAD_BUDGET);
 }
 
 }  // namespace

@@ -40,82 +40,29 @@
 //    bands' planes would spread every entry twice, once into a plane it
 //    misses. What bounds it: the consumers' chain per entry (its loads,
 //    the compare and the flush), a few block-entries at a time per SM.
-//  - degrid: one thread per kept sample in tile order, the table in
-//    shared memory, the in-grid taps summed in a fixed order, written to
-//    the sample's own index (the wrapper zeroes the dropped samples).
+//  - degrid: gridding.cuh's tile gather, its table form
+//    (table_gather_kernel; the header has the design). One block per (uv
+//    tile, band) that has kept samples stages the tile and its halo cut to
+//    the grid (zeros off it, W - 1 lead rows and columns on the first tile
+//    row and column, where windows start before the grid), and the table
+//    where it fits; its samples are one run of plan positions, their
+//    window starts and fractions read in plan order; the host lists the
+//    blocks by rows of tiles, the heaviest rows first. Four lanes take a
+//    sample (sixteen above W = 8), a lane a window row: the row's W cells
+//    times the column taps, held in registers, times the row tap; the
+//    partial sums are reduced over the lanes in a fixed order and written
+//    to the sample's own index (the wrapper zeroes the dropped samples).
 //  - A table too large for shared memory beside the kernel's other
 //    buffers (complex128 at W = 15, oversampling 1023: 139 KB) is read
 //    from device memory through the read-only path instead of staged
-//    (tab_smem = 0, the host's choice): a table read is 2W per entry
-//    against W^2 taps, so it costs little either way.
+//    (tab_smem = 0, the host's choice, for each kernel): a table read is 2W
+//    per entry or sample against W^2 taps, so it costs little either way.
 //
 // No --use_fast_math.
 
 #include "gridding.cuh"
 
 namespace {
-
-constexpr int BUDGET = 96 * 1024;  // degrid kernel: shared memory per block, at most
-constexpr int DEGRID_THREADS = 128;
-
-// Table value i: from the staged copy in shared memory, or (a table too
-// large to stage) from device memory through the read-only path.
-template <typename T>
-__device__ __forceinline__ T tab_at(const T* s_tab, const T* __restrict__ table,
-                                    bool staged, int i) {
-    return staged ? s_tab[i] : __ldg(table + i);
-}
-
-// One thread per kept sample, in the plan's tile order; grid (nband, npix,
-// npix); out[s] written for the kept samples only.
-template <typename T, int W>
-__global__ void __launch_bounds__(DEGRID_THREADS)
-gridtab_degrid_kernel(const int* __restrict__ order, const int* __restrict__ ir0,
-                      const int* __restrict__ ic0, const int* __restrict__ fr,
-                      const int* __restrict__ fc, const int* __restrict__ band,
-                      const T* __restrict__ table, int ntab, int os, int tab_smem,
-                      const typename Vec2<T>::type* __restrict__ grid,
-                      typename Vec2<T>::type* __restrict__ out, int nkeep, int npix) {
-    using V2 = typename Vec2<T>::type;
-    extern __shared__ __align__(16) unsigned char smem[];
-    T* s_tab = reinterpret_cast<T*>(smem);
-    if (tab_smem) {
-        for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = table[i];
-        __syncthreads();
-    }
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= nkeep) return;
-    const int s = order[i];
-    const int r0 = ir0[s], q0 = ic0[s], f_r = fr[s], f_c = fc[s];
-    const V2* g = grid + (size_t)band[s] * npix * npix;
-    T kc[W];
-    int col[W];
-#pragma unroll
-    for (int b = 0; b < W; ++b) {
-        const int c = q0 + b;
-        const bool in = c >= 0 && c < npix;
-        kc[b] = in ? tab_at(s_tab, table, tab_smem, (b + 1) * os + f_c) : T(0);
-        col[b] = in ? c : 0;
-    }
-    T ar = T(0), ai = T(0);
-#pragma unroll
-    for (int a = 0; a < W; ++a) {
-        const int r = r0 + a;
-        if (r < 0 || r >= npix) continue;
-        const V2* row = g + (size_t)r * npix;
-        T br = T(0), bi = T(0);
-#pragma unroll
-        for (int b = 0; b < W; ++b) {
-            const V2 x = row[col[b]];
-            br += kc[b] * x.x;
-            bi += kc[b] * x.y;
-        }
-        const T kr = tab_at(s_tab, table, tab_smem, (a + 1) * os + f_r);
-        ar += kr * br;
-        ai += kr * bi;
-    }
-    out[s] = vec2(ar, ai);
-}
 
 // The table map's tile spread: one block per (tile, band), the entries
 // listed per block, the table staged (tab_smem) or read from device memory.
@@ -134,26 +81,9 @@ int spread(const int* ent_pos, const int* ent_off, const int* ent_start,
 }
 
 template <typename T, int W>
-int degrid(const int* order, const int* ir0, const int* ic0, const int* fr,
-           const int* fc, const int* band, const void* table, int ntab, int os,
-           int tab_smem, const void* grid, void* out, int nkeep, int npix,
-           cudaStream_t stream) {
-    using V2 = typename Vec2<T>::type;
-    const size_t smem = tab_smem ? ntab * sizeof(T) : 0;
-    if (smem > (size_t)BUDGET || ntab < os * (W + 2)) return (int)cudaErrorInvalidValue;
-    const int blocks = (nkeep + DEGRID_THREADS - 1) / DEGRID_THREADS;
-    gridtab_degrid_kernel<T, W><<<blocks, DEGRID_THREADS, smem, stream>>>(
-        order, ir0, ic0, fr, fc, band, static_cast<const T*>(table), ntab, os,
-        tab_smem, static_cast<const V2*>(grid), static_cast<V2*>(out), nkeep, npix);
-    return (int)cudaGetLastError();
-}
-
-template <typename T, int W>
 int allow_budget() {
-    int err = allow_spread_budget<T, W, 1, TableTaps<T, W>>();
-    return err ? err : (int)cudaFuncSetAttribute(
-        gridtab_degrid_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        BUDGET);
+    const int err = allow_spread_budget<T, W, 1, TableTaps<T, W>>();
+    return err ? err : allow_table_gather_budget<T, W>();
 }
 
 template <typename T>
@@ -177,10 +107,10 @@ int allow_budget_all() {
 
 }  // namespace
 
-// Lets every spread instance take SPREAD_BUDGET and every degrid instance
-// BUDGET bytes of dynamic shared memory on the current device (above the
-// default 48 KB). Called once per device
-// before the first launch, outside any CUDA-graph capture.
+// Lets every spread and gather instance take SPREAD_BUDGET bytes of
+// dynamic shared memory on the current device (above the default 48 KB).
+// Called once per device before the first launch, outside any CUDA-graph
+// capture.
 extern "C" int gridtab_init() {
     const int err = allow_budget_all<float>();
     return err ? err : allow_budget_all<double>();
@@ -233,18 +163,25 @@ extern "C" int gridtab_spread_launch(const int* ent_pos, const int* ent_off,
 #undef CALL
 }
 
-// order (nkeep,), ir0, ic0, fr, fc, band (n,) and table as for the spread;
+// blocks: (nblocks,) int32 the (tile, band) lists that have kept samples
+// (list tile * nband + band); home_start: (ntiles * nband + 1,) int32
+// offsets of each list's run of plan positions; order: (nkeep,) int32 the
+// kept samples in plan order; ir0, ic0, fr, fc: (nkeep,) int32 window
+// starts and table fractions in plan order; table as for the spread;
 // grid: (nband, npix, npix) complex T; out: (n,) complex T, written at the
-// kept samples only.
-extern "C" int gridtab_degrid_launch(const int* order, const int* ir0, const int* ic0,
-                                     const int* fr, const int* fc, const int* band,
-                                     const void* table, const void* grid, void* out,
-                                     int support, int ntab, int os, int tab_smem,
-                                     int nkeep, int npix, int is_double, void* stream) {
-    if (nkeep <= 0) return (int)cudaSuccess;
+// kept samples only. Refused (invalid value) where the staged tile passes
+// SPREAD_BUDGET bytes of shared memory.
+extern "C" int gridtab_degrid_launch(const int* blocks, const int* home_start,
+                                     const int* order, const int* ir0, const int* ic0,
+                                     const int* fr, const int* fc, const void* table,
+                                     const void* grid, void* out, int support, int ntab,
+                                     int os, int tab_smem, int nblocks, int npix,
+                                     int nband, int tile, int ntc, int is_double,
+                                     void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, W) degrid<T, W>(order, ir0, ic0, fr, fc, band, table, ntab, os,        \
-                                tab_smem, grid, out, nkeep, npix, st)
+#define CALL(T, W) table_gather<T, W>(blocks, home_start, order, ir0, ic0, fr, fc, table,  \
+                                      ntab, os, tab_smem, grid, out, nblocks, npix, nband, \
+                                      tile, ntc, st)
     if (is_double) { GRIDTAB_SUPPORTS(CALL, double) }
     GRIDTAB_SUPPORTS(CALL, float)
 #undef CALL

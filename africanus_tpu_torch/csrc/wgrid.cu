@@ -53,11 +53,22 @@
 //    sample (two shared loads, the cell compare, a flush of the running
 //    sums to shared memory on ~25% of the samples, which the warp pays
 //    whenever any lane flushes), not bytes.
-//  - degrid: one thread per sample in plan order (samples sorted by tile
-//    and window start, so a warp's windows overlap in L1/L2), reading its
-//    geometry contiguously in that order; it sums its W^2*wsup wrapped
-//    cells in a fixed order and writes the value to the sample's own
-//    index, so there is no permutation and no scatter.
+//  - degrid: gridding.cuh's tile gather, its w-stack form (stack_gather_kernel;
+//    the header has the design). One block per uv tile that has samples
+//    and block of planes stages the tile, its W - 1 halo and the block's
+//    planes in shared memory (cp.async, the wrap resolved once per cell);
+//    four lanes take a sample (sixteen at W = 10), form its 2W ES taps and
+//    wsup w-taps once, and take the W * wsup window rows (w-tap t, row a),
+//    a lane a row of W cells times the column taps it holds in registers;
+//    a sample's rows of a step lie in different bank pairs (an odd row
+//    pitch and a plane stride = W * pitch mod 16). The two partial sums
+//    are reduced over the lanes in a fixed order (bitwise-equal launches)
+//    and written to the sample's own index: no permutation, no scatter.
+//    The host (ops/cuda_wgrid.WGridPlan) stages every plane in one block
+//    where they fit its gather budget, else blocks of planes that overlap
+//    by wsup - 1, each sample in the block that holds its whole w-window
+//    (a separate gather order; the spread's plan order is untouched), and
+//    lists the blocks by rows of tiles, the heaviest rows first.
 //
 // No --use_fast_math: expf/exp and sqrtf/sqrt are the accurate library
 // versions, and the strict |z| < 1 cutoff is decided on the same
@@ -65,85 +76,20 @@
 
 #include "gridding.cuh"
 
-namespace {
-
-constexpr int DEGRID_THREADS = 128;
-
-// One thread per sample, in plan order: geometry at plan position i,
-// the value to sample order[i].
-template <typename T, int W>
-__global__ void __launch_bounds__(DEGRID_THREADS)
-wgrid_degrid_kernel(const int* __restrict__ order, const int* __restrict__ iu0,
-                    const int* __restrict__ iv0, const int* __restrict__ p0,
-                    const T* __restrict__ uf, const T* __restrict__ vf,
-                    const T* __restrict__ wsc,
-                    const typename Vec2<T>::type* __restrict__ grid,
-                    typename Vec2<T>::type* __restrict__ out, int n, int nu,
-                    int nv, int wsup, T beta) {
-    using V2 = typename Vec2<T>::type;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int s = order[i];
-    const T half = T(W) / T(2);
-    const T u = uf[i], v = vf[i];
-    const int u0 = pmod(iu0[i], nu), v0 = pmod(iv0[i], nv);
-    T ku[W], kv[W];
-    size_t row[W];
-    int col[W];
-#pragma unroll
-    for (int a = 0; a < W; ++a) {
-        ku[a] = es_tap((u - T(a)) / half, beta);
-        kv[a] = es_tap((v - T(a)) / half, beta);
-        row[a] = (size_t)((u0 + a) % nu) * nv;
-        col[a] = (v0 + a) % nv;
-    }
-    const size_t plane = (size_t)nu * nv;
-    const int pbase = p0[i];
-    T sr = T(0), si = T(0);
-    for (int t = 0; t < wsup; ++t) {
-        const V2* g = grid + (size_t)(pbase + t) * plane;
-        T ar = T(0), ai = T(0);
-#pragma unroll
-        for (int a = 0; a < W; ++a) {
-            T br = T(0), bi = T(0);
-#pragma unroll
-            for (int b = 0; b < W; ++b) {
-                const V2 x = g[row[a] + col[b]];
-                br += kv[b] * x.x;
-                bi += kv[b] * x.y;
-            }
-            ar += ku[a] * br;
-            ai += ku[a] * bi;
-        }
-        const T w = wsc[(size_t)t * n + i];
-        sr += w * ar;
-        si += w * ai;
-    }
-    out[s] = vec2(sr, si);
-}
-
-template <typename T, int W>
-int degrid(const int* order, const int* iu0, const int* iv0, const int* p0,
-           const void* uf, const void* vf, const void* wsc, const void* grid,
-           void* out, int n, int nu, int nv, int wsup, double beta,
-           cudaStream_t stream) {
-    using V2 = typename Vec2<T>::type;
-    const int blocks = (n + DEGRID_THREADS - 1) / DEGRID_THREADS;
-    wgrid_degrid_kernel<T, W><<<blocks, DEGRID_THREADS, 0, stream>>>(
-        order, iu0, iv0, p0, static_cast<const T*>(uf), static_cast<const T*>(vf),
-        static_cast<const T*>(wsc), static_cast<const V2*>(grid),
-        static_cast<V2*>(out), n, nu, nv, wsup, (T)beta);
-    return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// Lets every grid kernel instance take SPREAD_BUDGET bytes of dynamic
+// Lets every spread and gather instance take SPREAD_BUDGET bytes of dynamic
 // shared memory on the current device (above the default 48 KB). Called
 // once per device before the first launch, outside any CUDA-graph capture.
 extern "C" int wgrid_init() {
-    const int err = allow_es_spread_budget_all<float>();
-    return err ? err : allow_es_spread_budget_all<double>();
+    int err = allow_es_spread_budget_all<float>();
+    err = err ? err : allow_es_spread_budget_all<double>();
+    err = err ? err : allow_stack_gather_budget<float, 4>();
+    err = err ? err : allow_stack_gather_budget<float, 6>();
+    err = err ? err : allow_stack_gather_budget<float, 8>();
+    err = err ? err : allow_stack_gather_budget<float, 10>();
+    err = err ? err : allow_stack_gather_budget<double, 4>();
+    err = err ? err : allow_stack_gather_budget<double, 6>();
+    err = err ? err : allow_stack_gather_budget<double, 8>();
+    return err ? err : allow_stack_gather_budget<double, 10>();
 }
 
 // ent_pos, ent_off: (nent,) int32 entries, tile by tile (ent_start:
@@ -175,21 +121,34 @@ extern "C" int wgrid_spread_launch(const int* ent_pos, const int* ent_off,
 #undef CALL
 }
 
-// order, and iu0, iv0, p0, uf, vf, wsc in plan order as for the spread;
-// grid: (nplanes, nu, nv) complex T; out: (n,) complex T by sample, every
-// sample written.
-extern "C" int wgrid_degrid_launch(const int* order, const int* iu0,
-                                   const int* iv0, const int* p0, const void* uf,
-                                   const void* vf, const void* wsc,
-                                   const void* grid, void* out, int n, int nu,
-                                   int nv, int support, int wsup, double beta,
-                                   int is_double, void* stream) {
-    if (n <= 0) return (int)cudaSuccess;
+// blocks: (nblocks, 4) int32 the gather's blocks: a uv tile (index tu *
+// ntv + tv), the first of its plane_block staged planes, and its run lo ..
+// hi - 1 of gather positions (in any order of blocks: the host lists the
+// heaviest first); gpos: (n,) int32 the plan position of each gather position,
+// or null where the gather order is the plan order (one block of planes a
+// tile). order, and iu0, iv0, p0, uf, vf, wsc in plan order as for the
+// spread; grid: (nplanes, nu, nv) complex T; out: (n,) complex T by
+// sample, every sample written. Refused (invalid value) where a block's
+// planes pass SPREAD_BUDGET bytes of shared memory or hold fewer than wsup
+// planes. T is double when is_double, else float. Returns
+// cudaGetLastError() after the launch.
+extern "C" int wgrid_degrid_launch(const int* blocks, const int* gpos,
+                                   const int* order, const int* iu0, const int* iv0,
+                                   const int* p0, const void* uf, const void* vf,
+                                   const void* wsc, const void* grid, void* out,
+                                   int nblocks, int n, int nu, int nv, int nplanes,
+                                   int tile_u, int tile_v, int ntv, int plane_block,
+                                   int support, int wsup, double beta, int is_double,
+                                   void* stream) {
     if (wsup != 1 && wsup != support) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, W) degrid<T, W>(order, iu0, iv0, p0, uf, vf, wsc, grid, out, n, \
-                                nu, nv, wsup, beta, st)
+#define GATHER(T, W, WS)                                                                 \
+    stack_gather<T, W, WS>(blocks, gpos, order, iu0, iv0, p0, uf,                         \
+                           vf, wsc, grid, out, nblocks, n, nu, nv, nplanes, tile_u,      \
+                           tile_v, ntv, plane_block, beta, st)
+#define CALL(T, W) (wsup == 1 ? GATHER(T, W, 1) : GATHER(T, W, W))
     if (is_double) { GRIDDING_SUPPORTS(CALL, double) }
     GRIDDING_SUPPORTS(CALL, float)
 #undef CALL
+#undef GATHER
 }

@@ -31,6 +31,7 @@ import torch
 
 from africanus_tpu_torch.gridding.perleypolyhedron import policies as pol
 from africanus_tpu_torch.gridding.perleypolyhedron.kernels import unpack_kernel
+from africanus_tpu_torch.ops._build import plan_device
 from africanus_tpu_torch.ops.cuda_gridtab import (
     TableGridPlan, degrid_table, grid_table,
 )
@@ -76,14 +77,17 @@ def _tap_geometry(scaled, npix, W, oversample):
 def pp_tile_plan(uvw, wavelengths, chanmap, npix, cell, image_centre,
                  phase_centre, convolution_kernel_width,
                  convolution_kernel_oversampling, baseline_transform_policy,
-                 direction="grid", dtype=torch.float32, device="cpu"):
+                 direction="grid", dtype=torch.float32, device="cuda"):
     """The :class:`~africanus_tpu_torch.ops.cuda_gridtab.TableGridPlan`
     of :func:`gridder` (``direction`` "grid") or :func:`degridder`
     ("degrid": the baseline transform with swapped centres), planned in
     float64 on the host from ``uvw`` (row, 3), ``wavelengths`` (chan,)
     and ``chanmap`` (chan,), as the JAX package's ``pp_tile_plan`` /
     ``_pp_tile_plan`` form it (``gridder.py:67-129``); held on ``device``
-    in ``dtype`` (float32 or float64, the precision the kernels run in)."""
+    (the card unless the caller asks for ``"cpu"``; raises where there is
+    no card) in ``dtype`` (float32 or float64, the precision the kernels
+    run in)."""
+    device = plan_device(device)
     uvw = _host(uvw)
     wavelengths = _host(wavelengths).ravel()
     chanmap = np.asarray(chanmap).ravel().astype(np.int32)

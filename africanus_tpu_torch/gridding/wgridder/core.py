@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from africanus_tpu_torch.constants import c as lightspeed
+from africanus_tpu_torch.ops._build import plan_device
 from africanus_tpu_torch.ops.cuda_wgrid import (
     WGridPlan, degrid_wstack, grid_wstack, sample_geometry,
 )
@@ -194,11 +195,13 @@ class ImagingPlan(nn.Module):
 
 
 def build_plan(uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking=True,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
     """Build an :class:`ImagingPlan` — grid sizes, w-planes, tapers and
     the per-sample geometry, planned in float64 on the host from concrete
-    ``uvw`` (row, 3) and ``freq`` (chan,) — on ``device``, in ``dtype``
-    (float32 or float64). Not cached: :func:`make_plan` is."""
+    ``uvw`` (row, 3) and ``freq`` (chan,) — on ``device`` (the card unless
+    the caller asks for ``"cpu"``; raises where there is no card), in
+    ``dtype`` (float32 or float64). Not cached: :func:`make_plan` is."""
+    device = plan_device(device)
     uvw, freq = _host(uvw), _host(freq)
     p = _plan(uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking)
     u_l, v_l, w_l = _wavelength_coords(uvw.astype(np.float64),
@@ -216,16 +219,17 @@ _MAKE_PLAN_CACHE = LRUCache(4)
 
 
 def make_plan(uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking=True,
-              dtype=torch.float32, device="cpu"):
+              dtype=torch.float32, device="cuda"):
     """:func:`build_plan`, cached by input content (4-entry LRU): imaging
     major cycles grid and degrid the same uvw/freq every iteration, and
     the plan build is host work. The returned plan is shared: treat it
     as read-only, and do not ``.to()`` it (build one with
-    :func:`build_plan` to own it)."""
+    :func:`build_plan` to own it). Keyed on the resolved device, so that
+    ``"cuda"`` and ``"cuda:0"`` (the current card) share one plan."""
+    device = plan_device(device)
     uvw, freq = _host(uvw), _host(freq)
     key = content_key((uvw, freq), (nx, ny, cellx, celly, epsilon,
-                                    do_wstacking, str(dtype),
-                                    str(torch.device(device))))
+                                    do_wstacking, str(dtype), str(device)))
     hit = _MAKE_PLAN_CACHE.get(key)
     if hit is not None:
         return hit

@@ -36,7 +36,9 @@ class WStackImaging(nn.Module):
 
     Builds its own
     :class:`~africanus_tpu_torch.gridding.wgridder.core.ImagingPlan`
-    (``self.plan``, float32; ``.to()`` moves it) in ``__init__``.
+    (``self.plan``, float32; ``.to()`` moves it) in ``__init__``, on
+    ``device``: the card unless the caller asks for ``"cpu"`` (raises
+    where there is no card).
     :meth:`forward` grids (row, chan) complex64 visibilities into the
     (nx, ny) dirty image; :meth:`degrid` predicts (row, chan) complex64
     visibilities of an (nx, ny) image. On the card both run the kernels
@@ -44,12 +46,12 @@ class WStackImaging(nn.Module):
     """
 
     def __init__(self, uvw, freq, nx, ny, cellx, celly=None, epsilon=1e-4,
-                 do_wstacking=True):
+                 do_wstacking=True, device="cuda"):
         super().__init__()
         celly = cellx if celly is None else celly
         self.nrow, self.nchan = len(uvw), len(freq)
         self.plan = build_plan(uvw, freq, nx, ny, cellx, celly, epsilon,
-                               do_wstacking)
+                               do_wstacking, device=device)
 
     def forward(self, vis):
         v = vis.reshape(-1).to(self.plan.complex_dtype).contiguous()
@@ -106,8 +108,8 @@ def from_numpy(args, device, do_wstacking=True):
     float32 image it takes."""
     nx = args["nx"]
     module = WStackImaging(args["uvw"], args["freq"], nx, nx, args["cell"],
-                           do_wstacking=do_wstacking)
-    return (module.to(device), torch.as_tensor(args["vis"]).to(device),
+                           do_wstacking=do_wstacking, device=device)
+    return (module, torch.as_tensor(args["vis"]).to(device),
             torch.as_tensor(args["image"]).to(device))
 
 

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "init_once",
-           "launch", "groups"]
+           "launch", "groups", "plan_device"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -137,3 +137,23 @@ def groups(n: int, sizes) -> list[tuple[int, int]]:
         out.append((first, k))
         first += k
     return out
+
+
+def plan_device(device):
+    """The ``torch.device`` a plan is held on: a CUDA device with its index
+    resolved (``"cuda"`` is ``cuda:<current index>``), so that one device
+    has one name. Raises where CUDA is asked for and there is no card:
+    nothing falls back to the CPU, which a caller asks for with
+    ``device="cpu"``."""
+    import torch
+
+    d = torch.device(device)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r}: there is no CUDA card "
+                "(torch.cuda.is_available() is False); pass device=\"cpu\" "
+                "for the CPU path")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    return d

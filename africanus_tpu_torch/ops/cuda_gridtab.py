@@ -4,9 +4,10 @@ Port of the table-mode tile kernels of ``africanus_tpu/ops/pallas_grid.py``
 that the Perley-polyhedron facet gridder runs: ``grid_tiles_table_pallas``
 (Q2-12a) and ``degrid_tiles_table_pallas`` (Q2-12b). Here each is one
 hand-written CUDA kernel (``csrc/gridtab.cu``'s header says what bounds
-them and how they are laid out): the grid kernel is the tile spread of
+them and how they are laid out): the tile spread and the tile gather of
 ``csrc/gridding.cuh`` with the table's taps, one block per (uv tile,
-band), writing each grid cell once (no padded tiles, no fold):
+band); the spread writes each grid cell once (no padded tiles, no fold),
+the gather stages the tile and its halo cut to the grid:
 
     grid:    G[band, ir0+a, ic0+b] += K[(a+1)·os + fr]·K[(b+1)·os + fc]·S
     degrid:  S = Σ_a Σ_b K[(a+1)·os + fr]·K[(b+1)·os + fc]·G[band, ir0+a, ic0+b]
@@ -49,16 +50,12 @@ _SOURCES = ("gridtab.cu",)
 # limit); on the card a support outside these raises
 SUPPORTS = tuple(range(3, 32, 2))
 
-# the degrid kernel's shared-memory budget per block (gridtab.cu's
-# BUDGET): the table is staged there where it fits, else read from device
-# memory
-_DEGRID_SMEM = 96 * 1024
 # the grid kernel (gridding.cuh's tile spread, one band a block): its uv
 # tile edge, the largest in [cw._TILE_MIN, cw._TILE_MAX] whose one plane
 # fits _TILE_BYTES (8 KB: 32 cells in complex64, the fastest of a sweep of
 # 22, 32 and 45 at the facet cell on the H100); the table staged in
-# shared memory where the block then stays within _TABLE_SMEM (two blocks
-# an SM), else read from device memory
+# shared memory where the block (of either kernel) then stays within
+# _TABLE_SMEM (two blocks an SM), else read from device memory
 _TILE_BYTES = 8 * 1024
 _TABLE_SMEM = 96 * 1024
 
@@ -71,6 +68,15 @@ def _tile_edge(npix, support, real_bytes):
                                                   real_bytes) > cw._SMEM_BYTES:
         edge -= 1
     return min(npix, edge)
+
+
+def _gather_smem(tile, support, real_bytes, ntab=0):
+    """Dynamic shared memory of one gather block (gridding.cuh's
+    table_gather_smem): the tile with its halo and, on the first tile row
+    and column, W − 1 lead cells (tile + 2(W − 1) square, rows at an odd
+    pitch), and ``ntab`` staged table values."""
+    side = tile + 2 * (support - 1)
+    return side * (side | 1) * 2 * real_bytes + ntab * real_bytes
 
 
 def build_gridtab():
@@ -87,7 +93,7 @@ def _library():
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
         spread.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
-        degrid.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+        degrid.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
         for fn in (spread, degrid):
             fn.restype = ctypes.c_int
     return spread, degrid
@@ -109,7 +115,8 @@ class TableGridPlan(nn.Module):
         the table's oversampling: a table has oversample·(W+2) values
     dtype : torch.float32, or torch.float64 (the double-accumulating
         kernels)
-    device : where the buffers are made
+    device : where the buffers are made: the card unless the caller asks
+        for the CPU (``"cpu"``); raises where there is no card
 
     Samples whose window has no cell in the grid are kept in the
     per-sample buffers (the gridder's weight sums read them) but never
@@ -122,13 +129,19 @@ class TableGridPlan(nn.Module):
     (``cuda_wgrid.tile_entries`` with windows cut to the grid, a list per
     (tile, band)): ``ent_pos`` (the plan position of each entry's sample),
     ``ent_off`` (``cuda_wgrid.pack_offsets``) and ``ent_start``
-    (ntr·ntc·nband + 1 offsets, list tile·nband + band). ``tile`` ×
-    ``tile`` uv tiles of the grid, ``ntr`` × ``ntc`` of them.
+    (ntr·ntc·nband + 1 offsets, list tile·nband + band); the degrid
+    kernel's ``home_start`` (ntr·ntc·nband + 1 offsets of each list's run
+    of plan positions), ``gather_blocks`` (the ``ngather`` lists that have
+    kept samples, in ``cuda_wgrid.heaviest_rows_first`` order) and the
+    kept samples' ``pir0``, ``pic0``, ``pfr``, ``pfc`` in plan order (16 B
+    a kept sample beside the per-sample buffers). ``tile`` × ``tile`` uv
+    tiles of the grid, ``ntr`` × ``ntc`` of them.
     """
 
     def __init__(self, ir0, ic0, fr, fc, band, npix, nband, support, oversample,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
+        device = _build.plan_device(device)
         if support < 1:
             raise ValueError(f"support must be positive, got {support}")
         if dtype not in (torch.float32, torch.float64):
@@ -165,9 +178,19 @@ class TableGridPlan(nn.Module):
         tc = np.clip(ic0[kept], 0, None) // self.tile
         key = cw._spatial_key(ir0[kept] - tr * self.tile, ic0[kept] - tc * self.tile,
                               support, self.tile)
-        order = kept[np.lexsort((key, (tr * self.ntc + tc) * self.nband
-                                 + band[kept]))]
+        lists = (tr * self.ntc + tc) * self.nband + band[kept]
+        order = kept[np.lexsort((key, lists))]
         self.nkeep = int(kept.size)
+        nlists = self.ntr * self.ntc * self.nband
+        # the degrid kernel's blocks: the (tile, band) lists that have kept
+        # samples, and each list's run of plan positions
+        counts = np.bincount(lists, minlength=nlists)
+        home_start = np.zeros(nlists + 1, np.int64)
+        np.cumsum(counts, out=home_start[1:])
+        self.ngather = int((counts > 0).sum())
+        gather_blocks = np.nonzero(counts)[0]
+        gather_blocks = gather_blocks[cw.heaviest_rows_first(
+            gather_blocks // self.nband // self.ntc, counts[gather_blocks])]
         lists, pos, du, dv = cw.tile_entries(ir0[order], ic0[order], self.npix,
                                              self.npix, self.tile, self.tile,
                                              support, wrap=False, band=band[order],
@@ -175,14 +198,16 @@ class TableGridPlan(nn.Module):
         if lists.size >= 2**31:
             raise ValueError(f"{lists.size} entries: the kernel indexes them with int32")
         self.nentries = int(lists.size)
-        nlists = self.ntr * self.ntc * self.nband
         ent_start = np.zeros(nlists + 1, np.int64)
         np.cumsum(np.bincount(lists, minlength=nlists), out=ent_start[1:])
 
         for name, x in (("ir0", ir0), ("ic0", ic0), ("fr", fr), ("fc", fc),
                         ("band", band), ("order", order), ("ent_pos", pos),
                         ("ent_off", cw.pack_offsets(du, dv, support)),
-                        ("ent_start", ent_start)):
+                        ("ent_start", ent_start), ("home_start", home_start),
+                        ("gather_blocks", gather_blocks),
+                        ("pir0", ir0[order]), ("pic0", ic0[order]),
+                        ("pfr", fr[order]), ("pfc", fc[order])):
             self.register_buffer(
                 name, torch.as_tensor(np.ascontiguousarray(x)).to(
                     device=device, dtype=torch.int32), persistent=False)
@@ -230,6 +255,15 @@ def _spread_table_smem(plan):
     w, rb = plan.support, _real_bytes(plan)
     block = cw._spread_smem(1, plan.tile, plan.tile, w, rb)
     return int(block + plan.ntab * rb <= _TABLE_SMEM)
+
+
+def _gather_table_smem(plan):
+    """Whether the degrid kernel stages the table in shared memory (1) or
+    reads it from device memory (0): staged where the block then stays
+    within _TABLE_SMEM bytes."""
+    _check_support("degrid_table", plan)
+    return int(_gather_smem(plan.tile, plan.support, _real_bytes(plan), plan.ntab)
+               <= _TABLE_SMEM)
 
 
 # ------------------------------------------------------------ grid
@@ -313,8 +347,11 @@ def degrid_table(plan, table, grid):
     """Degrid (nband, npix, npix) grids at the plan's N samples.
 
     ``table`` and ``grid`` in the plan's (complex) dtype on its device.
-    CUDA tensors launch ``csrc/gridtab.cu`` (one thread per kept sample, a
-    fixed sum order: deterministic); CPU tensors take
+    CUDA tensors launch ``csrc/gridtab.cu``'s tile gather (one block per
+    uv tile and band with kept samples stages the tile and its halo cut to
+    the grid; four lanes a sample, sixteen above W = 8, a fixed sum order:
+    deterministic);
+    CPU tensors take
     :func:`degrid_table_reference`. Returns (N,) complex values, 0 at the
     samples with no in-grid tap.
     """
@@ -324,14 +361,16 @@ def degrid_table(plan, table, grid):
     out = torch.zeros(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
     _check_support("degrid_table", plan)
     if plan.nkeep:
-        tab_smem = int(plan.ntab * _real_bytes(plan) <= _DEGRID_SMEM)
+        tab_smem = _gather_table_smem(plan)
         _, degrid = _library()
         _build.init_once("gridtab", _SOURCES, grid.device)
-        _build.launch(degrid, "degrid_table", plan, plan.order.data_ptr(),
-                      plan.ir0.data_ptr(), plan.ic0.data_ptr(), plan.fr.data_ptr(),
-                      plan.fc.data_ptr(), plan.band.data_ptr(), table.data_ptr(),
-                      grid.data_ptr(), out.data_ptr(), plan.support, plan.ntab,
-                      plan.oversample, tab_smem, plan.nkeep, plan.npix)
+        _build.launch(degrid, "degrid_table", plan, plan.gather_blocks.data_ptr(),
+                      plan.home_start.data_ptr(), plan.order.data_ptr(),
+                      plan.pir0.data_ptr(), plan.pic0.data_ptr(), plan.pfr.data_ptr(),
+                      plan.pfc.data_ptr(), table.data_ptr(), grid.data_ptr(),
+                      out.data_ptr(), plan.support, plan.ntab, plan.oversample,
+                      tab_smem, plan.ngather, plan.npix, plan.nband, plan.tile,
+                      plan.ntc)
         degrid_table.launches += 1
     return out
 

@@ -5,7 +5,8 @@ Port of the fused w-stack tile kernels of ``africanus_tpu/ops/pallas_grid.py``:
 compute one map, ``degrid_tiles_wstack_mxu`` (Q2-6) and
 ``degrid_tiles_wstack_pallas`` (Q2-8) its adjoint. Here each map is one
 hand-written CUDA kernel in ``csrc/wgrid.cu`` (its header says what bounds
-them and how they are laid out):
+them and how they are laid out): the tile spread and the tile gather of
+``csrc/gridding.cuh``, shared with the 2D and table maps:
 
     grid:    G[p0+t, iu0+a, iv0+b] += wsc[t]·es((uf−a)/½W)·es((vf−b)/½W)·V
     degrid:  V = Σ_t wsc[t] Σ_a Σ_b es((uf−a)/½W)·es((vf−b)/½W)·G[p0+t, iu0+a, iv0+b]
@@ -20,7 +21,9 @@ starts ``iu0``, ``iv0``, ``p0`` (int32), the fractional offsets ``uf``,
 ``vf`` and the w-taps ``wsc`` (in the plan's dtype, float32 or float64),
 the grid kernel's launch layout (tile edge, planes per block, consumer
 groups) and its per-tile entries: every sample whose window meets a tile,
-with the window start relative to the tile. :func:`sample_geometry`
+with the window start relative to the tile; and the degrid kernel's
+blocks (a uv tile and block of planes each, with its run of samples).
+:func:`sample_geometry`
 gives the float64 numbers (the formulas of the JAX package's
 ``_tile_plan``).
 
@@ -74,6 +77,12 @@ _CONSUMERS = _THREADS - 32 * _PRODUCERS
 # fastest of a sweep on the H100 (PERF.md §6)
 _TILE_MIN, _TILE_MAX, _TILE_BYTES, _TILE_BYTES_2D = 8, 64, 32 * 1024, 16 * 1024
 _GRID_CORRS = 4
+# the w-stack degrid (gridding.cuh's stack gather, GATHER_THREADS threads,
+# a group of lanes a sample): its staged planes of a tile may take
+# _GATHER_BYTES of shared memory (two blocks an SM); a stack that does not
+# fit is staged in blocks of planes
+_GATHER_THREADS = 256
+_GATHER_BYTES = 112 * 1024
 # consumer groups of a w-stack block (each W² threads holding consecutive
 # planes, skipping the samples whose w-window misses them): fewer groups
 # form an entry's cell and ES product fewer times, but keep fewer threads
@@ -101,7 +110,7 @@ def _library():
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
         spread.argtypes = [ptr] * 10 + [i32] * 13 + [f64, i32, ptr]
-        degrid.argtypes = [ptr] * 9 + [i32] * 5 + [f64, i32, ptr]
+        degrid.argtypes = [ptr] * 11 + [i32] * 11 + [f64, i32, ptr]
         for fn in (spread, degrid):
             fn.restype = ctypes.c_int
     return spread, degrid
@@ -195,6 +204,78 @@ def _tile_edge(n, planes, support, real_bytes):
     return min(n, edge)
 
 
+def _stack_plane(rows, cols, support):
+    """The stack gather's staged plane stride (cells) of rows x cols cells
+    (gridding.cuh's stack_plane): rows at an odd pitch, the stride = W ·
+    pitch (mod 16), so that window row (t, a) lies at pitch·(t·W + a) (mod
+    16) and a sample's rows of a step fall in different bank pairs."""
+    pitch = cols | 1
+    return rows * pitch + (support * pitch - rows * pitch) % 16
+
+
+def _stack_lanes(support):
+    """Lanes of the stack gather a sample (gridding.cuh's stack_lanes): 4
+    up to W = 8, else 16."""
+    return 4 if support <= 8 else 16
+
+
+def _stack_gather_smem(plane_block, tile_u, tile_v, support, real_bytes):
+    """Dynamic shared memory of one stack gather block (gridding.cuh's
+    stack_gather_smem): its planes of the tile and halo, and a slot of ES
+    taps and w-taps for each sample the block takes at once."""
+    plane = _stack_plane(tile_u + support - 1, tile_v + support - 1, support)
+    return (plane_block * plane * 2 * real_bytes
+            + _GATHER_THREADS // _stack_lanes(support) * 3 * support * real_bytes)
+
+
+def _stack_block(nplanes, wsup, tile_u, tile_v, support, real_bytes):
+    """Planes a stack gather block stages: every plane where they fit
+    _GATHER_BYTES, else as many as fit (at least the wsup of one
+    w-window)."""
+    plane = _stack_plane(tile_u + support - 1, tile_v + support - 1, support)
+    room = _GATHER_BYTES - _stack_gather_smem(0, tile_u, tile_v, support, real_bytes)
+    return min(nplanes, max(wsup, room // (plane * 2 * real_bytes)))
+
+
+def heaviest_rows_first(rows, counts):
+    """The order in which a gather launches its blocks, given in tile
+    order: the rows of uv tiles by their samples, heaviest first, and the
+    blocks of a row in the order given. A block's samples run in sequence
+    on its warps, so the rows that hold the longest blocks start first and
+    do not leave the card idle at the end; within a row neighbouring tiles
+    stay together, and rows of similar weight are mostly neighbours, so
+    that their shared halo is still in L2 (ordering the blocks themselves
+    heaviest first balanced config 4 as well, but was slower at the larger
+    cell, whose stack does not fit L2; PERF.md §6). The 2D gather's
+    blocks, tuned on tile order, keep it."""
+    rows = np.asarray(rows)
+    load = np.bincount(rows, weights=counts) if rows.size else np.zeros(0)
+    return np.lexsort((np.arange(rows.size), -load[rows]))
+
+
+def stack_blocks(home, p0, nplanes, wsup, plane_block, ntv):
+    """The stack gather's blocks, from the plan-order home tiles and first
+    planes of the samples: blocks of ``plane_block`` planes a ``step`` =
+    plane_block − wsup + 1 apart (overlapping by wsup − 1), each sample in
+    the block b = min(p0 // step, last) that holds its whole w-window.
+    Returns (blocks, pos): blocks (nb, 4) int64 rows (tile, first plane,
+    lo, hi), each block's run lo … hi − 1 of gather positions, listed
+    :func:`heaviest_rows_first`; ``pos`` the plan position of each gather
+    position — None where there is one block of planes a tile (then the
+    gather order is the plan order, ``home`` sorted)."""
+    step = plane_block - wsup + 1
+    nblk = 1 if plane_block >= nplanes else -(-(nplanes - wsup + 1) // step)
+    key = home * nblk + np.minimum(p0 // step, nblk - 1)
+    pos = None if nblk == 1 else np.argsort(key, kind="stable")
+    if pos is not None:
+        key = key[pos]
+    first = np.flatnonzero(np.diff(key, prepend=-1))
+    tiles, blk = np.divmod(key[first], nblk)
+    bounds = np.r_[first, key.size]
+    blocks = np.stack([tiles, blk * step, bounds[:-1], bounds[1:]], 1)
+    return blocks[heaviest_rows_first(tiles // ntv, np.diff(bounds))], pos
+
+
 def _axis_entries(start, n, tile, support, wrap=True):
     """The tiles along one axis of ``n`` cells that each window [start,
     start + W) meets: (sample, tile, offset) with offset the window start
@@ -280,7 +361,8 @@ class WGridPlan(nn.Module):
     support, beta : the ES kernel (support in :data:`SUPPORTS`)
     dtype : torch.float32, or torch.float64 (the double-accumulating
         kernels; the whole w-gridder then runs in float64)
-    device : where the buffers are made
+    device : where the buffers are made: the card unless the caller asks
+        for the CPU (``"cpu"``); raises where there is no card
 
     Raises ValueError on a w-window outside the stack (the kernels index
     planes p0 … p0+wsup−1 directly; clipping would double-deposit).
@@ -295,15 +377,21 @@ class WGridPlan(nn.Module):
     (ntiles + 1 offsets); the 2D degrid kernel's ``home_start`` (ntiles +
     1 offsets of each tile's run of plan positions, the samples whose
     window start lies in it) and ``gather_tiles`` (the ``ngather`` tiles
-    that have samples). The grid kernel's layout: ``tile_u`` × ``tile_v``
+    that have samples); the w-stack degrid kernel's ``stack_block``
+    planes staged a block and its ``nstack`` blocks (:func:`stack_blocks`):
+    ``stack_blocks`` (nstack, 4) rows (tile, first staged plane, lo, hi)
+    of runs of gather positions, and ``stack_pos`` (the plan position of
+    each gather position; empty where the gather order is the plan
+    order). The grid kernel's layout: ``tile_u`` × ``tile_v``
     uv tiles (``ntu`` × ``ntv`` of them), ``plane_block`` planes per block
     and ``groups`` consumer groups of a w-stack (a one-plane plan's tile
     holds up to 4 correlations of the 2D map).
     """
 
     def __init__(self, iu0, iv0, uf, vf, p0, wsc, nu, nv, nplanes, support,
-                 beta, dtype=torch.float32, device="cpu"):
+                 beta, dtype=torch.float32, device="cuda"):
         super().__init__()
+        device = _build.plan_device(device)
         if support not in SUPPORTS:
             raise ValueError(f"support must be one of {SUPPORTS}, got {support}")
         if dtype not in (torch.float32, torch.float64):
@@ -359,6 +447,12 @@ class WGridPlan(nn.Module):
         self.nentries = int(tile.size)
         ent_start = np.zeros(self.ntiles + 1, np.int64)
         np.cumsum(np.bincount(tile, minlength=self.ntiles), out=ent_start[1:])
+        # the degrid kernel's blocks: a tile's samples by block of planes
+        self.stack_block = _stack_block(self.nplanes, wsup, self.tile_u, self.tile_v,
+                                        support, real_bytes)
+        sblocks, spos = stack_blocks(home[order], p0[order], self.nplanes, wsup,
+                                     self.stack_block, self.ntv)
+        self.nstack = int(sblocks.shape[0])
 
         def buf(name, x, dt):
             self.register_buffer(
@@ -369,7 +463,9 @@ class WGridPlan(nn.Module):
                         ("p0", p0[order]), ("ent_pos", pos),
                         ("ent_off", pack_offsets(du, dv, support)),
                         ("ent_start", ent_start), ("home_start", home_start),
-                        ("gather_tiles", np.nonzero(counts)[0])):
+                        ("gather_tiles", np.nonzero(counts)[0]),
+                        ("stack_blocks", sblocks),
+                        ("stack_pos", np.zeros(0) if spos is None else spos)):
             buf(name, x, torch.int32)
         for name, x in (("uf", uf[order]), ("vf", vf[order]), ("wsc", wsc[:, order])):
             buf(name, x, dtype)
@@ -474,9 +570,11 @@ def degrid_wstack(plan, grid):
     """Degrid the (nplanes, nu, nv) w-stack at the plan's N samples.
 
     ``grid`` is complex in the plan's dtype, on the plan's device. CUDA
-    tensors launch ``csrc/wgrid.cu`` (one thread per sample, a fixed sum
-    order: deterministic); CPU tensors take
-    :func:`degrid_wstack_reference`. Returns (N,) complex visibilities.
+    tensors launch ``csrc/wgrid.cu``'s tile gather (one block per uv tile
+    with samples and block of planes stages them with the tile's halo in
+    shared memory; four lanes a sample, sixteen at W = 10, a fixed sum
+    order: deterministic); CPU tensors take :func:`degrid_wstack_reference`.
+    Returns (N,) complex visibilities.
     """
     _check("degrid_wstack", plan, grid, (plan.nplanes, plan.nu, plan.nv))
     if grid.device.type == "cpu":
@@ -485,11 +583,15 @@ def degrid_wstack(plan, grid):
     if plan.nsamples == 0:
         return out
     _, degrid = _library()
-    _build.launch(degrid, "degrid_wstack", plan, plan.order.data_ptr(),
-                  plan.iu0.data_ptr(), plan.iv0.data_ptr(), plan.p0.data_ptr(),
-                  plan.uf.data_ptr(), plan.vf.data_ptr(), plan.wsc.data_ptr(),
-                  grid.data_ptr(), out.data_ptr(), plan.nsamples, plan.nu, plan.nv,
-                  plan.support, plan.wsup, plan.beta)
+    _build.init_once("wgrid", _SOURCES, grid.device)
+    pos = plan.stack_pos.data_ptr() if plan.stack_pos.numel() else None
+    _build.launch(degrid, "degrid_wstack", plan, plan.stack_blocks.data_ptr(), pos,
+                  plan.order.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
+                  plan.p0.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
+                  plan.wsc.data_ptr(), grid.data_ptr(), out.data_ptr(), plan.nstack,
+                  plan.nsamples, plan.nu, plan.nv, plan.nplanes, plan.tile_u,
+                  plan.tile_v, plan.ntv, plan.stack_block, plan.support, plan.wsup,
+                  plan.beta)
     degrid_wstack.launches += 1
     return out
 

@@ -43,18 +43,21 @@ that each print one line (some several):
    whole step (and the step's host-clock median: it is host-bound), one
    run of each plain version, and the step's rate in Mvis-iter/s;
 10. wgrid kernels vs plain: grid_wstack and degrid_wstack against their
-   plain versions on the card (supports 4/6/8/10 × 1 plane and a stack ×
-   float32 and float64 × square, odd, one-tile and narrower-than-the-
-   window grids, ragged sample counts, windows that wrap, windows over
-   the grid kernel's tile corners and in a tile's last cells), and two
-   launches bitwise equal;
+   plain versions on the card (supports 4/6/8/10 × 1 plane, a stack and a
+   deep stack whose planes the degrid kernel stages in blocks × float32
+   and float64 × square, odd, one-tile and narrower-than-the-window
+   grids, ragged sample counts, windows that wrap, windows over the tile
+   corners and in a tile's last cells, w-windows at both ends of the
+   stack), and two launches bitwise equal (also the degrid in blocks of
+   planes);
 11. config-4 imaging (bench.py:879-1013): WStackImaging at 100,000 rows ×
    8 channels, a 512² image over 1°, ε = 1e-4, w-stacking on — the plan
    cold and cached, the launches through dirty and degrid, kernel vs
    plain on the whole dirty image and the degridded visibilities,
    adjointness, and the bench's explicit-DFT check;
 12. imaging times: CUDA-graph replays of the grid kernel (one launch, no
-   fold) and the degrid kernel, CUDA-event medians of dirty and degrid
+   fold) and the degrid kernel (the tile gather, beside the previous
+   design's time), CUDA-event medians of dirty and degrid
    (Mvis/s), the FFTs' share, one run of each plain version, peak device
    memory, a
    torch.profiler breakdown, and dirty and degrid again at a larger cell
@@ -86,8 +89,8 @@ that each print one line (some several):
    oversampling 5 and 63 × 2 bands, windows off every edge, samples with
    no in-grid tap; complex128 at W 15, oversampling 1023, the table read
    from device memory) against their plain versions in float32 and
-   float64, and two launches bitwise equal (also grid_table at W 29 and
-   31 in float64);
+   float64, and two launches bitwise equal (also the table pair at W 29
+   and 31 in float64);
 17. both gridders at full width: nifty grid → dirty and model → degrid
    at config 4's draws (100,000 rows × 8 channels × 4 correlations, a
    1024² image, 2048² grids, ε 1e-5: W = 8), launches counted, kernels
@@ -98,7 +101,8 @@ that each print one line (some several):
    phase_rotate) on plans made once, launches counted, kernels vs plain
    and the table pair's adjoint identity;
 18. gridder times: CUDA-graph replays of the four kernels (grid_2d and
-   grid_table one launch each, no fold; degrid_2d the tile gather) with
+   grid_table one launch each, no fold; degrid_2d and degrid_table the
+   tile gather) with
    their bounds and the previous designs' times, CUDA-event medians of
    nifty grid + dirty and model + degrid and of the PP gridder and
    degridder (Mvis/s), one run of each plain version, peak device memory
@@ -162,7 +166,9 @@ GRIDDER_BOUND = 1e-5
 # the times of the designs that the tile gather and the table map's tile
 # spread replaced (a thread a sample; padded tiles and a fold), on an H100
 # 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's times
-PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"}
+PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms",
+               "degrid_wstack": "0.1633-0.1638 ms",
+               "degrid_wstack_large": "3.30-3.31 ms", "degrid_table": "0.0836 ms"}
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 PHASES = 18
@@ -364,6 +370,8 @@ def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device, edges=False):
     iv0 = np.floor(vpos).astype(np.int64) - (w // 2 - 1)
     if nplanes > 1:
         wpos = rng.uniform(w / 2, nplanes - w / 2 - 1, n)
+        # w-windows at both ends of the stack
+        wpos[:2] = [w / 2 - 0.5, nplanes - w / 2 - 0.5][:n]
         p0 = np.floor(wpos).astype(np.int64) - (w // 2 - 1)
         wsc = es_np((wpos[None, :] - (p0[None, :] + np.arange(w)[:, None]))
                     / (w / 2), 2.3 * w)
@@ -886,14 +894,17 @@ def wgrid_kernel_checks(device):
 
     rng = np.random.default_rng(SEED + 2)
     worst = {}
-    cases = 0
+    cases = blocked = 0
     for support in cw.SUPPORTS:
-        for nplanes in (1, support + 6):
+        # one plane, a stack, and a deep stack (the degrid kernel stages
+        # some of these in blocks of planes)
+        for nplanes in (1, support + 6, 3 * support + 30):
             for nu, nv, n in WGRID_GRIDS:
                 for dtype in (torch.float32, torch.float64):
                     plan, vis, grid = wgrid_problem(rng, n, nu, nv, nplanes,
                                                     support, dtype, device,
                                                     edges=True)
+                    blocked += plan.stack_block < nplanes
                     before = (cw.grid_wstack.launches, cw.degrid_wstack.launches)
                     got_g = cw.grid_wstack(plan, vis)
                     got_d = cw.degrid_wstack(plan, grid)
@@ -919,13 +930,20 @@ def wgrid_kernel_checks(device):
           "grid_wstack is not deterministic")
     check(torch.equal(cw.degrid_wstack(plan, grid), cw.degrid_wstack(plan, grid)),
           "degrid_wstack is not deterministic")
+    check(blocked > 0, "no case staged its planes in blocks")
+    plan, _, grid = wgrid_problem(rng, 100_000, 256, 256, 60, 10, torch.float64, device)
+    check(plan.stack_block < 60, "the deep stack fits one block?")
+    check(torch.equal(cw.degrid_wstack(plan, grid), cw.degrid_wstack(plan, grid)),
+          "degrid_wstack in blocks of planes is not deterministic")
     print(f"[10/{PHASES}] wgrid kernels vs plain on the card ({cases} cases: "
-          f"W {'/'.join(map(str, cw.SUPPORTS))} x 1 plane and W+6 x f32/f64 x "
-          "64², 70x45, 12x10 and 5x7 grids (one tile; narrower than W), "
+          f"W {'/'.join(map(str, cw.SUPPORTS))} x 1 plane, W+6 and 3W+30 x f32/f64 "
+          "x 64², 70x45, 12x10 and 5x7 grids (one tile; narrower than W), "
           "1007/333/50/40 samples with edge-wrapping windows, windows over "
-          "tile corners and in a tile's last cells; rel to max|out|): "
-          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + "; deterministic (200k samples, 9 x 1024²)", flush=True)
+          f"tile corners and in a tile's last cells, w-windows at both ends of "
+          f"the stack; {blocked} with the degrid's planes in blocks; rel to "
+          "max|out|): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + "; deterministic (200k samples, 9 x 1024²; degrid 100k samples, "
+          "60 x 256² in blocks of planes, f64)", flush=True)
 
 
 def _l2(got, want):
@@ -1034,7 +1052,7 @@ def imaging(device, card):
     chk = args["check"]
     small = WStackImaging(chk["uvw"].astype(np.float32),
                           chk["freq"].astype(np.float32), chk["nx"], chk["nx"],
-                          chk["cell"], epsilon=IMAGING_EPS).to(device)
+                          chk["cell"], epsilon=IMAGING_EPS, device=device)
     got = small(torch.as_tensor(chk["vis"].astype(np.complex64), device=device))
     l2 = _l2(got.cpu().numpy().astype(np.float64),
              dirty_oracle_f64(chk["uvw"], chk["freq"], chk["vis"], chk["nx"],
@@ -1074,7 +1092,9 @@ def imaging(device, card):
           f"grid_wstack {grid_ms:.4f} ms (one kernel, no fold; tiles of "
           f"{plan.tile_u}, {plan.plane_block} planes per block, {plan.groups} "
           f"consumer groups, {plan.nentries / max(plan.nsamples, 1):.3f} entries "
-          f"per sample), degrid_wstack {degrid_ms:.4f} ms; FFTs: ifft2 "
+          f"per sample), degrid_wstack {degrid_ms:.4f} ms (tile gather, "
+          f"{plan.nstack} blocks of {plan.stack_block} planes; was "
+          f"{PREVIOUS_MS['degrid_wstack']}); FFTs: ifft2 "
           f"{ifft_ms:.4f} ms = {ifft_ms / dirty_ms:.1%} of dirty, fft2 "
           f"{fft_ms:.4f} ms = {fft_ms / model_ms:.1%} of degrid; plain "
           f"grid_wstack_reference {grid_plain_ms:.1f} ms, "
@@ -1163,7 +1183,9 @@ def imaging(device, card):
           f"{dirty_ms:.3f} ms = {nvis / dirty_ms / 1e3:.1f} Mvis/s, degrid "
           f"{model_ms:.3f} ms = {nvis / model_ms / 1e3:.1f} Mvis/s; kernels "
           f"grid_wstack {grid_l_ms:.4f} ms, degrid_wstack {degrid_l_ms:.4f} ms "
-          f"(CUDA graph of {BURST}); peak device memory {peak:.2f} GiB",
+          f"(tile gather, {plan.nstack} blocks of {plan.stack_block} planes; was "
+          f"{PREVIOUS_MS['degrid_wstack_large']}) (CUDA graph of {BURST}); peak "
+          f"device memory {peak:.2f} GiB",
           flush=True)
     return entries
 
@@ -1526,7 +1548,8 @@ def gridder_kernel_checks(device):
     # memory by both kernels
     plan, table, vals, grid = table_problem(rng, 1007, 64, 2, 15, 1023,
                                             torch.float64, device)
-    check(gt._spread_table_smem(plan) == 0, "the 1023-oversampled table fits?")
+    check(gt._spread_table_smem(plan) == 0 and gt._gather_table_smem(plan) == 0,
+          "the 1023-oversampled table fits?")
     compare("grid_table/f64-os1023", gt.grid_table, gt.grid_table_reference,
             (plan, table, vals), 1e-12)
     compare("degrid_table/f64-os1023", gt.degrid_table, gt.degrid_table_reference,
@@ -1547,12 +1570,17 @@ def gridder_kernel_checks(device):
     check(torch.equal(gt.degrid_table(plan, table, grid),
                       gt.degrid_table(plan, table, grid)),
           "degrid_table is not deterministic")
-    for support in (29, 31):  # several residues a consumer, in float64
-        plan, table, vals, _ = table_problem(rng, 20_000, 256, 2, support, 63,
-                                             torch.float64, device)
+    # several residues a spread consumer, the gather's taps formed per step,
+    # in float64
+    for support in (29, 31):
+        plan, table, vals, grid = table_problem(rng, 20_000, 256, 2, support, 63,
+                                                torch.float64, device)
         check(torch.equal(gt.grid_table(plan, table, vals),
                           gt.grid_table(plan, table, vals)),
               f"grid_table at W {support} is not deterministic")
+        check(torch.equal(gt.degrid_table(plan, table, grid),
+                          gt.degrid_table(plan, table, grid)),
+              f"degrid_table at W {support} is not deterministic")
     print(f"[16/{PHASES}] gridder kernels vs plain on the card ({cases} problems: "
           f"2D W {'/'.join(map(str, SUPPORTS))} x corr 1/2/3/4 x 64², 70x45, 12x10, "
           "5x7 grids with edge-wrapping windows, windows over tile corners and "
@@ -1560,7 +1588,8 @@ def gridder_kernel_checks(device):
           "x 64², 37², 5² grids with windows off every edge; f32/f64; and "
           "complex128 W 15 os 1023 with the table in device memory; rel to "
           "max|out|): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + "; deterministic (200k samples, 1024²; table W 29 and 31 in float64)",
+          + "; deterministic (200k samples, 1024²; table pair W 29 and 31 in "
+          "float64)",
           flush=True)
 
 
@@ -1817,7 +1846,9 @@ def gridders(device, card):
           f"grid_table {gtab_ms:.4f} ms (tile spread, one kernel, no fold; tiles "
           f"of {gplan.tile}, {gplan.nentries / max(gplan.nkeep, 1):.3f} entries per "
           f"kept sample; was {PREVIOUS_MS['grid_table']}), "
-          f"degrid_table {dtab_ms:.4f} ms; plain grid_2d {grid2d_plain_ms:.1f} ms, "
+          f"degrid_table {dtab_ms:.4f} ms (tile gather, {dplan.ngather} tile-band "
+          f"blocks; was {PREVIOUS_MS['degrid_table']}); plain grid_2d "
+          f"{grid2d_plain_ms:.1f} ms, "
           f"degrid_2d {degrid2d_plain_ms:.1f} ms, grid_table {gtab_plain_ms:.1f} ms, "
           f"degrid_table {dtab_plain_ms:.1f} ms; peak device memory nifty "
           f"{nifty_peak:.2f} GiB, PP {pp_peak:.2f} GiB", flush=True)

@@ -273,6 +273,41 @@ def test_wgrid_kernels_are_deterministic(device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("support,nplanes,dtype", [(10, 60, torch.float64),
+                                                   (8, 54, torch.float32),
+                                                   (10, 16, torch.float64)])
+def test_degrid_wstack_in_blocks_of_planes(device, support, nplanes, dtype):
+    """A stack whose planes the degrid kernel stages in blocks (a gather
+    order of its own): one launch, the plain version's values, bitwise
+    equal launches."""
+    rng = np.random.default_rng(nplanes)
+    plan, _, grid = wgrid_problem(rng, 3000, 64, 64, nplanes, support, dtype, device,
+                                  edges=True)
+    assert plan.stack_block < nplanes and plan.stack_pos.numel() == 3000
+    got = _launched(cw.degrid_wstack, plan, grid)
+    _assert_close(got, cw.degrid_wstack_reference(plan, grid),
+                  1e-5 if dtype == torch.float32 else 1e-12)
+    assert torch.equal(got, cw.degrid_wstack(plan, grid))
+
+
+@pytest.mark.cuda
+def test_plans_default_to_the_card(device):
+    """The plan builders hold their plans on the current card unless asked
+    for the CPU, and make_plan keys "cuda" and "cuda:<index>" as one."""
+    from africanus_tpu_torch.gridding.wgridder import make_plan
+
+    args = imaging_inputs(nrow=500, nchan=2, nx=32, seed=3)
+    here = torch.device("cuda", torch.cuda.current_device())
+    a = make_plan(args["uvw"], args["freq"], 32, 32, args["cell"], args["cell"], 1e-4)
+    assert a.wgrid.device == here
+    assert make_plan(args["uvw"], args["freq"], 32, 32, args["cell"], args["cell"],
+                     1e-4, device=f"cuda:{here.index}") is a
+    plan, _, _, _ = table_problem(np.random.default_rng(1), 50, 32, 2, 7, 63,
+                                  torch.float32, "cuda")
+    assert plan.device == here
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wstack", [True, False])
 def test_wstack_imaging_on_card_matches_cpu(device, wstack):
     """WStackImaging on the card (kernels) against the same module on the
@@ -513,6 +548,36 @@ def test_gridtab_kernels_match_plain(device, support, oversample, npix, n, dtype
     bound = 1e-5 if dtype == torch.float32 else 1e-12
     _assert_close(got_g, gt.grid_table_reference(plan, table, vals), bound)
     _assert_close(got_d, gt.degrid_table_reference(plan, table, grid), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [29, 31])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_degrid_table_wide_windows(device, support, dtype):
+    """Supports whose gather forms its taps' positions per step: one
+    launch, the plain version's values, bitwise equal launches."""
+    rng = np.random.default_rng(support)
+    plan, table, _, grid = table_problem(rng, 2000, 96, 2, support, 63, dtype, device)
+    got = _launched(gt.degrid_table, plan, table, grid)
+    _assert_close(got, gt.degrid_table_reference(plan, table, grid),
+                  1e-5 if dtype == torch.float32 else 1e-12)
+    assert torch.equal(got, gt.degrid_table(plan, table, grid))
+
+
+@pytest.mark.cuda
+def test_degrid_table_empty_plans(device):
+    """No samples, or none with a tap in the grid: zeros, no launch."""
+    for ir0 in ([], [-40, 100]):
+        n = len(ir0)
+        plan = gt.TableGridPlan(ir0, ir0, [0] * n, [0] * n, [0] * n, 32, 1, 7, 63,
+                                device=device)
+        assert plan.nkeep == 0 and plan.ngather == 0
+        table = torch.ones(plan.ntab, device=device)
+        grid = torch.ones((1, 32, 32), dtype=torch.complex64, device=device)
+        before = gt.degrid_table.launches
+        out = gt.degrid_table(plan, table, grid)
+        assert gt.degrid_table.launches == before and out.shape == (n,)
+        assert not out.abs().any()
 
 
 @pytest.mark.cuda

@@ -36,12 +36,13 @@ from africanus_tpu_torch.ops.es import es_np
 from test_torch_spread_schedule import GRIDS, _cplx, _problem
 
 
-def reduce16(acc):
-    """gridding.cuh's gather_reduce over the 16 lanes of a half-warp:
-    ``acc`` (16, V) lane values → (16,) the value each lane holds."""
+def reduce_lanes(acc):
+    """gridding.cuh's gather_reduce over the L lanes of a group (a
+    half-warp: 16; the w-stack and table gathers also take 4): ``acc`` (L,
+    V) lane values → (L,) the value each lane holds."""
     vals = acc.copy()
-    lanes = np.arange(16)
-    held, m = acc.shape[1], 8
+    lanes = np.arange(acc.shape[0])
+    held, m = acc.shape[1], acc.shape[0] // 2
     while m >= 1:
         partner = lanes ^ m
         if held > 1:
@@ -106,7 +107,7 @@ def replay_gather(plan, grid):
                 wt = es_u[ka[s][h]] * es_v[kb[s][h]]
                 acc[h, 0::2] += (wt * x.real).T
                 acc[h, 1::2] += (wt * x.imag).T
-            held = reduce16(acc)
+            held = reduce_lanes(acc)
             idx = lanes >> (4 - lv_bits)
             writers = (lanes & ((1 << (4 - lv_bits)) - 1)) == 0
             vals = np.zeros(nval)
@@ -148,7 +149,7 @@ def test_gather_skips_empty_tiles_and_reads_last_cells():
     iu0 = np.floor(upos).astype(np.int64) - (w // 2 - 1)
     iv0 = np.floor(vpos).astype(np.int64) - (w // 2 - 1)
     plan = cw.WGridPlan(iu0, iv0, upos - iu0, vpos - iv0, np.zeros(6), np.ones((1, 6)),
-                        nu, nv, 1, w, 2.3 * w, dtype=torch.float64)
+                        nu, nv, 1, w, 2.3 * w, dtype=torch.float64, device="cpu")
     pu, pv = np.mod(iu0, nu) // t, np.mod(iv0, nv) // t
     homes = set((pu * plan.ntv + pv).tolist())
     assert set(plan.gather_tiles.numpy().tolist()) == homes

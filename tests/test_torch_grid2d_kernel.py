@@ -46,7 +46,7 @@ def _plans(rng, n, nu, nv, w, dtype=torch.float32):
     iu0, iv0, uf, vf = _geometry(rng, n, nu, nv, w)
     beta = 2.3 * w
     port = cw.WGridPlan(iu0, iv0, uf, vf, np.zeros(n), np.ones((1, n)), nu, nv,
-                        1, w, beta, dtype=dtype)
+                        1, w, beta, dtype=dtype, device="cpu")
     pallas = plan_tiles(iu0, iv0, uf, vf, w, beta, nu, nv, group=32)
     return port, pallas
 
@@ -124,7 +124,7 @@ def test_2d_plain_float64_matches_x64_scatter(w):
     gc = GridderConfigWrapper(nx, ny, eps, cell, cell)
     idx, wj = (np.asarray(x) for x in _flat_spread(uvw, freq, plan, gc, cell, cell))
     port = make_plan(uvw, freq, nx, ny, cell, cell, eps, do_wstacking=False,
-                     dtype=torch.float64).wgrid
+                     dtype=torch.float64, device="cpu").wgrid
     n = nrow * nchan
     vis = rng.normal(size=(ncorr, n)) + 1j * rng.normal(size=(ncorr, n))
     got = g2.grid_2d(port, torch.as_tensor(vis)).numpy()
@@ -155,7 +155,7 @@ def test_2d_wrappers_check_operands():
     with pytest.raises(ValueError, match="complex64"):
         g2.degrid_2d(port, torch.zeros((2, 32, 33), dtype=torch.complex64))
     stack = cw.WGridPlan(np.zeros(4), np.zeros(4), np.full(4, 2.5), np.full(4, 2.5),
-                         np.zeros(4), np.ones((6, 4)), 32, 32, 8, 6, 13.8)
+                         np.zeros(4), np.ones((6, 4)), 32, 32, 8, 6, 13.8, device="cpu")
     with pytest.raises(ValueError, match="one plane"):
         g2.grid_2d(stack, torch.zeros((1, 4), dtype=torch.complex64))
     before = (g2.grid_2d.launches, g2.degrid_2d.launches)

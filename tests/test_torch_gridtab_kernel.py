@@ -46,7 +46,7 @@ def _geometry(rng, n, w, os_):
 def _plans(rng, n, w, os_, dtype=torch.float32):
     ir0, ic0, fr, fc, band = _geometry(rng, n, w, os_)
     port = gt.TableGridPlan(ir0, ic0, fr, fc, band, NPIX, NBAND, w, os_,
-                            dtype=dtype)
+                            dtype=dtype, device="cpu")
     keep = ((ir0 + w - 1 >= 0) & (ir0 < NPIX) & (ic0 + w - 1 >= 0)
             & (ic0 < NPIX))
     sel = np.nonzero(keep)[0]
@@ -110,7 +110,7 @@ def test_table_plain_versions_match_literal_loops(w):
     os_, n = 9, 60
     ir0, ic0, fr, fc, band = _geometry(rng, n, w, os_)
     plan = gt.TableGridPlan(ir0, ic0, fr, fc, band, NPIX, NBAND, w, os_,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     table = rng.uniform(0.1, 1.0, os_ * (w + 2))
     vals = rng.normal(size=n) + 1j * rng.normal(size=n)
     g = rng.normal(size=(NBAND, NPIX, NPIX)) + 1j * rng.normal(size=(NBAND, NPIX, NPIX))
@@ -141,7 +141,7 @@ def test_table_plan_order_and_entries():
     rng = np.random.default_rng(5)
     w, os_ = 7, 63
     ir0, ic0, fr, fc, band = _geometry(rng, 400, w, os_)
-    plan = gt.TableGridPlan(ir0, ic0, fr, fc, band, NPIX, NBAND, w, os_)
+    plan = gt.TableGridPlan(ir0, ic0, fr, fc, band, NPIX, NBAND, w, os_, device="cpu")
     tile = plan.tile
     assert tile == min(NPIX, gt._tile_edge(NPIX, w, 4)) and plan.ntr == -(-NPIX // tile)
     keep = ((ir0 + w - 1 >= 0) & (ir0 < NPIX) & (ic0 + w - 1 >= 0) & (ic0 < NPIX))
@@ -173,20 +173,20 @@ def test_table_plan_order_and_entries():
 
 def test_table_plan_and_wrappers_check_operands():
     with pytest.raises(ValueError, match="support"):
-        gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 0, 5)
+        gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 0, 5, device="cpu")
     with pytest.raises(ValueError, match="fractions"):
-        gt.TableGridPlan([0], [0], [5], [0], [0], 16, 1, 3, 5)
+        gt.TableGridPlan([0], [0], [5], [0], [0], 16, 1, 3, 5, device="cpu")
     with pytest.raises(ValueError, match="bands"):
-        gt.TableGridPlan([0], [0], [0], [0], [2], 16, 2, 3, 5)
+        gt.TableGridPlan([0], [0], [0], [0], [2], 16, 2, 3, 5, device="cpu")
     # the kernels' limits are the card's, checked where a kernel launches:
     # a table too large for shared memory is read from device memory, a
     # support without a kernel instance raises there, naming the limit
     big = gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 15, 2000,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     assert gt._spread_table_smem(big) == 0
     assert gt._spread_table_smem(gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1,
-                                                  7, 63)) == 1
-    wide = gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 33, 5)
+                                                  7, 63, device="cpu")) == 1
+    wide = gt.TableGridPlan([0], [0], [0], [0], [0], 16, 1, 33, 5, device="cpu")
     with pytest.raises(ValueError, match="support 33 on the card"):
         gt._check_support("grid_table", wide)
     rng = np.random.default_rng(2)

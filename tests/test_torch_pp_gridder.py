@@ -273,7 +273,7 @@ def test_pp_tile_plan_integers_match_jax_tap_geometry():
     centre, pc = (0.2, -0.4), (0.19, -0.41)
     for direction, (a, b) in (("grid", (pc, centre)), ("degrid", (centre, pc))):
         plan = tp.pp_tile_plan(uvw, wl, chanmap, NPIX, CELL, centre, pc, W, OS,
-                               "rotate", direction, torch.float64)
+                               "rotate", direction, torch.float64, device="cpu")
         uvw_t = jpol.baseline_transform(jnp.asarray(uvw), *a, *b, "rotate")
         su, sv = JG._scaled_coords(uvw_t, jnp.asarray(wl), NPIX, CELL)
         gu, ku = (np.asarray(x).reshape(-1, W) for x in JG._tap_geometry(su, NPIX, W, OS))
@@ -305,7 +305,7 @@ def test_gridder_float32_matches_jax_table_tile_path():
     want = to_numpy(JG.gridder(uvw, Cplx(vis.real, vis.imag), *args,
                                tile_plan=jplan))
     plan = tp.pp_tile_plan(uvw, wl, chanmap, NPIX, CELL, centre, pc, W, OS,
-                           "rotate")
+                           "rotate", device="cpu")
     got = TG.gridder(uvw, torch.as_tensor(vis.astype(np.complex64)), *args,
                      tile_plan=plan).numpy()
     assert got.dtype == np.complex64
@@ -341,7 +341,7 @@ def test_gridder_degridder_cw_normalised_adjoint():
                       kern, W, OS, "None", "None", "XXYY_FROM_I",
                       "conv_1d_axisymmetric_unpacked_gather").numpy()
     plan = tp.pp_tile_plan(uvw, wl, chanmap, NPIX, CELL, centre, centre, W, OS,
-                           "None", "degrid", torch.float64)
+                           "None", "degrid", torch.float64, device="cpu")
     cw = (TG._tap_sums(plan, torch.as_tensor(kern), True).numpy() + 1e-8).reshape(
         v0.shape)
     assert_allclose(np.vdot(G, grid), np.vdot(dg[..., 0] * cw, v0), rtol=1e-10)
@@ -368,4 +368,4 @@ def test_gridder_checks_its_inputs():
                      "conv_1d_axisymmetric_unpacked_scatter")
     with pytest.raises(ValueError, match="direction"):
         tp.pp_tile_plan(uvw, wl, chanmap, NPIX, CELL, (0, 0), (0, 0), W, OS,
-                        "None", "sideways")
+                        "None", "sideways", device="cpu")

@@ -52,7 +52,7 @@ def _problem(rng, n, nu, nv, w, nplanes, dtype=torch.float64):
     else:
         p0, wsc = np.zeros(n, np.int64), np.ones((1, n))
     geo = (iu0, iv0, upos - iu0, vpos - iv0, p0, wsc)
-    return cw.WGridPlan(*geo, nu, nv, nplanes, w, 2.3 * w, dtype=dtype), geo
+    return cw.WGridPlan(*geo, nu, nv, nplanes, w, 2.3 * w, dtype=dtype, device="cpu"), geo
 
 
 def _cplx(rng, shape):
@@ -317,7 +317,7 @@ def test_samples_in_a_tiles_last_cells_and_over_corners():
     iv0 = np.concatenate([geo[1], corners[::-1] - 2])
     plan = cw.WGridPlan(iu0, iv0, np.full(64, 2.5), np.full(64, 2.5),
                         np.zeros(64), np.ones((1, 64)), nu, nv, 1, 6, 13.8,
-                        dtype=torch.float64)
+                        dtype=torch.float64, device="cpu")
     start, pos = plan.ent_start.numpy(), plan.ent_pos.numpy()
     order, pu, pv = plan.order.numpy(), np.mod(iu0, nu), np.mod(iv0, nv)
     for tile in range(plan.ntiles):
@@ -393,7 +393,7 @@ def _table_problem(rng, n, npix, w, os_, nband):
     fr, fc = (rng.integers(-(os_ // 2), os_ // 2 + 1, n) for _ in range(2))
     band = rng.integers(0, nband, n)
     plan = gt.TableGridPlan(ir0, ic0, fr, fc, band, npix, nband, w, os_,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     table = rng.uniform(0.1, 1.0, os_ * (w + 2))
     return plan, table, _cplx(rng, n)
 

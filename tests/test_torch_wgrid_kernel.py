@@ -52,7 +52,7 @@ def _geometry(rng, n, w):
 def _plans(rng, n, w):
     iu0, iv0, uf, vf, p0, kw = _geometry(rng, n, w)
     beta = 2.3 * w
-    port = cw.WGridPlan(iu0, iv0, uf, vf, p0, kw.T, NU, NV, NPLANES, w, beta)
+    port = cw.WGridPlan(iu0, iv0, uf, vf, p0, kw.T, NU, NV, NPLANES, w, beta, device="cpu")
     pallas = plan_tiles_wstack(iu0, iv0, uf, vf, w, beta, NU, NV, p0=p0,
                                wscales=kw.T, nplanes=NPLANES, group=64)
     return port, pallas
@@ -132,12 +132,12 @@ def test_plan_rejects_out_of_stack_and_bad_support():
     uf = vf = np.full(n, 2.0)
     wsc = np.ones((w, n))
     with pytest.raises(ValueError, match="out of stack"):
-        cw.WGridPlan(iu0, iv0, uf, vf, np.full(n, -1), wsc, 64, 64, 12, w, 13.8)
+        cw.WGridPlan(iu0, iv0, uf, vf, np.full(n, -1), wsc, 64, 64, 12, w, 13.8, device="cpu")
     with pytest.raises(ValueError, match="out of stack"):
-        cw.WGridPlan(iu0, iv0, uf, vf, np.full(n, 7), wsc, 64, 64, 12, w, 13.8)
+        cw.WGridPlan(iu0, iv0, uf, vf, np.full(n, 7), wsc, 64, 64, 12, w, 13.8, device="cpu")
     with pytest.raises(ValueError, match="support"):
         cw.WGridPlan(iu0, iv0, uf, vf, np.zeros(n), np.ones((5, n)), 64, 64,
-                     12, 5, 11.5)
+                     12, 5, 11.5, device="cpu")
 
 
 def test_wrappers_check_operands():
@@ -163,7 +163,7 @@ def test_plan_float64_and_tile_order():
     rng = np.random.default_rng(5)
     iu0, iv0, uf, vf, p0, kw = _geometry(rng, 300, 6)
     plan = cw.WGridPlan(iu0, iv0, uf, vf, p0, kw.T, 96, 80, NPLANES, 6, 13.8,
-                        dtype=torch.float64)
+                        dtype=torch.float64, device="cpu")
     assert plan.uf.dtype == plan.wsc.dtype == torch.float64
     assert plan.complex_dtype == torch.complex128
     # 12 planes of 16-byte cells in 32 KB: a 13-cell tile

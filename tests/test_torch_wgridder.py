@@ -64,7 +64,7 @@ def test_plan_equals_jax_plan(grid_problem, epsilon, wstack):
         assert got[key] == want[key], key
     for key in ("nm1", "n", "uv_taper", "w_taper"):
         assert np.array_equal(got[key], want[key]), key
-    plan = make_plan(uvw, freq, nx, ny, cell, cell, epsilon, wstack)
+    plan = make_plan(uvw, freq, nx, ny, cell, cell, epsilon, wstack, device="cpu")
     wgrid = plan.wgrid
     assert (wgrid.support, wgrid.beta, wgrid.nu, wgrid.nv, wgrid.nplanes) == (
         want["support"], want["beta"], want["nu"], want["nv"], want["nplanes"])
@@ -255,11 +255,11 @@ def test_imaging_inputs_are_the_bench_draws():
 
 def test_make_plan_is_cached_by_content_and_precision(grid_problem):
     nx, ny, cell, freq, uvw, _, _ = grid_problem
-    a = make_plan(uvw, freq, nx, ny, cell, cell, 1e-5)
-    assert make_plan(uvw.copy(), freq.copy(), nx, ny, cell, cell, 1e-5) is a
-    b = make_plan(uvw, freq, nx, ny, cell, cell, 1e-5, dtype=torch.float64)
+    a = make_plan(uvw, freq, nx, ny, cell, cell, 1e-5, device="cpu")
+    assert make_plan(uvw.copy(), freq.copy(), nx, ny, cell, cell, 1e-5, device="cpu") is a
+    b = make_plan(uvw, freq, nx, ny, cell, cell, 1e-5, dtype=torch.float64, device="cpu")
     assert b is not a and b.dtype == torch.float64
-    assert build_plan(uvw, freq, nx, ny, cell, cell, 1e-5) is not a
+    assert build_plan(uvw, freq, nx, ny, cell, cell, 1e-5, device="cpu") is not a
 
 
 def test_estimate_cell_size_matches_jax():
