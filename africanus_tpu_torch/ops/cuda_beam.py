@@ -41,6 +41,8 @@ tests hold against the Pallas kernels in interpret mode and
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +51,7 @@ from africanus_tpu_torch.ops.jones import mul2x2
 
 __all__ = ["beam_slabs", "beam_interp", "beam_blend", "beam_blend_cell",
            "apply_feed", "beam_interp_reference", "beam_blend_reference",
-           "beam_blend_cell_reference", "build_beam", "CORRS"]
+           "beam_blend_cell_reference", "build_beam", "interp_layout", "CORRS"]
 
 _SOURCES = ("beam.cu",)
 
@@ -59,6 +61,10 @@ CORRS = (1, 2, 4)
 # a blend block's shared memory, at most (beam.cu's BLEND_SMEM): one
 # sample's nud x 3C raw sums, four times over for the cell route
 _BLEND_SMEM = 48 * 1024
+# beam_interp's blocks (beam.cu's INTERP_THREADS): threads at most, and
+# samples a lane at most
+_INTERP_THREADS = 256
+_MAX_SPT = 8
 
 
 def build_beam():
@@ -68,14 +74,18 @@ def build_beam():
 
 
 def _library():
-    lib = _build.load("beam", _SOURCES)
+    return _bind(_build.load("beam", _SOURCES))
+
+
+def _bind(lib):
+    """The three launch functions of a build of ``csrc/beam.cu``, typed."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     interp, blend, cell = (lib.beam_interp_launch, lib.beam_blend_launch,
                            lib.beam_blend_cell_launch)
     if interp.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        interp.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+        interp.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
         blend.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         cell.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         for fn in (interp, blend, cell):
@@ -184,6 +194,52 @@ def apply_feed(e, feed):
 
 # ------------------------------------------------------------ beam_interp
 
+class InterpLayout(NamedTuple):
+    """A beam_interp launch: blocks of ``parts × rows × lanes`` threads,
+    ``blocks = (sample groups, row tiles)``. Block (bx, by) owns rows
+    ``by·rows …`` of samples ``bx·lanes·spt …``; thread (x, y, z) takes row
+    ``by·rows + y``, samples ``bx·lanes·spt + z + g·lanes`` for g < spt,
+    and part x of the values (all 3C when ``parts`` is 1, the C values
+    [x·C, x·C + C) of the raw sums when it is 3)."""
+    parts: int
+    rows: int
+    lanes: int
+    spt: int
+    blocks: tuple[int, int]
+
+
+def _pow2_floor(n):
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    """The SMs of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def interp_layout(nsamp, nrows, normalize, sms):
+    """The launch layout of :func:`beam_interp` on a card of ``sms`` SMs
+    (``csrc/beam.cu`` checks it). Rows fill a block of up to 256 threads;
+    then the sample lanes, as many as leave at least one block per SM; then
+    samples a lane, while the launch keeps ≥ 4 blocks per SM."""
+    parts = 1 if normalize else 3
+    rows = min(1 << (max(nrows, 1) - 1).bit_length(),
+               _pow2_floor(_INTERP_THREADS // parts))
+    tiles = -(-nrows // rows)
+
+    def groups(lanes, spt):
+        return -(-nsamp // (lanes * spt))
+
+    lanes = _pow2_floor(_INTERP_THREADS // (parts * rows))
+    while lanes > 1 and tiles * groups(lanes, 1) < sms:
+        lanes //= 2
+    spt = 1
+    while spt < _MAX_SPT and tiles * groups(lanes, 2 * spt) >= 4 * sms:
+        spt *= 2
+    return InterpLayout(parts, rows, lanes, spt, (groups(lanes, spt), tiles))
+
+
 def _interp_args(name, slabs, vl, vm, gc0, gc1, wlo):
     if slabs.ndim != 4 or slabs.shape[-1] % 3 or slabs.shape[-1] == 0:
         raise ValueError(f"{name}: slabs must be (nud, lw, mh, 3C)")
@@ -238,10 +294,12 @@ def beam_interp(slabs, vl, vm, gc0, gc1, wlo, normalize=True):
         if out.numel() == 0:
             continue
         interp, _, _ = _library()
+        lay = interp_layout(nsamp, nrows, normalize, _sm_count(slabs.device.index))
         _launch(interp, "beam_interp", slabs.device, part.data_ptr(), vl.data_ptr(),
                 vm.data_ptr(), gc0.data_ptr(), gc1.data_ptr(), wlo.data_ptr(),
                 out.data_ptr(), nsamp, nrows, vl.shape[1], nud, lw, mh, k,
-                int(normalize), int(slabs.dtype == torch.float64))
+                int(normalize), int(slabs.dtype == torch.float64), lay.rows,
+                lay.lanes, lay.spt)
         beam_interp.launches += 1
     if len(outs) == 1:
         return outs[0]
@@ -253,30 +311,29 @@ beam_interp.launches = 0
 
 def beam_interp_reference(slabs, vl, vm, gc0, gc1, wlo, normalize=True):
     """The plain PyTorch version of :func:`beam_interp` (same operands,
-    same order of operations): gathers of the 8 corners."""
+    same order of operations): 8 trilinear weights, slab × (1 − ld or ld)
+    × (1 − md or md), then the 8 corners' gathers added in the kernel's
+    order."""
     nsamp, nrows, ncorr = _interp_args("beam_interp", slabs, vl, vm, gc0, gc1, wlo)
     nud, lw, mh, k3 = slabs.shape
     per = nrows // vl.shape[1]
     l = vl.repeat_interleave(per, dim=1)  # noqa: E741  (nsamp, nrows)
     m = vm.repeat_interleave(per, dim=1)
     lf, mf = torch.floor(l), torch.floor(m)
-    ld, md = (l - lf)[..., None], (m - mf)[..., None]
+    ld, md = l - lf, m - mf
     l0 = lf.long().clamp(0, lw - 1)
     m0 = mf.long().clamp(0, mh - 1)
     l1, m1 = (l0 + 1).clamp(max=lw - 1), (m0 + 1).clamp(max=mh - 1)
-    g0 = gc0.long().clamp(0, nud - 1) * (lw * mh)
-    g1 = gc1.long().clamp(0, nud - 1) * (lw * mh)
-    w0 = wlo[:, None]
-    w1 = 1 - w0
+    wl0, wm0 = 1 - ld, 1 - md
+    q = {(0, 0): wl0 * wm0, (0, 1): wl0 * md, (1, 0): ld * wm0, (1, 1): ld * md}
+    li, mi = (l0, l1), (m0, m1)
     flat = slabs.reshape(-1, k3)
-
-    def blend(li, mi):
-        cell = li * mh + mi
-        return w0 * flat[g0 + cell] + w1 * flat[g1 + cell]
-
-    t0 = (1 - ld) * blend(l0, m0) + ld * blend(l1, m0)
-    t1 = (1 - ld) * blend(l0, m1) + ld * blend(l1, m1)
-    sums = (1 - md) * t0 + md * t1
+    sums = None
+    for g, w in ((gc0, wlo), (gc1, 1 - wlo)):
+        base = g.long().clamp(0, nud - 1) * (lw * mh)
+        for i, j in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            term = (w * q[i, j])[..., None] * flat[base + li[i] * mh + mi[j]]
+            sums = term if sums is None else sums + term
     return _normalise(sums, ncorr) if normalize else sums
 
 

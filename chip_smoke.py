@@ -67,8 +67,9 @@ that each print one line (some several):
    against their plain versions on the card (corr 1/2/4, and 3 and 8 as
    2 + 1 and 4 + 4 launches, × float32 and float64 × normalised and raw ×
    no, linear and circular feeds, ragged sample and channel counts,
-   frequencies outside the cube), corner values exact, and two launches
-   bitwise equal;
+   frequencies outside the cube; beam_interp also on one row),
+   corner values exact (also on the cell-corner layout), and two launches
+   bitwise equal (beam_interp on its three layouts);
 14. config 3 (bench.py:677-875) at full width through BeamDDEChain:
    MeerKAT-64, 4096 channels, 8 sources, 1 time, a 129² × 8 × 4 cube —
    the chan-invariant E·F leg against the bench's float64 oracle, the
@@ -77,8 +78,10 @@ that each print one line (some several):
    (their difference, and the cell route on in-cell samples), each leg's
    launches counted;
 15. beam times: CUDA-graph replays of the three kernels at the legs'
-   shapes with their bounds (beam_interp's on each of its three routes)
-   and the grid_sample yardstick, CUDA-event
+   shapes with their bounds (beam_interp on each of its three routes,
+   held against its plain version, beside an empty kernel and the
+   previous design's recorded times) and the grid_sample yardstick,
+   CUDA-event
    medians of each leg (Msamples/s), one run of each plain version, peak
    device memory and a torch.profiler breakdown of each leg;
 16. gridder kernels vs plain: grid_2d and degrid_2d (supports 4/6/8/10 ×
@@ -163,12 +166,15 @@ FACET_BANDS, FACET_DEC, FACET_OFFSET_DEG = 2, -np.pi / 6, 0.5
 # gridder kernels vs plain, relative to max|out|: f32 sums in another
 # order than index_add_'s and the gather-sum's
 GRIDDER_BOUND = 1e-5
-# the times of the designs that the tile gather and the table map's tile
-# spread replaced (a thread a sample; padded tiles and a fold), on an H100
-# 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's times
+# the times of the designs that the tile gather, the table map's tile
+# spread and beam_interp's 2D grid replaced (a thread a sample or a
+# (sample, row); padded tiles and a fold), on an H100 80GB HBM3 at 700 W
+# (PERF.md §6), printed beside this run's times
 PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms",
                "degrid_wstack": "0.1633-0.1638 ms",
-               "degrid_wstack_large": "3.30-3.31 ms", "degrid_table": "0.0836 ms"}
+               "degrid_wstack_large": "3.30-3.31 ms", "degrid_table": "0.0836 ms",
+               "beam_interp": "general 0.0753, chan-invariant 0.0047-0.0049, "
+                              "cell corners 0.0046-0.0048 ms"}
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 PHASES = 18
@@ -185,13 +191,17 @@ DFT_FWD_INSTR = 220  # per (source, row, channel group of 2)
 ES_INSTR = 20        # per ES tap evaluation (sqrt, exp); 2W per sample
 GRID_TAP_INSTR = 3   # per grid tap (ku*kv, 2 FMAs)
 DEGRID_TAP_INSTR = 2  # per degrid tap (2 FMAs)
-# beam kernels at C = 4 (csrc/beam.cu): per (sample, row) the slab blends
-# of 4 corners, the l and m interpolations and the normalisation; per
+# beam kernels at C = 4 (csrc/beam.cu): per (sample, row) 14 for the 8
+# trilinear weights and 180 for the 8 corners' 12 values (a multiply and an
+# add each, the first corner a multiply), and ~90 for the normalisation (4
+# correctly rounded sqrt and divides) when normalised; per
 # (sample, channel) the blend, normalisation and E·F, and for the cell
-# route the 4 terms' blends and the reconstruction
-BEAM_INTERP_INSTR = 340
-BEAM_BLEND_INSTR = 100
-BEAM_CELL_INSTR = 280
+# route the 4 terms' blends and the reconstruction (uncontracted: 12 and
+# 84 more than with FMAs)
+BEAM_INTERP_INSTR = 285
+BEAM_INTERP_RAW_INSTR = 195
+BEAM_BLEND_INSTR = 112
+BEAM_CELL_INSTR = 364
 
 
 def check(ok, what):
@@ -1239,7 +1249,7 @@ def beam_kernel_checks(device):
         # 3 and 8 correlations: launches of 2 + 1 and 4 + 4
         for ncorr in (*cb.CORRS, 3, 8):
             k = len(cb._groups(ncorr))
-            for nsamp, nchan in ((1000, 300), (37, 5)):
+            for nsamp, nchan in ((1000, 300), (37, 5), (515, 1)):
                 p = beam_problem(rng, nsamp, nchan, ncorr, dtype, device)
                 slabs, nud = p["slabs"], p["slabs"].shape[0]
                 for norm in (True, False):
@@ -1276,23 +1286,70 @@ def beam_kernel_checks(device):
                              False)
         check(torch.equal(raw, slabs.permute(1, 2, 0, 3)[li, mi]),
               f"interp/{prec}: corner values not exact")
+        # and on the cell-corner layout: four integer columns, a row per slab
+        li4, mi4 = li.reshape(125, 4), mi.reshape(125, 4)
+        rows4 = rows.repeat(4)
+        raw = cb.beam_interp(slabs, li4.to(dtype), mi4.to(dtype), rows4, rows4,
+                             torch.ones(4 * nud, dtype=dtype, device=device), False)
+        want = slabs.permute(1, 2, 0, 3)[li4.repeat_interleave(nud, 1),
+                                         mi4.repeat_interleave(nud, 1), rows4]
+        check(torch.equal(raw, want), f"interp/{prec}: cell-corner layout not exact")
 
-    # two launches give bitwise-equal outputs (config 3's shapes)
+    # two launches give bitwise-equal outputs (config 3's shapes; interp on
+    # its three layouts)
     p = beam_problem(rng, 512, 4096, 4, torch.float32, device, lw=129, mh=129)
     feed = feed_rotation(p["pa"], "linear").contiguous()
+    rows = torch.arange(8, dtype=torch.int32, device=device)
+    ones = torch.ones(32, dtype=torch.float32, device=device)
     for fn, args in ((cb.beam_interp, (p["slabs"], p["vl"], p["vm"], p["gc0"],
                                        p["gc1"], p["wlo"], True)),
+                     (cb.beam_interp, (p["slabs"], p["vl"][:, :1].contiguous(),
+                                       p["vm"][:, :1].contiguous(), rows, rows,
+                                       ones[:8], False)),
+                     (cb.beam_interp, (p["slabs"], p["vl"][:, :4].contiguous(),
+                                       p["vm"][:, :4].contiguous(), rows.repeat(4),
+                                       rows.repeat(4), ones, False)),
                      (cb.beam_blend, (p["raw"], p["gc0"], p["wlo"], feed)),
                      (cb.beam_blend_cell, (p["bt"], p["lda"], p["mda"], p["gc0"],
                                            p["wlo"], feed))):
         check(torch.equal(fn(*args), fn(*args)), f"{fn.__name__} is not deterministic")
     print(f"[13/{PHASES}] beam kernels vs plain on the card ({cases} problems: "
           "C 1/2/4 and 3/8 (2 + 1 and 4 + 4 launches) x f32/f64 x (1000 samples "
-          "x 300 chan, 37 x 5), interp "
+          "x 300 chan, 37 x 5, 515 x 1), interp "
           "normalised, raw and on shared columns, blend and blend_cell with no, "
           "linear and circular feeds, out-of-cube frequencies; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + "; corners exact; deterministic (512 x 4096, 129² cube)", flush=True)
+          + "; corners exact (also on the cell-corner layout); deterministic "
+          "(512 x 4096, 129² cube; interp on its three layouts)", flush=True)
+
+
+def interp_bound(ops, out):
+    """beam_interp's bound at a route's own operands ``ops`` and output
+    ``out``: the bytes of the coordinates, the row tables, the output and
+    the (slab, cell) pairs that the samples' values depend on (nonzero
+    weight), read once; BEAM_INTERP_INSTR (normalised) or
+    BEAM_INTERP_RAW_INSTR per (sample, row)."""
+    import torch
+
+    slabs, vl, vm, gc0, gc1, wlo, normalize = ops
+    nud, lw, mh, k3 = slabs.shape
+    per = gc0.shape[0] // vl.shape[1]
+    l, m = vl.repeat_interleave(per, 1), vm.repeat_interleave(per, 1)
+    ld, md = l - torch.floor(l), m - torch.floor(m)
+    l0 = torch.floor(l).long().clamp(0, lw - 1)
+    m0 = torch.floor(m).long().clamp(0, mh - 1)
+    cells = []
+    for g, w in ((gc0, wlo), (gc1, 1 - wlo)):
+        slab = g.long().clamp(0, nud - 1) * (lw * mh)
+        for dl, wl in ((0, 1 - ld), (1, ld)):
+            for dm, wm in ((0, 1 - md), (1, md)):
+                key = (slab + (l0 + dl).clamp(max=lw - 1) * mh
+                       + (m0 + dm).clamp(max=mh - 1))
+                cells.append(key.expand_as(l)[(w * wl * wm) != 0])
+    ncells = torch.unique(torch.cat(cells)).numel()
+    moved = nbytes(vl, vm, gc0, gc1, wlo, out) + ncells * k3 * slabs.element_size()
+    instr = BEAM_INTERP_INSTR if normalize else BEAM_INTERP_RAW_INSTR
+    return bound(moved, out.shape[0] * out.shape[1] * instr)
 
 
 def beam_chain(device, card):
@@ -1413,7 +1470,8 @@ def beam_chain(device, card):
         scale = float(want.abs().max())
         check(max_abs <= BEAM_BOUND * scale,
               f"{name} vs plain at config 3: {max_abs:.3e} > 1e-5 x {scale:.3e}")
-        ms = kernel_median_ms(lambda: fn(*ops))
+        # beam_interp's time and bound: below, on each of its routes
+        ms = None if name == "beam_interp" else kernel_median_ms(lambda: fn(*ops))
         times[name] = (ms, plain_ms, max_abs, scale)
         entries.append({
             "name": name, "route": "cuda",
@@ -1425,18 +1483,26 @@ def beam_chain(device, card):
             "plain_ms": plain_ms, **bound(nbytes(_tensors(ops), got), instr),
             "library_ms": None})
         del got, want
-    fast_interp_ms = kernel_median_ms(lambda: cb.beam_interp(*fast_ops["beam_interp"]))
-    cell_interp_ms = kernel_median_ms(lambda: cb.beam_interp(*cell_ops["beam_interp"]))
-
-    def interp_bound(ops):
-        """beam_interp's bound at a route's own shapes: its operands and
-        raw sums, BEAM_INTERP_INSTR per (sample, row)."""
-        out = cb.beam_interp(*ops)
-        return bound(nbytes(_tensors(ops), out),
-                     out.shape[0] * out.shape[1] * BEAM_INTERP_INSTR)
-
-    fast_interp_bound = interp_bound(fast_ops["beam_interp"])
-    cell_interp_bound = interp_bound(cell_ops["beam_interp"])
+    # beam_interp on its three routes: against the plain version, its time
+    # and its bound
+    routes = {"general": gen_ops["beam_interp"],
+              "chan-invariant": fast_ops["beam_interp"],
+              "cell corners": cell_ops["beam_interp"]}
+    interp = {}
+    for route, ops in routes.items():
+        got = cb.beam_interp(*ops)
+        want = cb.beam_interp_reference(*ops)
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= BEAM_BOUND, f"beam_interp {route} vs plain: {err:.3e}")
+        lay = cb.interp_layout(got.shape[0], got.shape[1], ops[6],
+                               cb._sm_count(got.device.index))
+        interp[route] = {"ms": kernel_median_ms(lambda: cb.beam_interp(*ops)),
+                         "err": err, "bound": interp_bound(ops, got),
+                         "blocks": lay.blocks[0] * lay.blocks[1]}
+        del got, want
+    empty_ms = kernel_median_ms(lambda: torch.cuda._sleep(0))
+    times["beam_interp"] = (interp["general"]["ms"],) + times["beam_interp"][1:]
+    entries[0].update(ms=interp["general"]["ms"], **interp["general"]["bound"])
 
     # the library yardstick of beam_interp: grid_sample's trilinear
     # interpolation of the (1, 3C, nud, mh, lw) volume at the general
@@ -1471,12 +1537,13 @@ def beam_chain(device, card):
     print(f"[15/{PHASES}] beam times on {card}: legs (CUDA-event medians) "
           + ", ".join(f"{k} {v:.3f} ms = {nsamp / v / 1e3:.1f} Msamples/s"
                       for k, v in leg_ms.items())
-          + f"; kernels (CUDA graph of {BURST}): beam_interp general "
-          f"{times['beam_interp'][0]:.4f} ms (bound {entries[0]['bound_ms']:.4f}), "
-          f"chan-invariant {fast_interp_ms:.4f} ms (bound "
-          f"{fast_interp_bound['bound_ms']:.4f}, {fast_interp_bound['bound_by']}), cell "
-          f"corners {cell_interp_ms:.4f} ms (bound {cell_interp_bound['bound_ms']:.4f}, "
-          f"{cell_interp_bound['bound_by']}); beam_blend {times['beam_blend'][0]:.4f} ms (bound "
+          + f"; kernels (CUDA graph of {BURST}): beam_interp "
+          + ", ".join(f"{r} {v['ms']:.4f} ms (bound {v['bound']['bound_ms']:.4f}, "
+                      f"{v['bound']['bound_by']}; {v['blocks']} blocks; vs plain "
+                      f"{v['err']:.1e})" for r, v in interp.items())
+          + f"; empty kernel {empty_ms:.4f} ms (the previous design's: "
+          f"{PREVIOUS_MS['beam_interp']})"
+          + f"; beam_blend {times['beam_blend'][0]:.4f} ms (bound "
           f"{entries[1]['bound_ms']:.4f}); beam_blend_cell "
           f"{times['beam_blend_cell'][0]:.4f} ms (bound {entries[2]['bound_ms']:.4f}); "
           f"grid_sample {library_ms:.4f} ms (vs raw interp {lib_err:.1e}); plain "

@@ -431,6 +431,65 @@ def test_beam_interp_corners_are_exact(device, dtype):
     assert torch.equal(raw, slabs.permute(1, 2, 0, 3)[li, mi])
 
 
+def _interp_operands(p, layout, normalize, device):
+    """beam_interp's operands on one of its three layouts: the general
+    route (a coordinate column per channel), the channel-invariant route
+    (one column, a row per slab) and the cell corners (four columns, a
+    row per slab)."""
+    slabs, nud = p["slabs"], p["slabs"].shape[0]
+    if layout == "general":
+        return (slabs, p["vl"], p["vm"], p["gc0"], p["gc1"], p["wlo"], normalize)
+    ncol = 1 if layout == "chan_invariant" else 4
+    rows = torch.arange(nud, dtype=torch.int32, device=device).repeat(ncol)
+    return (slabs, p["vl"][:, :ncol].contiguous(), p["vm"][:, :ncol].contiguous(),
+            rows, rows, torch.ones(rows.shape[0], dtype=slabs.dtype, device=device),
+            normalize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["general", "chan_invariant", "cell_corners"])
+@pytest.mark.parametrize("ncorr", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_beam_interp_layouts_match_plain(device, layout, ncorr, dtype):
+    """beam_interp on each of its layouts against the plain version, at
+    ragged shapes (515 samples: not a multiple of a sample group; 257
+    channels: one past a row tile; one channel), normalised and raw, and
+    two launches bitwise equal."""
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    ngroups = len(cb._groups(ncorr))
+    for nsamp, nchan in ((515, 257), (3, 1)):
+        p = beam_problem(np.random.default_rng(nsamp + ncorr), nsamp, nchan, ncorr,
+                         dtype, device)
+        for normalize in (True, False):
+            args = _interp_operands(p, layout, normalize, device)
+            before = cb.beam_interp.launches
+            got = cb.beam_interp(*args)
+            torch.cuda.synchronize()
+            assert cb.beam_interp.launches == before + ngroups
+            want = cb.beam_interp_reference(*args)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            _assert_close(got, want, bound)
+            assert torch.equal(cb.beam_interp(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_beam_interp_cell_corner_layout_is_exact(device, dtype):
+    """Integer coordinates on the cell-corner layout (four columns, a row
+    per slab) give the corner values bit for bit, |v| lanes included."""
+    rng = np.random.default_rng(5)
+    p = beam_problem(rng, 8, 4, 4, dtype, device)
+    slabs, nud = p["slabs"], p["slabs"].shape[0]
+    li = torch.as_tensor(rng.integers(0, 17, (300, 4)), device=device)
+    mi = torch.as_tensor(rng.integers(0, 13, (300, 4)), device=device)
+    rows = torch.arange(nud, dtype=torch.int32, device=device).repeat(4)
+    raw = cb.beam_interp(slabs, li.to(dtype), mi.to(dtype), rows, rows,
+                         torch.ones(4 * nud, dtype=dtype, device=device), False)
+    want = slabs.permute(1, 2, 0, 3)[li.repeat_interleave(nud, 1),
+                                     mi.repeat_interleave(nud, 1), rows]
+    assert torch.equal(raw, want)
+
+
 @pytest.mark.cuda
 def test_beam_kernels_are_deterministic(device):
     p = beam_problem(np.random.default_rng(4), 256, 2048, 4, torch.float32, device,
