@@ -13,8 +13,11 @@ where the JAX package used split re/im pairs), with an explicit
 ``device`` wherever they create tensors.
 
 Layout (ported: the flagship predict, selfcal, w-stacked imaging, the
-beam DDE chain)
+beam DDE chain, the gridders, the averagers, the fused RIME)
 ------
+- ``averaging``    — time-and-channel and baseline-dependent averaging:
+                     host mappers, fixed-order segmented sums on the
+                     data's device
 - ``calibration``  — gain corruption/correction, the phase-only
                      Gauss-Newton solver, the selfcal step module
 - ``constants``    — physical constants
@@ -25,6 +28,7 @@ beam DDE chain)
                      model, residual, hessian, WStackImaging), cell sizes
 - ``model``        — spectral model, Stokes ↔ correlation conversion,
                      gaussian shape
+- ``native``       — the averaging mappers' C++ cores (g++, ctypes)
 - ``ops``          — two-float arithmetic, 2×2 Jones products, the ES
                      kernel, the fused K×env×B predict kernel
                      (``cuda_predict``), the DFT kernels (``cuda_dft``),
@@ -32,8 +36,10 @@ beam DDE chain)
                      the beam-cube kernels (``cuda_beam``)
 - ``rime``         — phase delay, predict_vis, the flagship predict module,
                      beam cube DDEs, feed rotation, source transforms,
-                     parallactic angles, the config-3 beam chain module
-- ``testing``      — FITS beam-cube factory
+                     parallactic angles, the config-3 beam chain module,
+                     the fused RIME (``rime.fused``: specification, terms,
+                     transformers, ``rime``)
+- ``testing``      — FITS beam-cube factory, seeded averaging inputs
 - ``utils``        — CASA Stokes enumerations, dtype helpers, plan caches,
                      FITS IO, beam headers, astrometry
 """

@@ -23,8 +23,9 @@ import torch
 
 __all__ = [
     "split", "two_sum", "quick_two_sum", "two_prod",
-    "df_add", "df_mul", "df_div", "df_sqrt",
-    "df_const", "n_minus_one_df", "reduce_cycles", "frac_cycles",
+    "df_add", "df_mul", "df_neg", "df_div", "df_sqrt", "df_dot3",
+    "compensated_sum", "df_const", "n_minus_one_df", "reduce_cycles",
+    "frac_cycles",
 ]
 
 # Dekker split factor for f32 (24-bit significand): 2^12 + 1
@@ -72,7 +73,8 @@ def df_mul(x, y):
     return quick_two_sum(p, e + (x[0] * y[1] + x[1] * y[0]))
 
 
-def _neg(x):
+def df_neg(x):
+    """−(hi, lo)."""
     return (-x[0], -x[1])
 
 
@@ -110,6 +112,36 @@ def df_const(value, dtype=torch.float32, device=None):
             torch.tensor(float(lo), dtype=dtype, device=device))
 
 
+def df_dot3(a0, b0, a1, b1, a2, b2):
+    """a0·b0 + a1·b1 + a2·b2 as a normalized (hi, lo) pair."""
+    return df_add(df_add(two_prod(a0, b0), two_prod(a1, b1)),
+                  two_prod(a2, b2))
+
+
+def compensated_sum(x, axis=0):
+    """Sum along ``axis`` via a double-float pairwise tree.
+
+    Each tree level halves the axis with :func:`df_add` (error-free
+    two_sum plus carried low words), so rounding error stays O(eps)
+    independent of length — the parallel-friendly equivalent of the
+    reference fused kernel's sequential Kahan accumulation (reference
+    experimental/rime/fused/core.py:97-118). Odd levels pad with an exact
+    zero; an empty axis sums to zero. Returns the (hi + lo) collapsed
+    result. Eager ops only: a compiler that contracted or reassociated
+    the chain would lose the compensation.
+    """
+    x = torch.movedim(torch.as_tensor(x), axis, 0)
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    hi, lo = x, torch.zeros_like(x)
+    while hi.shape[0] > 1:
+        if hi.shape[0] % 2:
+            pad = torch.zeros((1,) + hi.shape[1:], dtype=x.dtype, device=x.device)
+            hi, lo = torch.cat([hi, pad]), torch.cat([lo, pad])
+        hi, lo = df_add((hi[0::2], lo[0::2]), (hi[1::2], lo[1::2]))
+    return hi[0] + lo[0]
+
+
 def n_minus_one_df(l, m):  # noqa: E741
     """n − 1 = −(l²+m²)/(1+sqrt(1−l²−m²)) as a (hi, lo) pair.
 
@@ -117,12 +149,12 @@ def n_minus_one_df(l, m):  # noqa: E741
     """
     s = df_add(two_prod(l, l), two_prod(m, m))
     one = (torch.ones_like(s[0]), torch.zeros_like(s[0]))
-    d = df_add(one, _neg(s))
+    d = df_add(one, df_neg(s))
     clip = d[0] < 0.0
     zero = torch.zeros_like(d[0])
     d = (torch.where(clip, zero, d[0]), torch.where(clip, zero, d[1]))
     y = df_sqrt(d)
-    n1 = _neg(df_div(s, df_add(one, y)))
+    n1 = df_neg(df_div(s, df_add(one, y)))
     return (torch.where(clip, -torch.ones_like(zero), n1[0]),
             torch.where(clip, zero, n1[1]))
 

@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's six paths — the flagship RIME predict at a MeerKAT-64
+Drives the port's eight paths — the flagship RIME predict at a MeerKAT-64
 full-band size, one config-5 selfcal step at SKA-mid width, config-4
-w-stacked imaging, the config-3 beam DDE chain, the nifty-API gridder and
-the Perley-polyhedron facet gridder — and checks them, in eighteen phases
-that each print one line (some several):
+w-stacked imaging, the config-3 beam DDE chain, the nifty-API gridder,
+the Perley-polyhedron facet gridder, the averagers (BDA and
+time-and-channel) and the fused RIME — and checks them, in twenty-one
+phases that each print one line (some several):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu,
-   csrc/beam.cu, csrc/grid2d.cu and csrc/gridtab.cu with nvcc into build/
-   (first use), all at once;
+   csrc/beam.cu, csrc/grid2d.cu and csrc/gridtab.cu with nvcc, and the
+   averaging mappers' native/mappers.cpp with g++, into build/ (first
+   use), all at once;
 3. predict kernel vs plain: predict_kb against its plain PyTorch version
    on the card (four modes × corr 1/2/4 at a ragged shape), and against
    a float64 oracle at 1e4 rad phases;
@@ -109,7 +111,26 @@ that each print one line (some several):
    their bounds and the previous designs' times, CUDA-event medians of
    nifty grid + dirty and model + degrid and of the PP gridder and
    degridder (Mvis/s), one run of each plain version, peak device memory
-   and a torch.profiler breakdown of each.
+   and a torch.profiler breakdown of each;
+19. the averagers: the C++ binner must have loaded; bda and time_and_channel (16 s × 4 channels) at the bench cell
+   (bench.py:1018-1038: 300 baselines × 60 dumps, 64 channels, 4
+   correlations, fixed uvw, visibilities on the card) against the same
+   calls on the CPU and two card runs bitwise equal; at MeerKAT-64 1K
+   (2016 baselines × 16 dumps of 8 s with Earth rotation, 1024 channels,
+   4 correlations, weight and sigma spectra, 2% of rows flagged) the
+   mapper and the CSR tables timed cold, each call's peak allocation above
+   its resident inputs (≤ 4× their bytes), two runs bitwise equal, the
+   preserved weighted totals, and a 256-baseline subset against the CPU;
+20. the fused RIME at the flagship's chunk (8064 rows × 4096 channels × 4
+   correlations, 100 gaussian sources): (Kpq, Gpq, Bpq) in source blocks
+   sized from a memory probe (peak under 40 GB) against the float64 oracle
+   on windows; [Ep, (Kpq, Gpq, Bpq), Eq] on config 3's cube with its
+   beam_interp and beam_blend launches counted (two of each per block), a
+   window against the CPU, and two block sizes against each other;
+21. slice times: CUDA-event and host-clock medians of both averagers at
+   both cells (Mvis/s), the mapper's and the tables' cold seconds, the
+   fused RIME per chunk (Mvis/s), peak device memory and a
+   torch.profiler breakdown of each.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -177,7 +198,7 @@ PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"
                               "cell corners 0.0046-0.0048 ms"}
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
-PHASES = 18
+PHASES = 21
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
 # over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
@@ -1981,6 +2002,388 @@ def gridders(device, card):
     return entries
 
 
+# phase 19: the averagers. The bench cell (bench.py:1018-1038, drawn
+# from SEED) and MeerKAT-64 in 1K mode (64 antennas in a 4 km box, 2016
+# baselines, 16 dumps of 8 s with Earth rotation, 1024 channels, 4
+# correlations, 2% of the rows flagged); bda at decorrelation 0.98 and
+# max_fov 3°, time_and_channel at 16 s × 4 channels
+AVG_TC = dict(time_bin_secs=16.0, chan_bin_size=4)
+MEERKAT = dict(nant=64, ntime=16, dump=8.0, nchan=1024, ncorr=4, seed=19)
+AVG_SUBSET_BL = 256
+# card vs CPU, relative to max, float32: each bin summed in another order
+AVG_BOUND = 1e-6
+# a call's peak allocation above its resident inputs, in the inputs' bytes
+AVG_MEMORY_FACTOR = 4
+AVG_DATA = ("visibilities", "flag", "weight_spectrum", "sigma_spectrum")
+AVG_META = ("time", "interval", "antenna1", "antenna2", "uvw", "chan_freq",
+            "chan_width", "flag_row")
+# phase 20: the fused RIME at the flagship's MeerKAT-64 chunk (the draws
+# of flagship_inputs(100, 4, 64, 4096, SEED)), and config 3's cube
+FUSED = dict(nsrc=NSRC, ntime=NTIME, nant=NANT, nchan=NCHAN)
+KGB_SPEC = "(Kpq, Gpq, Bpq): [I,Q,U,V] -> [XX,XY,YX,YY]"
+E_SPEC = "[Ep, (Kpq, Gpq, Bpq), Eq]: [I,Q,U,V] -> [XX,XY,YX,YY]"
+FUSED_SOURCE_ARGS = ("lm", "stokes", "spi", "ref_freq", "gauss_shape")
+FUSED_BOUND = 5e-6  # the flagship's bar against float64 (PERF.md §2)
+FUSED_E_BOUND = 1e-5  # the E chain on the card against the CPU
+FUSED_BLOCKS_BOUND = 1e-6  # two block sizes
+FUSED_MEMORY = 40 * 2**30  # the phase's peak device memory
+FUSED_WINDOW = (256, 16)  # rows × channels held against a reference
+
+
+def _avg_calls(o, data):
+    """{"bda": fn, "time_and_channel": fn}: the two averagers on the
+    numpy metadata of ``o`` and the data tensors ``data``."""
+    from africanus_tpu_torch.averaging import bda, time_and_channel
+
+    meta = {k: o[k] for k in AVG_META if k in o}
+    return {"bda": lambda: bda(**meta, **data, decorrelation=o["decorrelation"],
+                               max_fov=o.get("max_fov", 3.0)),
+            "time_and_channel": lambda: time_and_channel(**meta, **data, **AVG_TC)}
+
+
+def _avg_tensors(out):
+    return {k: v for k, v in out._asdict().items() if hasattr(v, "numel")}
+
+
+def _avg_equal(a, b):
+    ta, tb = _avg_tensors(a), _avg_tensors(b)
+    return ta.keys() == tb.keys() and all(
+        ta[k].dtype == tb[k].dtype and bool((ta[k] == tb[k].to(ta[k].device)).all())
+        for k in ta)
+
+
+def _avg_err(got, want):
+    """The largest error of ``got``'s tensors against ``want``'s (CPU),
+    relative to each field's max; bool and integer fields must be equal."""
+    import torch
+
+    worst = 0.0
+    for k, g in _avg_tensors(got).items():
+        w = _avg_tensors(want)[k]
+        g = g.cpu()
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{k}: {g.shape} {g.dtype}")
+        if not (g.is_floating_point() or g.is_complex()):
+            check(torch.equal(g, w), f"{k}: card and CPU differ")
+            continue
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        if scale:
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def _avg_totals(out, data):
+    """The preserved weighted totals (tests/test_bda.py:83): over the
+    unflagged samples, Σ w and Σ w·v of the inputs against the outputs'
+    Σ w and Σ w·v̄, each relative to its scale."""
+    import torch
+
+    keep_in, keep_out = ~data["flag"], ~out.flag
+    w_in = data["weight_spectrum"].double()
+    w_out = out.weight_spectrum.double()
+    wsum = float(w_in[keep_in].sum())
+    werr = abs(float(w_out[keep_out].sum()) - wsum) / wsum
+    vw_in = (data["visibilities"].to(torch.complex128) * w_in)[keep_in]
+    vw_out = (out.visibilities.to(torch.complex128) * w_out)[keep_out]
+    scale = float(vw_in.abs().sum())
+    verr = float((vw_out.sum() - vw_in.sum()).abs()) / scale
+    return werr, verr
+
+
+def averaging(device, card):
+    """Phase 19: bda and time_and_channel at the bench cell and at
+    MeerKAT-64 1K, on the card against the CPU. Returns phase 21's state:
+    the calls of both cells and the host timings."""
+    import torch
+    from africanus_tpu_torch import native
+    from africanus_tpu_torch.averaging import bda_avg, row_mapper
+    from africanus_tpu_torch.averaging.bda_mapping import bda_mapper
+    from africanus_tpu_torch.averaging.time_and_channel_avg import (
+        _TABLE_CACHE, _flat_segments, _map_segments,
+    )
+    from africanus_tpu_torch.averaging.time_and_channel_mapping import channel_mapper
+    from africanus_tpu_torch.testing.averaging import bench_bda_inputs, meerkat_inputs
+
+    # no phase may run the numpy binner in the C++ binner's place
+    check(native.available(), f"the native binner did not load: {native.load_error()}")
+
+    def on(o, dev):
+        return {k: torch.as_tensor(o[k], device=dev) for k in AVG_DATA if k in o}
+
+    # (a) the bench cell: the card against the CPU, two card runs bitwise
+    ob = bench_bda_inputs(SEED)
+    bench = _avg_calls(ob, on(ob, device))
+    bench_err = {}
+    for name, fn in bench.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        check(_avg_equal(a, b), f"bench cell {name}: two card runs differ")
+        bench_err[name] = _avg_err(a, _avg_calls(ob, on(ob, "cpu"))[name]())
+        check(bench_err[name] <= AVG_BOUND,
+              f"bench cell {name} card vs CPU {bench_err[name]:.2e}")
+    nvis_bench = ob["visibilities"].size
+
+    # (b) MeerKAT-64 1K: the mapper and the tables timed alone, cold
+    t0 = time.perf_counter()
+    om = meerkat_inputs(**MEERKAT)
+    draw_s = time.perf_counter() - t0
+    data = on(om, device)
+    torch.cuda.synchronize()
+    in_bytes = nbytes(*data.values())
+    meerkat = _avg_calls(om, data)
+    t0 = time.perf_counter()
+    meta = bda_mapper(om["time"], om["interval"], om["antenna1"], om["antenna2"],
+                      om["uvw"], om["chan_width"], om["chan_freq"], None,
+                      flag_row=om["flag_row"], max_fov=om["max_fov"],
+                      decorrelation=om["decorrelation"])
+    bda_map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tbl = bda_avg._tables(meta, device)
+    torch.cuda.synchronize()
+    bda_csr_s = time.perf_counter() - t0
+    rc = tbl.row_chans
+    nin, nout = meta.map.size, meta.time.shape[0]
+    lengths = rc.lengths.cpu().numpy()
+    largest, median = int(lengths.max()), float(np.median(lengths))
+    check(rc.nin + rc.nout == nin + nout, f"CSR holds {rc.nin + rc.nout} entries")
+    t0 = time.perf_counter()
+    row_meta = row_mapper(om["time"], om["interval"], om["antenna1"], om["antenna2"],
+                          flag_row=om["flag_row"], time_bin_secs=AVG_TC["time_bin_secs"])
+    tc_map_s = time.perf_counter() - t0
+    chan_map, out_chans = channel_mapper(MEERKAT["nchan"], AVG_TC["chan_bin_size"])
+    t0 = time.perf_counter()
+    _map_segments(row_meta.map, row_meta.time.shape[0], device)
+    _flat_segments(row_meta.map, row_meta.time.shape[0], chan_map, out_chans, device)
+    torch.cuda.synchronize()
+    tc_csr_s = time.perf_counter() - t0
+    del tbl, rc
+
+    # each call's first run, its tables built inside it: the peak above
+    # the resident inputs; a second run bitwise equal; the totals
+    peaks, totals, outs = {}, {}, {}
+    for name, fn in meerkat.items():
+        bda_avg._TABLE_CACHE.clear()
+        _TABLE_CACHE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        check(peaks[name] <= AVG_MEMORY_FACTOR * in_bytes,
+              f"MeerKAT {name}: peak {peaks[name] / 2**30:.2f} GiB above the inputs' "
+              f"{in_bytes / 2**30:.2f} GiB")
+        check(_avg_equal(out, fn()), f"MeerKAT {name}: two card runs differ")
+        totals[name] = _avg_totals(out, data)
+        check(max(totals[name]) <= AVG_BOUND, f"MeerKAT {name} totals {totals[name]}")
+        outs[name] = tuple(out.visibilities.shape)
+        del out
+
+    # a 256-baseline subset on the card against the CPU
+    bl = om["antenna1"].astype(np.int64) * MEERKAT["nant"] + om["antenna2"]
+    rows = np.isin(bl, np.unique(bl)[:AVG_SUBSET_BL])
+    sub = {k: (v[rows] if isinstance(v, np.ndarray) and v.shape[:1] == rows.shape
+               else v) for k, v in om.items()}
+    rows_t = torch.as_tensor(np.flatnonzero(rows), device=device)
+    sub_card = {k: v.index_select(0, rows_t) for k, v in data.items()}
+    sub_cpu = {k: v.cpu() for k, v in sub_card.items()}
+    subset_err = {}
+    for name in meerkat:
+        got = _avg_calls(sub, sub_card)[name]()
+        subset_err[name] = _avg_err(got, _avg_calls(sub, sub_cpu)[name]())
+        check(subset_err[name] <= AVG_BOUND,
+              f"MeerKAT {name} subset card vs CPU {subset_err[name]:.2e}")
+    del sub_card, sub_cpu
+
+    nvis = om["visibilities"].size
+    print(f"[19/{PHASES}] averaging: native binner {native.library_path().name}; "
+          f"bench cell (300 bl x 60 dumps, 64 chan, 4 corr = {nvis_bench} vis) card vs "
+          "CPU " + ", ".join(f"{k} {v:.2e}" for k, v in bench_err.items())
+          + f" (bound {AVG_BOUND}), two runs bitwise equal; MeerKAT-64 1K "
+          f"({len(om['time'])} rows x {MEERKAT['nchan']} chan x {MEERKAT['ncorr']} corr "
+          f"= {nvis} vis, {int(om['flag_row'].sum())} rows flagged; draws "
+          f"{draw_s:.1f} s): bda {nin} inputs -> {nout} outputs, largest bin "
+          f"{largest} (median {median:g}; a padded (outputs x largest bin) table "
+          f"would hold {nout * largest / nin:.0f}x the inputs), CSR {nin + nout} "
+          f"entries; outputs " + ", ".join(f"{k} {v}" for k, v in outs.items())
+          + "; peak above the inputs' "
+          f"{in_bytes / 2**30:.2f} GiB: " + ", ".join(
+              f"{k} {v / 2**30:.2f} GiB ({v / in_bytes:.2f}x)" for k, v in peaks.items())
+          + f" (bound {AVG_MEMORY_FACTOR}x); two runs bitwise equal; totals (w, w.v) "
+          + ", ".join(f"{k} {w:.1e} {v:.1e}" for k, (w, v) in totals.items())
+          + f"; {AVG_SUBSET_BL}-baseline subset card vs CPU "
+          + ", ".join(f"{k} {v:.2e}" for k, v in subset_err.items()), flush=True)
+    return {"cells": {"bench": (bench, nvis_bench), "meerkat": (meerkat, nvis)},
+            "host_s": {"bda mapper": bda_map_s, "bda CSR": bda_csr_s,
+                       "tc mapper": tc_map_s, "tc CSR": tc_csr_s}}
+
+
+def _peak_of(fn):
+    """(result, peak device bytes above the allocation before ``fn()``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _source_block(spec, tensors, nsrc):
+    """The largest source block whose evaluation keeps the device within
+    60% of FUSED_MEMORY: a block costs ``fixed + per · block`` bytes above
+    the resident state, read from evaluations of blocks of two and four
+    sources (one source's evaluation makes some temporaries of another
+    shape). The linear estimate runs low at large blocks, hence the
+    margin; the phase checks the measured peak."""
+    import torch
+    from africanus_tpu_torch.rime.fused import rime
+
+    def first(n):
+        return {k: (v[:n] if k in FUSED_SOURCE_ARGS else v) for k, v in tensors.items()}
+
+    _, p2 = _peak_of(lambda: rime(spec, **first(2), source_block=2))
+    _, p4 = _peak_of(lambda: rime(spec, **first(4), source_block=4))
+    per = max((p4 - p2) / 2, 1)
+    room = 0.6 * FUSED_MEMORY - torch.cuda.memory_allocated() - (p2 - 2 * per)
+    return int(min(max(room // per, 1), nsrc)), per
+
+
+def fused(device, card):
+    """Phase 20: the fused RIME at the flagship's chunk, KGB against the
+    float64 oracle, the E chain against the CPU, its beam launches
+    counted. Returns phase 21's state."""
+    import torch
+    from africanus_tpu_torch.rime.fused import rime
+    from africanus_tpu_torch.rime.fused.inputs import (
+        from_numpy, fused_inputs, fused_oracle_f64,
+    )
+
+    nant = FUSED["nant"]
+    nrow, nchan = FUSED["ntime"] * nant * (nant - 1) // 2, FUSED["nchan"]
+    wr, wc = FUSED_WINDOW
+    runs = {}
+    # KGB: the source block from the memory probe, windows vs float64
+    args = fused_inputs(**FUSED, seed=SEED)
+    t = from_numpy(args, device)
+    block, per = _source_block(KGB_SPEC, t, FUSED["nsrc"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vis = rime(KGB_SPEC, **t, source_block=block)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < FUSED_MEMORY, f"KGB peak {peak / 2**30:.2f} GiB")
+    check(tuple(vis.shape) == (nrow, nchan, 4) and vis.dtype == torch.complex64,
+          f"KGB {tuple(vis.shape)} {vis.dtype}")
+    check(bool(torch.isfinite(torch.view_as_real(vis)).all()), "KGB non-finite")
+    kgb_err = 0.0
+    for r0, c0 in ((0, 0), ((nrow - wr) // 2, (nchan - wc) // 2), (nrow - wr, nchan - wc)):
+        want = fused_oracle_f64(args, slice(r0, r0 + wr), slice(c0, c0 + wc))
+        kgb_err = max(kgb_err, rel_err(vis[r0:r0 + wr, c0:c0 + wc].cpu().numpy(), want))
+    check(kgb_err <= FUSED_BOUND, f"KGB vs float64 oracle {kgb_err:.3e}")
+    del vis
+    runs["KGB"] = dict(block=block, per=per, peak=peak, first_s=first_s,
+                       fn=lambda: rime(KGB_SPEC, **t, source_block=block))
+
+    # the E chain on config 3's cube: launches, a window vs the CPU, two
+    # block sizes
+    eargs = fused_inputs(**FUSED, seed=SEED, beam_seed=BEAM["seed"])
+    te = from_numpy(eargs, device)
+    eblock, eper = _source_block(E_SPEC, te, FUSED["nsrc"])
+    nblocks = -(-FUSED["nsrc"] // eblock)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_beam_counts()
+    t0 = time.perf_counter()
+    evis = rime(E_SPEC, **te, source_block=eblock)
+    torch.cuda.synchronize()
+    efirst_s = time.perf_counter() - t0
+    counts = _beam_counts()
+    epeak = torch.cuda.max_memory_allocated()
+    check(counts == {"beam_interp": 2 * nblocks, "beam_blend": 2 * nblocks,
+                     "beam_blend_cell": 0}, f"E chain launches {counts}, "
+          f"{nblocks} blocks")
+    check(epeak < FUSED_MEMORY, f"E chain peak {epeak / 2**30:.2f} GiB")
+    check(bool(torch.isfinite(torch.view_as_real(evis)).all()), "E chain non-finite")
+    # the window: the first wr rows (time 0, every antenna) and wc
+    # channels mid-band, evaluated on the CPU from the same draws
+    c0 = nchan // 2 - 8
+    rows, chans = slice(0, wr), slice(c0, c0 + wc)
+    wargs = dict(eargs, chan_freq=eargs["chan_freq"][chans],
+                 beam_parangle=eargs["beam_parangle"][:1],
+                 **{k: eargs[k][rows] for k in ("time", "antenna1", "antenna2",
+                                                 "feed1", "feed2", "uvw")})
+    check(np.unique(np.concatenate([wargs["antenna1"], wargs["antenna2"]])).size == nant,
+          "the E window misses an antenna")
+    want = rime(E_SPEC, **from_numpy(wargs, "cpu"), source_block=eblock)
+    e_err = rel_err(evis[rows, chans].cpu().numpy(), want.numpy())
+    check(e_err <= FUSED_E_BOUND, f"E chain card vs CPU {e_err:.3e}")
+    eblock2 = max(eblock // 2, 1) if eblock > 1 else 2
+    evis2 = rime(E_SPEC, **te, source_block=eblock2)
+    blocks_err = float((evis2 - evis).abs().max() / evis.abs().max())
+    check(blocks_err <= FUSED_BLOCKS_BOUND,
+          f"E chain blocks {eblock} vs {eblock2}: {blocks_err:.3e}")
+    del evis, evis2
+    runs["E"] = dict(block=eblock, per=eper, peak=epeak, first_s=efirst_s,
+                     fn=lambda: rime(E_SPEC, **te, source_block=eblock))
+    print(f"[20/{PHASES}] fused RIME: {nrow} rows x {nchan} chan x 4 corr, "
+          f"{FUSED['nsrc']} gaussian sources; {KGB_SPEC!r}: source block {block} "
+          f"({per / 2**30:.2f} GiB a source), first call {first_s:.2f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, 3 windows of {wr} rows x {wc} chan vs "
+          f"float64 oracle {kgb_err:.2e} (bound {FUSED_BOUND}); {E_SPEC!r} "
+          f"(129² x 8 x 4 cube): source block {eblock} ({eper / 2**30:.2f} GiB a "
+          f"source), {nblocks} blocks, first call {efirst_s:.2f} s, launches "
+          f"{counts}, peak device memory {epeak / 2**30:.2f} GiB, window vs CPU "
+          f"{e_err:.2e} (bound {FUSED_E_BOUND}), blocks {eblock} vs {eblock2} "
+          f"{blocks_err:.2e} (bound {FUSED_BLOCKS_BOUND})", flush=True)
+    return {"runs": runs, "launches": counts, "nvis": nrow * nchan * 4}
+
+
+def slice_times(card, avg, fz):
+    """Phase 21: times of the averagers at both cells and of the fused
+    RIME, with profiles."""
+    import torch
+
+    lines = []
+    for cell, (calls, nvis) in avg["cells"].items():
+        for name, fn in calls.items():
+            ms, _ = cuda_median_ms(fn)
+            host = host_median_ms(fn)
+            lines.append(f"{name} at {cell} {ms:.3f} ms (host clock {host:.3f} ms) = "
+                         f"{_mvis(nvis, ms):.1f} Mvis/s")
+    for name, run in fz["runs"].items():
+        ms, _ = cuda_median_ms(run["fn"], reps=3, warmup=1)
+        lines.append(f"fused {name} per chunk {ms:.1f} ms = {_mvis(fz['nvis'], ms):.1f} "
+                     f"Mvis/s (block {run['block']})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for calls, _ in avg["cells"].values():
+        for fn in calls.values():
+            fn()
+    torch.cuda.synchronize()
+    avg_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[21/{PHASES}] slice times on {card} (CUDA-event medians of 7 after 2 "
+          "warm-ups, mapper and tables cached; the fused RIME 3 after 1): "
+          + "; ".join(lines) + "; host (cold): " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in avg["host_s"].items())
+          + f"; peak device memory: averaging {avg_peak:.2f} GiB, fused "
+          + ", ".join(f"{k} {r['peak'] / 2**30:.2f} GiB" for k, r in fz["runs"].items()),
+          flush=True)
+    profiles = {f"{name} at meerkat": fn
+                for name, fn in avg["cells"]["meerkat"][0].items()}
+    profiles.update({f"{name} at bench": fn
+                     for name, fn in avg["cells"]["bench"][0].items()})
+    profiles.update({f"fused {name}": r["fn"] for name, r in fz["runs"].items()})
+    for name, fn in profiles.items():
+        reps = 1 if name.startswith("fused") else 3
+        wall, busy, rows = _profile(fn, reps=reps)
+        top = "; ".join(f"{k[:40]} x{count // reps} {ms / reps:.3f} ms"
+                        for k, count, ms in rows[:5])
+        print(f"[21/{PHASES}] profiler, {name}, per call of {reps}: host "
+              f"{wall / reps:.3f} ms, device busy {busy / reps:.3f} ms (idle "
+              f"{1 - busy / wall:.1%}), by device time: {top}", flush=True)
+
+
 def main():
     import torch
 
@@ -1989,6 +2392,7 @@ def main():
               "main path runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from africanus_tpu_torch import native
     from africanus_tpu_torch.ops.cuda_beam import build_beam
     from africanus_tpu_torch.ops.cuda_dft import build_dft
     from africanus_tpu_torch.ops.cuda_grid2d import build_grid2d
@@ -2012,14 +2416,25 @@ def main():
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     print(smi, flush=True)
 
-    # 2. build, one nvcc per source, started together
-    with ThreadPoolExecutor(6) as pool:
+    # 2. build, one nvcc per source and g++ for the averaging mappers,
+    # started together
+    def build_native():
+        t0 = time.perf_counter()
+        check(native.available(), f"the native mappers did not build: "
+              f"{native.load_error()}")
+        return native.library_path(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(7) as pool:
+        mappers = pool.submit(build_native)
         builds = [f.result() for f in [pool.submit(build_predict_kb),
                                        pool.submit(build_dft),
                                        pool.submit(build_wgrid),
                                        pool.submit(build_beam),
                                        pool.submit(build_grid2d),
                                        pool.submit(build_gridtab)]]
+        lib, seconds = mappers.result()
+    print(f"[2/{PHASES}] built {os.path.relpath(lib)} (g++) in {seconds:.1f} s",
+          flush=True)
     for lib, seconds, log in builds:
         ptxas = "; ".join(ln.split("ptxas info    : ")[-1]
                           for ln in log.splitlines() if "Used" in ln)
@@ -2045,6 +2460,14 @@ def main():
     # nifty and Perley-polyhedron gridders
     gridder_kernel_checks(device)
     kernels += gridders(device, card)
+
+    # 19-21. the averagers, the fused RIME (its E terms launch beam_interp
+    # and beam_blend, counted in the kernels line), their times
+    avg = averaging(device, card)
+    fz = fused(device, card)
+    for entry in kernels:
+        entry["launches"] += fz["launches"].get(entry["name"], 0)
+    slice_times(card, avg, fz)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,11 @@ the beam chain's routes on the card 1e-5·max against the CPU. The 2D
 multi-correlation and table gridder kernels 1e-5·max|out| in float32
 and 1e-12 in float64 (sums in another order than index_add_ and the
 gather-sum), two launches bitwise equal; the nifty and Perley-polyhedron gridders on the card
-against the CPU 1e-5·max in float32, 1e-12 in float64.
+against the CPU 1e-5·max in float32, 1e-12 in float64. The averagers'
+segmented sums and bda on the card against the CPU 1e-6·max in float32
+and 1e-12 in float64 (each bin summed in another order), two runs
+bitwise equal; the fused RIME's E term on the card 1e-5·max against the
+CPU, its beam_interp and beam_blend launches counted.
 """
 
 import os
@@ -39,6 +43,10 @@ from chip_smoke import (  # noqa: E402
     wgrid_problem,
 )
 
+from africanus_tpu_torch.averaging import bda, time_and_channel  # noqa: E402
+from africanus_tpu_torch.averaging.time_and_channel_avg import (  # noqa: E402
+    _segment_table, _to_device,
+)
 from africanus_tpu_torch.calibration.selfcal import (  # noqa: E402
     from_numpy as selfcal_from_numpy, make_data, selfcal_inputs,
 )
@@ -64,6 +72,11 @@ from africanus_tpu_torch.rime.feeds import feed_rotation  # noqa: E402
 from africanus_tpu_torch.rime.flagship import (  # noqa: E402
     flagship_inputs, from_numpy,
 )
+from africanus_tpu_torch.rime.fused import rime  # noqa: E402
+from africanus_tpu_torch.rime.fused.inputs import (  # noqa: E402
+    from_numpy as fused_from_numpy, fused_inputs,
+)
+from africanus_tpu_torch.testing.averaging import meerkat_inputs  # noqa: E402
 
 
 @pytest.fixture
@@ -909,3 +922,96 @@ def test_pp_gridder_f1_shapes_on_card_match_cpu(device, w, os_, cdtype):
     for g, want in zip(got, run("cpu")):
         assert g.dtype == want.dtype and g.shape == want.shape
         _assert_close(g.cpu(), want, bound)
+
+
+def _rel_close(got, want, bound):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.bool:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max() <= bound * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+def test_segment_sums_on_card_match_cpu(device, dtype):
+    """Segmented sums over a skewed map (bins of 1 to 300 inputs, an
+    empty one): the card against the CPU, and two runs bitwise equal."""
+    rng = np.random.default_rng(3)
+    out_index = np.concatenate([np.zeros(300, np.int64), rng.integers(1, 5000, 40000)])
+    out_index[out_index == 17] = 18
+    table = _segment_table(out_index, 5000)
+    x = torch.as_tensor(rng.normal(size=(out_index.size, 4))).to(
+        dtype if not dtype.is_complex else torch.float32)
+    if dtype.is_complex:
+        x = torch.complex(x, x.flip(0))
+    cpu = _to_device(table, "cpu")
+    card = _to_device(table, device)
+    want = cpu.sum(cpu.gather(x))
+    a = card.sum(card.gather(x.to(device)))
+    b = card.sum(card.gather(x.to(device)))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _rel_close(a, want, 1e-12 if dtype == torch.float64 else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bda_on_card_matches_cpu(device, dtype):
+    o = meerkat_inputs(nant=12, ntime=8, nchan=64, flag_frac=0.1, seed=5)
+    if dtype == np.float64:
+        for k in ("visibilities", "weight_spectrum", "sigma_spectrum"):
+            o[k] = o[k].astype(np.complex128 if k == "visibilities" else np.float64)
+    o["flag"][:, 5] = True
+    o["flag_row"] = o["flag"].reshape(o["flag"].shape[0], -1).all(1).astype(np.uint8)
+
+    def run(dev):
+        data = {k: torch.as_tensor(o[k], device=dev) for k in
+                ("visibilities", "flag", "weight_spectrum", "sigma_spectrum")}
+        rest = {k: v for k, v in o.items() if k not in data}
+        return bda(**rest, **data)
+
+    a, b = run(device), run(device)
+    torch.cuda.synchronize()
+    want = run("cpu")
+    bound = 1e-12 if dtype == np.float64 else 1e-6
+    for name, x, y, w in zip(a._fields, a, b, want):
+        if isinstance(x, torch.Tensor):
+            assert x.device.type == "cuda", name
+            assert torch.equal(x, y), name
+            _rel_close(x, w, bound)
+
+
+@pytest.mark.cuda
+def test_time_and_channel_on_card_matches_cpu(device):
+    o = meerkat_inputs(nant=10, ntime=12, dump=2.0, nchan=32, flag_frac=0.1, seed=6)
+    kw = {k: o[k] for k in ("time", "interval", "antenna1", "antenna2", "uvw",
+                            "flag_row", "chan_freq", "chan_width")}
+    data = ("visibilities", "flag", "weight_spectrum", "sigma_spectrum")
+
+    def run(dev):
+        return time_and_channel(**kw, **{k: torch.as_tensor(o[k], device=dev)
+                                         for k in data},
+                                time_bin_secs=16.0, chan_bin_size=4)
+
+    a, b, want = run(device), run(device), run("cpu")
+    for name, x, y, w in zip(a._fields, a, b, want):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), name
+            _rel_close(x, w, 1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_e_term_launches_and_matches_cpu(device):
+    """[Ep, (Kpq, Gpq, Bpq), Eq] on the card: the chan-invariant route,
+    one beam_interp and one beam_blend launch per E term and block."""
+    args = fused_inputs(nsrc=6, ntime=2, nant=7, nchan=64, seed=4, beam_seed=3)
+    spec = "[Ep, (Kpq, Gpq, Bpq), Eq]: [I,Q,U,V] -> [XX,XY,YX,YY]"
+    before = (cb.beam_interp.launches, cb.beam_blend.launches)
+    got = rime(spec, **fused_from_numpy(args, device), source_block=4)
+    torch.cuda.synchronize()
+    assert (cb.beam_interp.launches - before[0],
+            cb.beam_blend.launches - before[1]) == (4, 4)
+    want = rime(spec, **fused_from_numpy(args, "cpu"), source_block=4)
+    _rel_close(got, want, 1e-5)
