@@ -13,7 +13,8 @@ where the JAX package used split re/im pairs), with an explicit
 ``device`` wherever they create tensors.
 
 Layout (ported: the flagship predict, selfcal, w-stacked imaging, the
-beam DDE chain, the gridders, the averagers, the fused RIME)
+beam DDE chain, the gridders, the averagers, the fused RIME, the WSClean
+store predict and the sky-model tail)
 ------
 - ``averaging``    — time-and-channel and baseline-dependent averaging:
                      host mappers, fixed-order segmented sums on the
@@ -24,20 +25,26 @@ beam DDE chain, the gridders, the averagers, the fused RIME)
 - ``coordinates``  — radec ↔ lm(n) transforms
 - ``deconv``       — Hogbom CLEAN
 - ``dft``          — direct Fourier transforms (im_to_vis, vis_to_im)
+- ``examples``     — runnable pipelines (``predict_to_ms_store``: MS-shaped
+                     store → WSClean predict → MODEL_DATA)
 - ``gridding``     — the w-stacking gridder/degridder (wgridder: dirty,
                      model, residual, hessian, WStackImaging), cell sizes
+- ``io``           — the MS-shaped column store (``MSStore``)
 - ``model``        — spectral model, Stokes ↔ correlation conversion,
-                     gaussian shape
+                     gaussian and shapelet shapes, WSClean component lists
+                     and spectra, SPI fitting
 - ``native``       — the averaging mappers' C++ cores (g++, ctypes)
 - ``ops``          — two-float arithmetic, 2×2 Jones products, the ES
                      kernel, the fused K×env×B predict kernel
                      (``cuda_predict``), the DFT kernels (``cuda_dft``),
                      the w-stack grid/degrid kernels (``cuda_wgrid``) and
                      the beam-cube kernels (``cuda_beam``)
+- ``parallel``     — host-streamed row chunks (``stream_rows``)
 - ``rime``         — phase delay, predict_vis, the flagship predict module,
                      beam cube DDEs, feed rotation, source transforms,
                      parallactic angles, the config-3 beam chain module,
-                     the fused RIME (``rime.fused``: specification, terms,
+                     Zernike DDEs, the WSClean predict, the fused RIME
+                     (``rime.fused``: specification, terms,
                      transformers, ``rime``)
 - ``testing``      — FITS beam-cube factory, seeded averaging inputs
 - ``utils``        — CASA Stokes enumerations, dtype helpers, plan caches,

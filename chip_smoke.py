@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight paths — the flagship RIME predict at a MeerKAT-64
+Drives the port's ten paths — the flagship RIME predict at a MeerKAT-64
 full-band size, one config-5 selfcal step at SKA-mid width, config-4
 w-stacked imaging, the config-3 beam DDE chain, the nifty-API gridder,
 the Perley-polyhedron facet gridder, the averagers (BDA and
-time-and-channel) and the fused RIME — and checks them, in twenty-one
-phases that each print one line (some several):
+time-and-channel), the fused RIME, the WSClean predict from an MS-shaped
+store to MODEL_DATA, and the sky-model terms (Zernike DDEs, shapelets,
+SPI fitting) — and checks them, in twenty-five phases that each print one
+line (some several):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu,
@@ -95,7 +97,10 @@ phases that each print one line (some several):
    no in-grid tap; complex128 at W 15, oversampling 1023, the table read
    from device memory) against their plain versions in float32 and
    float64, and two launches bitwise equal (also the table pair at W 29
-   and 31 in float64);
+   and 31 in float64); and the Perley-polyhedron gridder's
+   conv_nn_scatter route (100,000 rows × 4 channels onto 2 × 32² cells,
+   an accumulating index_put_) against the CPU in complex64 and
+   complex128, two card runs bitwise equal;
 17. both gridders at full width: nifty grid → dirty and model → degrid
    at config 4's draws (100,000 rows × 8 channels × 4 correlations, a
    1024² image, 2048² grids, ε 1e-5: W = 8), launches counted, kernels
@@ -131,6 +136,26 @@ phases that each print one line (some several):
    both cells (Mvis/s), the mapper's and the tables' cold seconds, the
    fused RIME per chunk (Mvis/s), peak device memory and a
    torch.profiler breakdown of each.
+22. the WSClean store path through its entry point,
+   predict_to_ms_store: an MS-shaped store at MeerKAT-64 full band (64
+   antennas, 16 dumps of 8 s with Earth rotation: 32,256 rows, 4096
+   channels, 1 correlation; MODEL_DATA 1.06 GB) in a temporary directory,
+   a seeded WSClean list of 2,000 components written as text and parsed,
+   4 chunks of 8064 rows, predict_kb launched once a chunk (counted), a
+   window of 256 rows × 16 channels of every chunk against a float64
+   oracle, MODEL_DATA re-read through a fresh handle bitwise equal to the
+   prediction, the kernel against its plain version on 512 rows; the
+   kernel's time a chunk, each chunk's host-clock read, predict, copy and
+   write seconds, the pipeline's Mvis/s with IO, peak device memory;
+23. the Zernike DDE at 100 sources × 4 times × 64 antennas × 4096
+   channels × 2x2 correlations, 20 Noll terms, against the CPU in
+   float64 on 2 sources × 1 time, its time and peak (< 40 GB);
+24. shapelet and shapelet_with_w_term at the MeerKAT-64 chunk (8064 rows
+   × 4096 channels, 4 sources, nmax 8×8), 64 rows against the CPU in
+   float64, times and peaks;
+25. the SPI fit of 1,048,576 components × 8 bands (maxiter 100) in
+   float64 and float32 against the true spectral indices and, on 4096
+   components, the CPU in float64; ms a call and the iterations run.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -198,7 +223,9 @@ PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"
                               "cell corners 0.0046-0.0048 ms"}
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
-PHASES = 21
+# the PP gridder's conv_nn_scatter route: ~200 samples a cell
+PP_NN = dict(nrow=100_000, npix=32)
+PHASES = 25
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
 # over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
@@ -512,6 +539,36 @@ def table_problem(rng, n, npix, nband, support, oversample, dtype, device):
     table = torch.as_tensor(kbsinc(support, oversample=oversample)).to(
         device=device, dtype=dtype)
     return plan, table, t(n), t((nband, npix, npix))
+
+
+def pp_nn_problem(nrow, npix, cdtype, seed):
+    """Host operands of the Perley-polyhedron gridder's conv_nn_scatter
+    route (also used by tests/test_torch_cuda.py): config 4's draws
+    (imaging_inputs) of ``nrow`` rows × 4 channels onto an ``npix``² grid,
+    so that many samples share a cell, and seeded 2-correlation
+    visibilities of ``cdtype``."""
+    from africanus_tpu_torch.gridding.wgridder.imaging import imaging_inputs
+
+    args = imaging_inputs(nrow=nrow, nchan=4, nx=npix, seed=seed)
+    rng = np.random.default_rng(seed)
+    vis = (rng.normal(size=(nrow, 4, 2)) + 1j * rng.normal(size=(nrow, 4, 2))
+           ).astype(cdtype)
+    return dict(uvw=args["uvw"].astype(np.float64),
+                wl=2.99792458e8 / args["freq"].astype(np.float64), npix=npix,
+                cell=np.rad2deg(args["cell"]) * 3600, vis=vis)
+
+
+def pp_nn_grid(problem, device):
+    """The conv_nn_scatter route on ``device``: Stokes I into 2 bands, the
+    image centre 0.57 deg off the phase centre, normalised."""
+    import torch
+    from africanus_tpu_torch.gridding import perleypolyhedron as pp
+
+    p = problem
+    return pp.gridder(p["uvw"], torch.as_tensor(p["vis"], device=device), p["wl"],
+                      np.array([0, 0, 1, 1]), p["npix"], p["cell"], (0.0, -0.5 + 0.01),
+                      (0.0, -0.5), pp.kernels.kbsinc(7, oversample=63), 7, 63, "rotate",
+                      "phase_rotate", "I_FROM_XXYY", "conv_nn_scatter", do_normalize=True)
 
 
 def phase_kernel_checks(device):
@@ -1680,6 +1737,23 @@ def gridder_kernel_checks(device):
           "float64)",
           flush=True)
 
+    # the PP gridder's conv_nn_scatter route, an index_put_ that
+    # accumulates: the card against the CPU, and two card runs bitwise
+    nn = []
+    for cdtype, tol in ((np.complex64, GRIDDER_BOUND), (np.complex128, 1e-12)):
+        problem = pp_nn_problem(**PP_NN, cdtype=cdtype, seed=SEED)
+        a, b = pp_nn_grid(problem, device), pp_nn_grid(problem, device)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"PP conv_nn_scatter {cdtype.__name__}: two card "
+                                 "runs differ")
+        want = pp_nn_grid(problem, "cpu")
+        err = float((a.cpu() - want).abs().max() / want.abs().max())
+        check(err <= tol, f"PP conv_nn_scatter {cdtype.__name__} vs CPU: {err:.3e}")
+        nn.append(f"{cdtype.__name__} {err:.2e} (bound {tol})")
+    print(f"[16/{PHASES}] PP conv_nn_scatter ({PP_NN['nrow']} rows x 4 chan onto 2 x "
+          f"{PP_NN['npix']}² cells): two card runs bitwise equal; vs CPU "
+          + ", ".join(nn), flush=True)
+
 
 def _mvis(n, ms):
     return n / ms / 1e3
@@ -2384,6 +2458,354 @@ def slice_times(card, avg, fz):
               f"{1 - busy / wall:.1%}), by device time: {top}", flush=True)
 
 
+# phases 22-25: the sky-model tail. Phase 22: the WSClean store path at
+# MeerKAT-64 full band — 64 antennas in a 4 km box, 16 dumps of 8 s with
+# Earth rotation (32,256 rows), 4096 channels 0.856-1.712 GHz, one
+# correlation — and a seeded WSClean list of 2,000 components (70% POINT,
+# 30% GAUSSIAN, within 1 deg of the phase centre), streamed in chunks of
+# 8064 rows
+STORE = dict(nant=64, ntime=16, nchan=4096, seed=22)
+STORE_NSRC, STORE_CHUNK = 2000, 8064
+STORE_PHASE_DIR = (1.0472, -0.5236)
+STORE_WINDOW = (256, 16)  # rows × channels of every chunk against float64
+STORE_PLAIN_ROWS = 512  # rows of the kernel against its plain version
+STORE_BOUND = 1e-5  # both, relative to max|V|
+PREDICT_INSTR_C1 = PREDICT_INSTR - 12  # 4·C FMAs a term: 16 at C = 4, 4 at C = 1
+# phase 23: Zernike DDE, the first 20 Noll terms per (antenna, channel,
+# correlation); phase 24: shapelets of nmax 8×8 at the MeerKAT-64 chunk;
+# phase 25: the SPI fit of a 1024² model's components in 8 bands
+ZERNIKE = dict(nsrc=100, ntime=4, nant=64, nchan=4096, npoly=20, seed=23)
+SHAPELET = dict(nant=64, ntime=4, nchan=4096, nsrc=4, nmax=8, seed=24)
+SHAPELET_ROWS = 64  # rows held against the CPU in float64
+SPI = dict(ncomp=1 << 20, nband=8, maxiter=100, seed=25)
+SPI_SUBSET = 4096
+TAIL_BOUND = 1e-5  # Zernike and shapelets on the card against CPU float64
+# the SPI fit: float64 on the card against the CPU, and both precisions
+# against the true (α, I₀) of noiseless spectra and float32 against the
+# CPU's float64 at the bounds of tests/test_zernike_shapelets_spi.py:227-228
+SPI_F64_BOUND, SPI_TRUE_BOUND = 1e-6, 1e-4
+TAIL_MEMORY = 40 * 2**30
+
+
+def wsclean_oracle_f64(uvw, sky, freq):
+    """(row, chan) float64 visibilities of a loaded component list: the
+    formula of tests/test_wsclean.py:109-131 with the spectra of its
+    np_ordinary/np_log, vectorised over sources, on the float32 inputs
+    widened to float64."""
+    f64 = np.float64
+    lm, uvw, freq = sky["lm"].astype(f64), uvw.astype(f64), freq.astype(f64)
+    flux, coeffs = sky["flux"].astype(f64), sky["coeffs"].astype(f64)
+    ratio = freq[None, :] / sky["ref_freq"].astype(f64)[:, None]
+    exps = np.arange(1, coeffs.shape[1] + 1)
+    ordinary = flux[:, None] + (coeffs[:, None, :] * (ratio - 1.0)[:, :, None] ** exps).sum(2)
+    logarithmic = flux[:, None] * np.exp(
+        (coeffs[:, None, :] * np.log(ratio)[:, :, None] ** exps).sum(2))
+    spectrum = np.where(sky["log_poly"][:, None], logarithmic, ordinary)
+    l, m = lm[:, 0, None], lm[:, 1, None]  # noqa: E741
+    n = np.sqrt(1 - l * l - m * m) - 1
+    u, v, w = uvw.T
+    rp = 2 * np.pi / 2.99792458e8 * (u * l + v * m + w * n)  # (src, row)
+    amp = spectrum[:, None, :] * np.exp(1j * rp[:, :, None] * freq)
+    emaj, emin, ang = sky["gauss_shape"].astype(f64).T
+    el, em = (emaj * np.sin(ang))[:, None], (emaj * np.cos(ang))[:, None]
+    er = (emin / np.where(emaj == 0, 1.0, emaj))[:, None]
+    u1, v1 = (u * em - v * el) * er, u * el + v * em
+    sf = freq * (np.sqrt(2) * np.pi / (2 * np.sqrt(2 * np.log(2))) / 2.99792458e8)
+    env = np.exp(-((u1[:, :, None] * sf) ** 2 + (v1[:, :, None] * sf) ** 2))
+    gauss = (sky["source_type"] == "GAUSSIAN")[:, None, None]
+    return (amp * np.where(gauss, env, 1.0)).sum(0)
+
+
+def store_path(device, card):
+    """Phase 22: the WSClean store path through the user's entry point,
+    predict_to_ms_store, at MeerKAT-64 full band. Returns its predict_kb
+    launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from africanus_tpu_torch.examples.predict_to_ms_store import (
+        chunk_digest, predict_to_ms_store, random_component_list, sky_arrays,
+    )
+    from africanus_tpu_torch.io import MSStore
+    from africanus_tpu_torch.model.wsclean import load
+    from africanus_tpu_torch.ops.cuda_predict import predict_kb, predict_kb_reference
+    from africanus_tpu_torch.rime.wsclean_predict import kb_operands
+    from africanus_tpu_torch.testing.averaging import meerkat_inputs
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        t0 = time.perf_counter()
+        geo = meerkat_inputs(nant=STORE["nant"], ntime=STORE["ntime"], nchan=1, ncorr=1,
+                             flag_frac=0.0, seed=STORE["seed"])
+        nrow, nchan = geo["uvw"].shape[0], STORE["nchan"]
+        freq = np.linspace(0.856e9, 1.712e9, nchan)
+        store_dir = os.path.join(tmp, "store")
+        MSStore.create(store_dir, dict(
+            TIME=geo["time"], ANTENNA1=geo["antenna1"].astype(np.int32),
+            ANTENNA2=geo["antenna2"].astype(np.int32), UVW=geo["uvw"],
+            MODEL_DATA=np.zeros((nrow, nchan, 1), np.complex64)),
+            dict(FIELD=dict(PHASE_DIR=list(STORE_PHASE_DIR)),
+                 SPECTRAL_WINDOW=dict(CHAN_FREQ=freq)))
+        model_file = os.path.join(tmp, "sky_model.txt")
+        with open(model_file, "w") as fh:
+            fh.write(random_component_list(STORE_NSRC, STORE_PHASE_DIR,
+                                           seed=STORE["seed"]))
+        setup_s = time.perf_counter() - t0
+
+        # the user's entry point, counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        predict_kb.launches = 0
+        t0 = time.perf_counter()
+        run = predict_to_ms_store(store_dir, model_file, chunk=STORE_CHUNK, device=device)
+        wall = time.perf_counter() - t0
+        launches = predict_kb.launches
+        peak = torch.cuda.max_memory_allocated() - resident
+        nchunk = -(-nrow // STORE_CHUNK)
+        check(launches == nchunk == run.launches == len(run.slices),
+              f"store path: predict_kb launched {launches} times for {nchunk} chunks")
+        check(run.nvis == nrow * nchan, f"store path wrote {run.nvis} visibilities")
+
+        # MODEL_DATA through a fresh handle: bitwise what was predicted, and
+        # a window of every chunk against float64
+        store = MSStore(store_dir)
+        for sl, digest in zip(run.slices, run.digests):
+            check(chunk_digest(store.read_pair("MODEL_DATA", sl)) == digest,
+                  f"MODEL_DATA rows {sl.start}-{sl.stop} differ from the prediction")
+        sky = sky_arrays(dict(load(model_file)), STORE_PHASE_DIR)
+        freq32 = freq.astype(np.float32)
+        wr, wc = STORE_WINDOW
+        chans = np.unique(np.linspace(0, nchan - 1, wc).round().astype(int))
+        uvw32 = geo["uvw"].astype(np.float32)
+        errs = []
+        for sl in run.slices:
+            rows = np.unique(np.linspace(sl.start, sl.stop - 1, wr).round().astype(int))
+            got = store.read("MODEL_DATA", rows)[:, chans, 0]
+            check(np.isfinite(got).all(), "non-finite MODEL_DATA")
+            errs.append(rel_err(got, wsclean_oracle_f64(uvw32[rows], sky, freq32[chans])))
+        check(max(errs) <= STORE_BOUND, f"store path vs float64: {max(errs):.3e}")
+        ngauss = int((sky["source_type"] == "GAUSSIAN").sum())
+
+        # where a chunk's write goes: MSStore.write's three steps timed
+        # apart on the first chunk's values, written again
+        values = store.read("MODEL_DATA", run.slices[0])
+        t0 = time.perf_counter()
+        pairs = np.stack([values.real, values.imag], axis=-1)
+        t1 = time.perf_counter()
+        column = np.load(os.path.join(store_dir, "MODEL_DATA.npy"), mmap_mode="r+")
+        column[run.slices[0]] = pairs
+        t2 = time.perf_counter()
+        column.flush()
+        write_split = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        del column, pairs, values
+
+        # the kernel against its plain version, then its time per chunk
+        def operands(rows):
+            return kb_operands(torch.as_tensor(uvw32[rows], device=device),
+                               frequency=torch.as_tensor(freq32, device=device),
+                               **{k: (torch.as_tensor(v, device=device)
+                                      if k != "source_type" else v)
+                                  for k, v in sky.items()})
+
+        ops = operands(slice(0, STORE_PLAIN_ROWS))
+        got = predict_kb(*ops)
+        want = predict_kb_reference(*ops)
+        kb_abs = float((got - want).abs().max())
+        kb_scale = float(want.abs().max())
+        check(kb_abs <= STORE_BOUND * kb_scale,
+              f"store path kernel vs plain: {kb_abs:.3e} > 1e-5 x {kb_scale:.3e}")
+        ops = operands(run.slices[0])
+        kernel_ms, _ = cuda_median_ms(lambda: predict_kb(*ops), reps=3, warmup=1)
+        nr = run.slices[0].stop
+        kb = bound(nbytes(ops) + nr * nchan * 8, STORE_NSRC * nr * nchan * PREDICT_INSTR_C1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    stages = {k: [s[k] for s in run.stage_seconds] for k in run.stage_seconds[0]}
+    print(f"[22/{PHASES}] WSClean store path on {card}: {nrow} rows x {nchan} chan x 1 "
+          f"corr in {nchunk} chunks of {STORE_CHUNK}, {STORE_NSRC} components "
+          f"({ngauss} gaussian), store and list made in {setup_s:.1f} s; "
+          f"predict_to_ms_store {wall:.2f} s = {run.nvis / wall / 1e6:.1f} Mvis/s incl. "
+          f"IO, per chunk (s) " + ", ".join(
+              f"{k} " + "/".join(f"{x:.3f}" for x in v) for k, v in stages.items())
+          + "; a chunk's write again: split into (re, im) {:.3f}, into the mapped "
+          "column {:.3f}, flush {:.3f} s (store under {})".format(
+              *write_split, tempfile.gettempdir())
+          + f"; predict_kb launches {launches}, kernel {kernel_ms:.2f} ms a chunk "
+          f"(bound {kb['bound_ms']:.2f} ms by {kb['bound_by']}); peak device memory "
+          f"{peak / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB resident before "
+          f"the pass; MODEL_DATA re-read bitwise equal; {wr} rows x "
+          f"{wc} chan of every chunk vs float64 " + ", ".join(f"{e:.2e}" for e in errs)
+          + f"; kernel vs plain on {STORE_PLAIN_ROWS} rows max abs err {kb_abs:.3e} "
+          f"(max|V| {kb_scale:.3e}); bounds {STORE_BOUND}", flush=True)
+    return {"predict_kb": launches}
+
+
+def zernike_problem(nsrc, ntime, nant, nchan, npoly, seed, device):
+    """Seeded zernike_dde operands on ``device`` (float32, complex64
+    coefficients; ``noll`` the first ``npoly`` Noll indices in every
+    (antenna, channel, correlation)), as a tuple in its argument order."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    lm = rng.uniform(-0.7, 0.7, (nsrc, 2)).astype(f32)
+    coords = torch.empty((3, nsrc, ntime, nant, nchan), dtype=torch.float32,
+                         device=device)
+    coords[0] = t(lm[:, 0])[:, None, None, None]
+    coords[1] = t(lm[:, 1])[:, None, None, None]
+    coords[2] = t(np.linspace(0.856e9, 1.712e9, nchan).astype(f32))
+    shape = (nant, nchan, 2, 2, npoly)
+    coeffs = np.empty(shape, np.complex64)
+    coeffs.real = rng.standard_normal(shape, f32)
+    coeffs.imag = rng.standard_normal(shape, f32)
+    coeffs /= np.arange(1, npoly + 1, dtype=f32)  # falling with order
+    noll = np.broadcast_to(np.arange(npoly), shape)
+    return (coords, t(coeffs), noll,
+            t(rng.uniform(-np.pi, np.pi, (ntime, nant)).astype(f32)),
+            t(rng.uniform(0.95, 1.05, nchan).astype(f32)),
+            t(rng.uniform(0.95, 1.05, (nant, nchan, 2)).astype(f32)),
+            t(rng.normal(scale=0.01, size=(ntime, nant, nchan, 2)).astype(f32)))
+
+
+def shapelet_problem(nant, ntime, nchan, nsrc, nmax, seed, device):
+    """Seeded shapelet operands on ``device``: the uvw of ``ntime`` dumps of
+    ``nant`` antennas (meerkat_inputs), channels over 0.856-1.712 GHz,
+    (nmax, nmax) coefficients, scales of 0.4-2″, positions within 0.6°;
+    float32. Returns (coords, frequency, coeffs, beta, delta_lm, lm)."""
+    import torch
+    from africanus_tpu_torch.testing.averaging import meerkat_inputs
+
+    rng = np.random.default_rng(seed)
+    uvw = meerkat_inputs(nant=nant, ntime=ntime, nchan=1, ncorr=1, flag_frac=0.0,
+                         seed=seed)["uvw"]
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return (t(uvw), t(np.linspace(0.856e9, 1.712e9, nchan)),
+            t(rng.normal(size=(nsrc, nmax, nmax))),
+            t(rng.uniform(2e-6, 1e-5, (nsrc, 2))), (1e-5, 1e-5),
+            t(rng.uniform(-0.01, 0.01, (nsrc, 2))))
+
+
+def spi_problem(ncomp, nband, seed):
+    """Noiseless power-law spectra of ``ncomp`` components in ``nband``
+    bands (float64 numpy), α in [-1.2, -0.2] and I₀ in [0.5, 5) (the
+    draws of tests/test_zernike_shapelets_spi.py:216-217): (data,
+    weights, freqs, freq0, alpha, I0)."""
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(0.856e9, 1.712e9, nband + 1)
+    freqs = (edges[1:] + edges[:-1]) / 2
+    freq0 = 1.284e9
+    alpha = rng.uniform(-1.2, -0.2, ncomp)
+    i0 = rng.uniform(0.5, 5.0, ncomp)
+    data = i0[:, None] * (freqs / freq0) ** alpha[:, None]
+    return data, np.ones(nband), freqs, freq0, alpha, i0
+
+
+def sky_tail(device, card):
+    """Phases 23-25: the Zernike DDE, shapelets and the SPI fit on the
+    card against the CPU in float64."""
+    import torch
+    from africanus_tpu_torch.model.shape import shapelet, shapelet_with_w_term
+    from africanus_tpu_torch.model.spi import fit_spi_components
+    from africanus_tpu_torch.rime import zernike_dde
+
+    def cpu64(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return x.cpu().to(torch.complex128 if x.is_complex() else torch.float64)
+
+    # 23. Zernike
+    z = ZERNIKE
+    args = zernike_problem(**z, device=device)
+    out, peak = _peak_of(lambda: zernike_dde(*args))
+    check(tuple(out.shape) == (z["nsrc"], z["ntime"], z["nant"], z["nchan"], 2, 2)
+          and out.dtype == torch.complex64, f"zernike {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(torch.view_as_real(out)).all()), "zernike non-finite")
+    check(peak < TAIL_MEMORY, f"zernike peak {peak / 2**30:.2f} GiB")
+    coords, coeffs, noll, pa, fscale, ascale, pe = args
+    sub = (coords[:, :2, :1], coeffs, noll, pa[:1], fscale, ascale, pe[:1])
+    want = zernike_dde(*map(cpu64, sub))
+    z_err = rel_err(out[:2, :1].cpu().numpy(), want.numpy())
+    check(z_err <= TAIL_BOUND, f"zernike vs CPU float64: {z_err:.3e}")
+    out_gib = out.numel() * out.element_size() / 2**30
+    del out
+    z_ms, _ = cuda_median_ms(lambda: zernike_dde(*args), reps=3, warmup=1)
+    print(f"[23/{PHASES}] Zernike DDE on {card}: {z['nsrc']} src x {z['ntime']} times x "
+          f"{z['nant']} ant x {z['nchan']} chan x 2x2 corr, {z['npoly']} Noll terms "
+          f"({out_gib:.2f} GiB complex64): {z_ms:.1f} ms, peak device memory "
+          f"{peak / 2**30:.2f} GiB; 2 src x 1 time vs CPU float64 {z_err:.2e} "
+          f"(bound {TAIL_BOUND})", flush=True)
+    del args, sub, want
+
+    # 24. shapelets, with and without the w term
+    s = SHAPELET
+    coords, freq, coeffs, beta, delta, lm = shapelet_problem(**s, device=device)
+    nrow = coords.shape[0]
+    rows = torch.as_tensor(np.linspace(0, nrow - 1, SHAPELET_ROWS).round().astype(int))
+    lines = []
+    for name, fn, extra in (("shapelet", shapelet, ()),
+                            ("shapelet_with_w_term", shapelet_with_w_term, (lm,))):
+        out, peak = _peak_of(lambda: fn(coords, freq, coeffs, beta, delta, *extra,
+                                        dtype=torch.complex64))
+        check(tuple(out.shape) == (nrow, s["nchan"], s["nsrc"]), f"{name} {out.shape}")
+        check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"{name} non-finite")
+        check(peak < TAIL_MEMORY, f"{name} peak {peak / 2**30:.2f} GiB")
+        want = fn(cpu64(coords)[rows], cpu64(freq), cpu64(coeffs), cpu64(beta), delta,
+                  *map(cpu64, extra))
+        err = rel_err(out[rows.to(device)].cpu().numpy(), want.numpy())
+        check(err <= TAIL_BOUND, f"{name} vs CPU float64: {err:.3e}")
+        del out
+        ms, _ = cuda_median_ms(lambda: fn(coords, freq, coeffs, beta, delta, *extra,
+                                          dtype=torch.complex64), reps=3, warmup=1)
+        lines.append(f"{name} {ms:.1f} ms, peak {peak / 2**30:.2f} GiB, "
+                     f"{SHAPELET_ROWS} rows vs CPU float64 {err:.2e}")
+    print(f"[24/{PHASES}] shapelets on {card}: {nrow} rows x {s['nchan']} chan x "
+          f"{s['nsrc']} src, nmax {s['nmax']}x{s['nmax']}, complex64: "
+          + "; ".join(lines) + f" (bound {TAIL_BOUND})", flush=True)
+
+    # 25. the SPI fit in float64 and float32
+    p = SPI
+    data, weights, freqs, freq0, alpha, i0 = spi_problem(p["ncomp"], p["nband"],
+                                                         p["seed"])
+    ref = fit_spi_components(*(torch.as_tensor(x[:SPI_SUBSET] if x.ndim == 2 else x)
+                               for x in (data, weights, freqs)), freq0,
+                             maxiter=p["maxiter"]).numpy()
+    lines = []
+    for dtype in (torch.float64, torch.float32):
+        ops = [torch.as_tensor(x, device=device).to(dtype) for x in (data, weights, freqs)]
+        out = fit_spi_components(*ops, freq0, maxiter=p["maxiter"])
+        iters = fit_spi_components.iterations
+        check(tuple(out.shape) == (4, p["ncomp"]) and out.dtype == dtype,
+              f"SPI {tuple(out.shape)} {out.dtype}")
+        got = out.cpu().double().numpy()
+        check(np.isfinite(got).all(), "SPI non-finite")
+        true_err = max(np.abs(got[0] - alpha).max(),
+                       np.abs(got[2] / i0 - 1).max())
+        check(true_err <= SPI_TRUE_BOUND, f"SPI {dtype} vs the truth: {true_err:.3e}")
+        cpu_err = max(np.abs(got[0, :SPI_SUBSET] - ref[0]).max(),
+                      np.abs(got[2, :SPI_SUBSET] / ref[2] - 1).max())
+        cpu_bound = SPI_F64_BOUND if dtype == torch.float64 else SPI_TRUE_BOUND
+        check(cpu_err <= cpu_bound, f"SPI {dtype} card vs CPU float64: {cpu_err:.3e}")
+        ms, _ = cuda_median_ms(lambda: fit_spi_components(*ops, freq0,
+                                                          maxiter=p["maxiter"]),
+                               reps=3, warmup=1)
+        lines.append(f"{str(dtype)[6:]} {ms:.2f} ms, {iters} iterations, vs the truth "
+                     f"{true_err:.2e}, {SPI_SUBSET} comps vs CPU float64 {cpu_err:.2e}")
+    print(f"[25/{PHASES}] SPI fit on {card}: {p['ncomp']} components x {p['nband']} "
+          f"bands, maxiter {p['maxiter']}: " + "; ".join(lines)
+          + f" (bounds: α and I₀ relative {SPI_TRUE_BOUND} vs the truth and the "
+          f"float32 fit vs CPU, {SPI_F64_BOUND} the float64 fit vs CPU)", flush=True)
+
+
 def main():
     import torch
 
@@ -2468,6 +2890,13 @@ def main():
     for entry in kernels:
         entry["launches"] += fz["launches"].get(entry["name"], 0)
     slice_times(card, avg, fz)
+
+    # 22-25. the WSClean store path (predict_kb once a chunk, counted in
+    # the kernels line), then the Zernike DDE, shapelets and the SPI fit
+    store = store_path(device, card)
+    for entry in kernels:
+        entry["launches"] += store.get(entry["name"], 0)
+    sky_tail(device, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,16 @@ against the CPU 1e-5·max in float32, 1e-12 in float64. The averagers'
 segmented sums and bda on the card against the CPU 1e-6·max in float32
 and 1e-12 in float64 (each bin summed in another order), two runs
 bitwise equal; the fused RIME's E term on the card 1e-5·max against the
-CPU, its beam_interp and beam_blend launches counted.
+CPU, its beam_interp and beam_blend launches counted. The Perley-
+polyhedron gridder's conv_nn_scatter route (an accumulating index_put_)
+1e-5·max in complex64 and 1e-12 in complex128 against the CPU, two card
+runs bitwise equal. The sky-model tail: wsclean_predict in float32
+(predict_kb, one launch) 2e-6·max against the CPU's plain version and in
+float64 1e-12; the store pipeline's MODEL_DATA 2e-6·max against the
+CPU's, one predict_kb launch a chunk; zernike_dde and the shapelets in
+float32 1e-5·max and in float64 1e-12 against the CPU in float64; the
+SPI fit in float64 1e-6 (α absolute, I₀ relative) and in float32 1e-4
+against the CPU in float64; stream_rows on the card as on the CPU.
 """
 
 import os
@@ -39,8 +48,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    beam_problem, dft_problem, grid2d_problem, kernel_problem, table_problem,
-    wgrid_problem,
+    beam_problem, dft_problem, grid2d_problem, kernel_problem, pp_nn_grid,
+    pp_nn_problem, shapelet_problem, spi_problem, table_problem, wgrid_problem,
+    zernike_problem,
 )
 
 from africanus_tpu_torch.averaging import bda, time_and_channel  # noqa: E402
@@ -1015,3 +1025,163 @@ def test_fused_e_term_launches_and_matches_cpu(device):
             cb.beam_blend.launches - before[1]) == (4, 4)
     want = rime(spec, **fused_from_numpy(args, "cpu"), source_block=4)
     _rel_close(got, want, 1e-5)
+
+
+# ------------------------------------------------------------ the PP
+# conv_nn_scatter route and the sky-model tail
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype,bound", [(np.complex64, 1e-5), (np.complex128, 1e-12)],
+                         ids=["c64", "c128"])
+def test_pp_nn_scatter_on_card_is_deterministic_and_matches_cpu(device, cdtype, bound):
+    """~200 samples a cell: two card runs bitwise equal, and the CPU."""
+    problem = pp_nn_problem(nrow=100_000, npix=32, cdtype=cdtype, seed=16)
+    a, b = pp_nn_grid(problem, device), pp_nn_grid(problem, device)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _rel_close(a, pp_nn_grid(problem, "cpu"), bound)
+
+
+def _wsclean_args(dtype, device, kinds=("POINT", "GAUSSIAN", "POINT")):
+    rng = np.random.default_rng(22)
+    nsrc = 9
+    stype = np.resize(np.array(kinds), nsrc)
+    gauss_shape = np.column_stack([rng.uniform(1e-5, 1e-4, nsrc),
+                                   rng.uniform(1e-6, 1e-5, nsrc),
+                                   rng.uniform(0, np.pi, nsrc)])
+    host = dict(uvw=rng.uniform(-4000, 4000, (300, 3)), lm=rng.uniform(-0.02, 0.02, (nsrc, 2)),
+                flux=rng.uniform(0.5, 2.0, nsrc), coeffs=rng.normal(scale=0.1, size=(nsrc, 3)),
+                ref_freq=rng.uniform(1.0e9, 1.4e9, nsrc), gauss_shape=gauss_shape,
+                frequency=np.linspace(0.856e9, 1.712e9, 200))
+    args = {k: torch.as_tensor(v.astype(dtype), device=device) for k, v in host.items()}
+    return dict(args, source_type=stype, log_poly=np.arange(nsrc) % 2 == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [("POINT", "GAUSSIAN", "POINT"), ("POINT",)],
+                         ids=["mixed", "points"])
+def test_wsclean_predict_f32_launches_predict_kb_and_matches_cpu(device, kinds):
+    from africanus_tpu_torch.rime import wsclean_predict
+
+    before = cp.predict_kb.launches
+    got = wsclean_predict(**_wsclean_args(np.float32, device, kinds))
+    torch.cuda.synchronize()
+    assert cp.predict_kb.launches == before + 1
+    want = wsclean_predict(**_wsclean_args(np.float32, "cpu", kinds))
+    assert got.dtype == torch.complex64 and got.shape == (300, 200, 1)
+    _rel_close(got, want, 2e-6)
+
+
+@pytest.mark.cuda
+def test_wsclean_predict_f64_on_card_matches_cpu(device):
+    from africanus_tpu_torch.rime import wsclean_predict
+
+    before = cp.predict_kb.launches
+    got = wsclean_predict(**_wsclean_args(np.float64, device))
+    assert cp.predict_kb.launches == before
+    _rel_close(got, wsclean_predict(**_wsclean_args(np.float64, "cpu")), 1e-12)
+
+
+@pytest.mark.cuda
+def test_predict_to_ms_store_on_card_matches_cpu(device, tmp_path):
+    """The store pipeline at a small size: one predict_kb launch a chunk,
+    MODEL_DATA against the CPU run's, what was written read back
+    bitwise."""
+    from africanus_tpu_torch.examples import predict_to_ms_store as ex
+    from africanus_tpu_torch.io import MSStore
+
+    model = tmp_path / "model.txt"
+    model.write_text(ex.random_component_list(50, (1.0472, -0.8813), seed=4))
+    runs = {}
+    for dev in (device, "cpu"):
+        path = tmp_path / str(dev)
+        ex.make_store(path, nant=12, ntime=6, nchan=256)
+        before = cp.predict_kb.launches
+        run = ex.predict_to_ms_store(path, model, chunk=150, device=dev)
+        runs[str(dev)] = (run, cp.predict_kb.launches - before,
+                          MSStore(path).read("MODEL_DATA"))
+    run, launches, got = runs[str(device)]
+    assert launches == run.launches == len(run.slices) == 3
+    for sl, digest in zip(run.slices, run.digests):
+        assert ex.chunk_digest(got[sl]) == digest
+    _rel_close(torch.as_tensor(got), torch.as_tensor(runs["cpu"][2]), 2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_zernike_dde_on_card_matches_cpu(device, f64):
+    from africanus_tpu_torch.rime import zernike_dde
+
+    args = zernike_problem(nsrc=5, ntime=2, nant=6, nchan=64, npoly=12, seed=23,
+                           device=device)
+
+    def widen(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return x.to(torch.complex128 if x.is_complex() else torch.float64)
+
+    if f64:
+        args = tuple(map(widen, args))
+    got = zernike_dde(*args)
+    want = zernike_dde(*(widen(x.cpu()) if isinstance(x, torch.Tensor) else x
+                         for x in args))
+    assert got.dtype == (torch.complex128 if f64 else torch.complex64)
+    _rel_close(got.to(want.dtype), want, 1e-12 if f64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_shapelets_on_card_match_cpu(device, f64):
+    from africanus_tpu_torch.model.shape import shapelet, shapelet_with_w_term
+
+    coords, freq, coeffs, beta, delta, lm = shapelet_problem(
+        nant=10, ntime=2, nchan=64, nsrc=3, nmax=8, seed=24, device=device)
+    ops = [coords, freq, coeffs, beta, lm]
+    if f64:
+        ops = [x.double() for x in ops]
+    coords, freq, coeffs, beta, lm = ops
+    dtype = torch.complex128 if f64 else torch.complex64
+    for fn, extra in ((shapelet, ()), (shapelet_with_w_term, (lm,))):
+        got = fn(coords, freq, coeffs, beta, delta, *extra, dtype=dtype)
+        want = fn(*(x.cpu().double() for x in (coords, freq, coeffs, beta)), delta,
+                  *(x.cpu().double() for x in extra))
+        _rel_close(got.to(want.dtype), want, 1e-12 if f64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_fit_spi_on_card_matches_cpu(device, f64):
+    from africanus_tpu_torch.model.spi import fit_spi_components
+
+    data, weights, freqs, freq0, alpha, i0 = spi_problem(20_000, 8, seed=25)
+    dtype = torch.float64 if f64 else torch.float32
+    got = fit_spi_components(*(torch.as_tensor(x, device=device).to(dtype)
+                               for x in (data, weights, freqs)), freq0).cpu().double()
+    want = fit_spi_components(*map(torch.as_tensor, (data, weights, freqs)), freq0)
+    bound = 1e-6 if f64 else 1e-4
+    assert (got[0] - want[0]).abs().max() <= bound
+    assert (got[2] / want[2] - 1).abs().max() <= bound
+    assert (got[0] - torch.as_tensor(alpha)).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_stream_rows_on_card_matches_cpu(device):
+    from africanus_tpu_torch.parallel import stream_rows
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(70, 3))
+    w = rng.normal(size=(70,))
+
+    def fn(tree, valid):
+        assert tree["x"].device.type == "cuda" and valid.device.type == "cuda"
+        return {"y": tree["x"] * tree["w"][:, None],
+                "s": (tree["x"] * valid[:, None]).sum(0)}
+
+    on_card = stream_rows(fn, {"x": x, "w": w}, chunk=32, device=device,
+                          row_axes={"y": True, "s": False})
+    assert_equal = np.testing.assert_array_equal
+    assert_equal(on_card["y"], x * w[:, None])
+    total = stream_rows(lambda t, v: (t["x"] * v[:, None]).sum(0), {"x": x}, chunk=32,
+                        combine="sum", device=device)
+    assert total.device.type == "cuda"
+    np.testing.assert_allclose(total.cpu().numpy(), x.sum(0), rtol=1e-12)
