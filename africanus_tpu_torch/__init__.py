@@ -14,7 +14,7 @@ where the JAX package used split re/im pairs), with an explicit
 
 Layout (ported: the flagship predict, selfcal, w-stacked imaging, the
 beam DDE chain, the gridders, the averagers, the fused RIME, the WSClean
-store predict and the sky-model tail)
+store predict, the sky-model tail, GP gains and the examples)
 ------
 - ``averaging``    — time-and-channel and baseline-dependent averaging:
                      host mappers, fixed-order segmented sums on the
@@ -25,11 +25,17 @@ store predict and the sky-model tail)
 - ``coordinates``  — radec ↔ lm(n) transforms
 - ``deconv``       — Hogbom CLEAN
 - ``dft``          — direct Fourier transforms (im_to_vis, vis_to_im)
-- ``examples``     — runnable pipelines (``predict_to_ms_store``: MS-shaped
-                     store → WSClean predict → MODEL_DATA)
+- ``examples``     — the JAX package's 14 examples as runnable pipelines
+                     (``python -m africanus_tpu_torch.examples.<name>
+                     --device cuda|cpu``), each a library function and a
+                     ``main()``; ``launches`` reports their kernel launches
+- ``gps``          — Gaussian-process covariance kernels
+                     (``exponential_squared``, ``abs_diff``)
 - ``gridding``     — the w-stacking gridder/degridder (wgridder: dirty,
                      model, residual, hessian, WStackImaging), cell sizes
 - ``io``           — the MS-shaped column store (``MSStore``)
+- ``linalg``       — Kronecker-structured algebra (``kron_matvec``,
+                     ``kron_matmat``, ``kron_cholesky``, …)
 - ``model``        — spectral model, Stokes ↔ correlation conversion,
                      gaussian and shapelet shapes, WSClean component lists
                      and spectra, SPI fitting

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from africanus_tpu_torch.coordinates import radec_to_lm
+from africanus_tpu_torch.examples.launches import device_name, sync
 from africanus_tpu_torch.io import MSStore
 from africanus_tpu_torch.model.wsclean import load
 from africanus_tpu_torch.ops._build import plan_device
@@ -184,11 +185,6 @@ class StoreRun(NamedTuple):
     stage_seconds: list
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def predict_to_ms_store(store_dir, model_file, chunk=8064, device="cuda"):
     """Predict MODEL_DATA of the store at ``store_dir`` from the WSClean
     component list ``model_file``, ``chunk`` rows at a time on
@@ -209,7 +205,7 @@ def predict_to_ms_store(store_dir, model_file, chunk=8064, device="cuda"):
         uvw = store.read("UVW", sl).astype(np.float32)
         t1 = time.perf_counter()
         vis = wsclean_predict(torch.as_tensor(uvw, device=device), frequency=freq, **sky)
-        _sync(device)
+        sync(device)
         t2 = time.perf_counter()
         host = vis.cpu().numpy()
         t3 = time.perf_counter()
@@ -246,7 +242,7 @@ def main(argv=None):
         run = predict_to_ms_store(store_dir, model_file, args.chunk, args.device)
         dt = time.perf_counter() - t0
         device = plan_device(args.device)
-        name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        name = device_name(device)
         print(f"predicted + wrote {run.nvis / 1e6:.2f} Mvis of MODEL_DATA in "
               f"{len(run.slices)} chunks, {dt:.2f} s ({run.nvis / dt / 1e6:.1f} Mvis/s "
               f"incl. IO) on {name}; predict_kb launches {run.launches}")

@@ -1,0 +1,11 @@
+from africanus_tpu_torch.linalg.kronecker_tools import (
+    kron_N,
+    kron_matvec,
+    kron_tensorvec,
+    kron_matmat,
+    kron_tensormat,
+    kron_cholesky,
+)
+
+__all__ = ["kron_N", "kron_matvec", "kron_tensorvec", "kron_matmat",
+           "kron_tensormat", "kron_cholesky"]

@@ -549,16 +549,22 @@ def _chunks(plan):
             for lo in range(0, plan.nsamples, step))
 
 
-def grid_wstack_reference(plan, vis):
+def grid_wstack_reference(plan, vis, accumulate=None):
     """The plain PyTorch version of :func:`grid_wstack` (same operands): a
-    flat ``index_add_`` of every tap, over sample chunks."""
+    flat ``index_add_`` of every tap, over sample chunks.
+
+    ``accumulate`` is the real dtype of the products and sums (default
+    the plan's): float64 on a float32 plan sums the same float32 taps
+    and values exactly multiplied, an oracle for the rounding of a
+    float32 accumulation over many samples a cell."""
     _check("grid_wstack", plan, vis, (plan.nsamples,))
+    dtype = plan.dtype if accumulate is None else accumulate
     size = plan.nplanes * plan.nu * plan.nv
-    re = torch.zeros(size, dtype=plan.dtype, device=vis.device)
+    re = torch.zeros(size, dtype=dtype, device=vis.device)
     im = torch.zeros_like(re)
     for lo, hi, sel in _chunks(plan):
         idx, wj = _chunk_taps(plan, lo, hi)
-        v = vis[sel]
+        v, wj = vis[sel].to(dtype.to_complex()), wj.to(dtype)
         re.index_add_(0, idx.reshape(-1), (v.real[None, :] * wj).reshape(-1))
         im.index_add_(0, idx.reshape(-1), (v.imag[None, :] * wj).reshape(-1))
     return torch.complex(re, im).reshape(plan.nplanes, plan.nu, plan.nv)

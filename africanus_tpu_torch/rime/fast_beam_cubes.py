@@ -213,7 +213,7 @@ def dde(cube, lm, pa, pe, asc, chan_invariant=None, cell_residual=None,
 
 def _beam_cube(beam, beam_lm_extents, beam_freq_map, lm, parallactic_angles,
                point_errors, antenna_scaling, frequency, chan_invariant,
-               cell_residual, feed_type):
+               cell_residual, feed_type, operands=None):
     beam = torch.as_tensor(beam)
     if not beam.is_complex():
         raise ValueError("beam must be complex")
@@ -237,7 +237,8 @@ def _beam_cube(beam, beam_lm_extents, beam_freq_map, lm, parallactic_angles,
     lm, pa, pe, asc = (real(x) for x in (lm, parallactic_angles, point_errors,
                                          antenna_scaling))
     feed = None if feed_type is None else feed_rotation(pa, feed_type).contiguous()
-    route, e = dde(cube, lm, pa, pe, asc, chan_invariant, cell_residual, feed)
+    route, e = dde(cube, lm, pa, pe, asc, chan_invariant, cell_residual, feed,
+                   operands)
     log.debug("beam_cube_dde: %s route (cube %dx%dx%d, %d corr)", route,
               beam_lw, beam_mh, beam_nud, ncorr)
     return e.reshape((lm.shape[0],) + tuple(pa.shape) + (cube.frequency.shape[0],)
@@ -246,7 +247,7 @@ def _beam_cube(beam, beam_lm_extents, beam_freq_map, lm, parallactic_angles,
 
 def beam_cube_dde(beam, beam_lm_extents, beam_freq_map, lm, parallactic_angles,
                   point_errors, antenna_scaling, frequency,
-                  chan_invariant=None, cell_residual=None):
+                  chan_invariant=None, cell_residual=None, operands=None):
     """Beam cube DDE (reference API; rime/fast_beam_cubes.py:58).
 
     Parameters
@@ -262,6 +263,8 @@ def beam_cube_dde(beam, beam_lm_extents, beam_freq_map, lm, parallactic_angles,
     frequency : (chan,)
     chan_invariant, cell_residual : the route (module docstring); None
         detects it from the inputs.
+    operands : a dict that receives each kernel's positional operands,
+        keyed by the wrapper's name (as :func:`dde`), or None.
 
     Everything is taken on the beam's device in its real dtype.
 
@@ -271,7 +274,7 @@ def beam_cube_dde(beam, beam_lm_extents, beam_freq_map, lm, parallactic_angles,
     """
     return _beam_cube(beam, beam_lm_extents, beam_freq_map, lm,
                       parallactic_angles, point_errors, antenna_scaling,
-                      frequency, chan_invariant, cell_residual, None)
+                      frequency, chan_invariant, cell_residual, None, operands)
 
 
 def beam_cube_dde_fr(beam, beam_lm_extents, beam_freq_map, lm,

@@ -8,9 +8,10 @@ full-band size, one config-5 selfcal step at SKA-mid width, config-4
 w-stacked imaging, the config-3 beam DDE chain, the nifty-API gridder,
 the Perley-polyhedron facet gridder, the averagers (BDA and
 time-and-channel), the fused RIME, the WSClean predict from an MS-shaped
-store to MODEL_DATA, and the sky-model terms (Zernike DDEs, shapelets,
-SPI fitting) — and checks them, in twenty-five phases that each print one
-line (some several):
+store to MODEL_DATA, the sky-model terms (Zernike DDEs, shapelets,
+SPI fitting) and the application layer (GP phase gains, the examples) —
+and checks them, in twenty-eight phases that each print one line (some
+several):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu,
@@ -155,7 +156,28 @@ line (some several):
    float64, times and peaks;
 25. the SPI fit of 1,048,576 components × 8 bands (maxiter 100) in
    float64 and float32 against the true spectral indices and, on 4096
-   components, the CPU in float64; ms a call and the iterations run.
+   components, the CPU in float64; ms a call and the iterations run;
+26. GP phase gains through examples.generate_gains.gp_phase_gains at 64
+   antennas × 256 times × 4096 channels × 16 directions (factors 256²,
+   4096², 16²; 9.38 TFLOP a call) in float64 and float32: each factor's
+   ‖LLᵀ − K‖/‖K‖, antenna 0's draw against the CPU on the same draws,
+   float32 against float64, ||g| − 1|; ms, TFLOP/s against the dense
+   peak, peak device memory (< 60 GB);
+27. the two store examples at the MeerKAT-64 1K geometry (32,256 rows ×
+   1024 channels × 1 correlation) in a temporary directory:
+   selfcal_ms_store with 20 sources (fabricate, read, solve, write,
+   image, CLEAN seconds; the image again on its cached plan and its
+   grid_wstack kernel alone) and apply_phase_screen_ms_store with 3
+   directions in float64, each example's bound on the gain products, the
+   written columns re-read bitwise, launches and peaks;
+28. the other ten examples on the card through their library functions:
+   predict_dft at config 1, make_dirty at 1024² from 1M rows × 4
+   channels, spi_fitter_cube with --beammodel on an 8-band 4096² cube of
+   10,000 components (α at their pixels against the truth), and
+   selfcal, apply_gains, custom_rime_term, predict_wsclean,
+   predict_shapelet, predict_from_fits and fit_spi at the JAX examples'
+   defaults, each example's check (or the card against the CPU), its
+   launches and seconds.
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -225,7 +247,7 @@ PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 # the PP gridder's conv_nn_scatter route: ~200 samples a cell
 PP_NN = dict(nrow=100_000, npix=32)
-PHASES = 25
+PHASES = 28
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
 # over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
@@ -2806,6 +2828,598 @@ def sky_tail(device, card):
           f"float32 fit vs CPU, {SPI_F64_BOUND} the float64 fit vs CPU)", flush=True)
 
 
+# phases 26-28: the application layer. Phase 26: GP phase gains (the
+# generate_gains path) at MeerKAT-64 × 256 dumps × 4096 channels (0.856-
+# 1.712 GHz) × 16 directions: covariance factors 256², 4096² and 16², N =
+# 16,777,216 draws per antenna; phase 27: the two MS-store pipelines at the
+# MeerKAT-64 1K geometry (64 antennas, 16 dumps: 32,256 rows, 1024
+# channels, 1 correlation), selfcal with 20 sources as config 5, the screen
+# with its 3 directions; phase 28: the other ten examples on the card
+GP = dict(nant=64, ntime=256, nchan=4096, ndir=16, seed=26)
+GP_FACTOR_BOUND = 1e-12  # ‖LLᵀ − K‖/‖K‖, float64
+GP_CPU_BOUND = 1e-10     # antenna 0's draw against the CPU, float64
+GP_F32_BOUND = 1e-5      # float32 against float64 on the card
+GP_UNIT_BOUND = 1e-12    # ||g| − 1|, float64
+GP_MEMORY = 60e9
+# dense peaks of the H100 SXM at 700 W (NVIDIA's data sheet): FP64 on the
+# tensor cores (cuBLAS DGEMM) and FP32 outside them, 67 TFLOP/s each
+FP64_FLOPS, FP32_FLOPS = 67e12, 67e12
+STORE_1K = dict(nant=64, ntime=16, nchan=1024)
+STORE_SELFCAL_NSRC, STORE_SCREEN_NSRC = 20, 3
+# the examples' own bounds: the selfcal store's gain products
+# (examples/selfcal_ms_store.py:181), the screen's (apply_phase_screen_
+# ms_store.py:203)
+STORE_SELFCAL_BOUND, STORE_SCREEN_BOUND = 5e-4, 1e-3
+# the selfcal store's MODEL_DATA against plain predict_kb on its first
+# rows (two dumps), at phase 3's compensated-mode bound
+STORE_MODEL_ROWS, STORE_MODEL_BOUND = 4032, 2e-6
+# phase 28: predict_dft at config 1 (bench.py:474-549: KAT-7 × 96 dumps),
+# make_dirty at 1024² from 1M rows × 4 channels, spi_fitter_cube on an
+# 8-band 4096² cube (0.0002° cells, 0.9-1.6 GHz) of 10,000 power-law
+# components on a jittered 100 × 100 grid (≥ 20 pixels apart), a noise
+# residual and a 257² beam cube over 3°; the rest at the JAX examples'
+# defaults. The cube spans ±0.41°, inside the radius where the factory's
+# cos³ beam is clipped at 1.6 GHz (0.6°): across that kink a component's
+# interpolated beam moves its α by up to ~0.07
+EX_DFT = dict(nsrc=100, nant=7, nchan=64, ntime=96)
+EX_DIRTY = dict(nx=1024, nrow=1_000_000)
+EX_CUBE = dict(nband=8, npix=4096, ncomp=10_000, cell=0.0002, seed=28)
+EX_ALPHA_BOUND = 0.05  # tests/test_examples.py:143
+EX_PLAIN_BOUND = 1e-5  # an example on the card against its CPU run, of max
+# predict_shapelet in float32 against float64: its Hermite basis at
+# arguments to ~70 and the phases put the CPU's own float32 run 6.9e-6 of
+# max from float64
+EX_SHAPELET_BOUND = 2e-5
+
+
+def _taps_per_cell(plan):
+    """The most taps of a w-stack plan's samples that land on one cell."""
+    import torch
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+
+    counts = torch.zeros(plan.nplanes * plan.nu * plan.nv, dtype=torch.int64,
+                         device=plan.device)
+    for lo, hi, _ in cw._chunks(plan):
+        idx, _ = cw._chunk_taps(plan, lo, hi)
+        counts += torch.bincount(idx.reshape(-1), minlength=counts.numel())
+    return int(counts.max())
+
+
+def _grid_vs_plain(what, plan, flat):
+    """grid_wstack on an imaging plan's w-stack against its plain version
+    (float32 sums) and the plain version with float64 sums of the same
+    products (the oracle), one launch each. Checks the kernel against
+    the oracle; returns the errors, times, the most taps a cell and the
+    oracle grid rounded to the plan's dtype."""
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+    import torch
+
+    w = plan.wgrid
+    grid, ms = cuda_once_ms(lambda: cw.grid_wstack(w, flat))
+    plain, plain_ms = cuda_once_ms(lambda: cw.grid_wstack_reference(w, flat))
+    oracle = cw.grid_wstack_reference(w, flat, accumulate=torch.float64)
+    scale = float(oracle.abs().max())
+    out = dict(ms=ms, plain_ms=plain_ms, taps=_taps_per_cell(w),
+               kernel=float((grid - oracle).abs().max()) / scale,
+               plain=float((plain - oracle).abs().max()) / scale,
+               kernel_plain=float((grid - plain).abs().max()) / scale)
+    check(out["kernel"] <= WGRID_BOUND,
+          f"{what} grid_wstack vs float64 sums: {out['kernel']:.3e}")
+    out["oracle"] = oracle.to(grid.dtype)
+    return out
+
+
+def _grid_line(g):
+    return (f"grid_wstack {g['ms']:.2f} ms, plain {g['plain_ms']:.1f} ms; at up to "
+            f"{g['taps']} taps a cell, of max|grid| from float64 sums: kernel "
+            f"{g['kernel']:.2e} ({WGRID_BOUND}), plain {g['plain']:.2e}; kernel vs "
+            f"plain {g['kernel_plain']:.2e}")
+
+
+def zero_counts():
+    from africanus_tpu_torch.examples import launches
+
+    for fn in launches.WRAPPERS:
+        fn.launches = 0
+
+
+def read_counts():
+    """{wrapper: launches} of the wrappers that launched since
+    :func:`zero_counts`."""
+    from africanus_tpu_torch.examples import launches
+
+    return {fn.__name__: fn.launches for fn in launches.WRAPPERS if fn.launches}
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def gp_gains(device, card):
+    """Phase 26: the generate_gains path at full width in float64 and
+    float32, its four checks, times and peaks. Returns its launches
+    (none: the products are cuBLAS's)."""
+    import torch
+    from africanus_tpu_torch.examples.generate_gains import (
+        example_coordinates, gp_phase_gains,
+    )
+    from africanus_tpu_torch.linalg import kron_matmat, kron_matvec
+
+    g = GP
+    rng = np.random.default_rng(g["seed"])
+    t, nu, src = example_coordinates(rng, g["ntime"], g["nchan"], g["ndir"])
+    n = g["ntime"] * g["nchan"] * g["ndir"]
+    flops = 2 * n * (g["ntime"] + g["nchan"] + g["ndir"]) * g["nant"]
+
+    def run(dtype, xi=None):
+        gen = torch.Generator(device=device).manual_seed(g["seed"])
+        return gp_phase_gains(t, nu, src, g["nant"], xi=xi, generator=gen,
+                              device=device, dtype=dtype)
+
+    zero_counts()
+    out, peak64 = _peak_of(lambda: run(torch.float64))
+    launches = read_counts()
+    check(peak64 < GP_MEMORY, f"GP gains float64 peak {peak64 / 1e9:.2f} GB")
+    check(tuple(out.gains.shape) == (g["ntime"], g["nant"], g["nchan"], g["ndir"], 1)
+          and out.gains.dtype == torch.complex128, f"GP gains {tuple(out.gains.shape)}")
+    factor_err = max(float(torch.linalg.matrix_norm(L @ L.T - K)
+                           / torch.linalg.matrix_norm(K))
+                     for K, L in zip(out.covariances, out.factors))
+    check(factor_err <= GP_FACTOR_BOUND, f"GP factors ‖LLᵀ − K‖/‖K‖ {factor_err:.3e}")
+    unit_err = float((out.gains.abs() - 1).abs().max())
+    check(unit_err <= GP_UNIT_BOUND, f"GP ||g| − 1| {unit_err:.3e}")
+    phases64 = out.phases
+    factors_card = list(out.factors)
+    factors = [L.cpu() for L in factors_card]
+    del out
+    ms64, _ = cuda_median_ms(lambda: run(torch.float64), reps=3, warmup=1)
+
+    # the same draws again (the generator's seed), antenna 0 on the CPU
+    xi = torch.randn((g["nant"], n), generator=torch.Generator(device=device).manual_seed(
+        g["seed"]), dtype=torch.float64, device=device)
+    want = kron_matvec(factors, xi[0].cpu()).reshape(g["ntime"], g["nchan"], g["ndir"])
+    cpu_err = rel_err(phases64[:, 0].cpu().numpy(), want.numpy())
+    check(cpu_err <= GP_CPU_BOUND, f"GP antenna 0 vs CPU float64: {cpu_err:.3e}")
+    # the Kronecker products alone (cuBLAS) on draws made beforehand
+    matmat_ms = {}
+    matmat_ms[64], _ = cuda_median_ms(lambda: kron_matmat(factors_card, xi.T), reps=3,
+                                      warmup=1)
+    xi32 = xi.float()
+    del xi
+    factors32 = [L.float() for L in factors_card]
+    matmat_ms[32], _ = cuda_median_ms(lambda: kron_matmat(factors32, xi32.T), reps=3,
+                                      warmup=1)
+    del factors_card, factors32
+    out32, peak32 = _peak_of(lambda: run(torch.float32, xi32))
+    check(out32.gains.dtype == torch.complex64, f"GP float32 gains {out32.gains.dtype}")
+    scale = float(phases64.abs().max())
+    f32_err = float((out32.phases.double() - phases64).abs().max()) / scale
+    check(f32_err <= GP_F32_BOUND, f"GP float32 vs float64: {f32_err:.3e}")
+    del out32, phases64, xi32
+    ms32, _ = cuda_median_ms(lambda: run(torch.float32), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    print(f"[26/{PHASES}] GP phase gains on {card}: {g['nant']} ant x {g['ntime']} times "
+          f"x {g['nchan']} chan x {g['ndir']} dir (N = {n} a antenna; factors "
+          f"{g['ntime']}², {g['nchan']}², {g['ndir']}²), {flops / 1e12:.2f} TFLOP a call: "
+          f"float64 {ms64:.1f} ms ({flops / ms64 / 1e9:.1f} TFLOP/s; bound "
+          f"{flops / FP64_FLOPS * 1e3:.1f} ms at 67 TFLOP/s FP64 tensor cores), peak "
+          f"{peak64 / 1e9:.2f} GB; float32 {ms32:.1f} ms ({flops / ms32 / 1e9:.1f} "
+          f"TFLOP/s; bound {flops / FP32_FLOPS * 1e3:.1f} ms at 67 TFLOP/s FP32, no TF32), "
+          f"peak {peak32 / 1e9:.2f} GB; the Kronecker products alone (kron_matmat on "
+          f"draws made beforehand) float64 {matmat_ms[64]:.1f} ms "
+          f"({flops / matmat_ms[64] / 1e9:.1f} TFLOP/s), float32 {matmat_ms[32]:.1f} ms "
+          f"({flops / matmat_ms[32] / 1e9:.1f} TFLOP/s); ‖LLᵀ − K‖/‖K‖ {factor_err:.2e} (bound "
+          f"{GP_FACTOR_BOUND}), antenna 0 vs CPU float64 {cpu_err:.2e} ({GP_CPU_BOUND}), "
+          f"float32 vs float64 {f32_err:.2e} ({GP_F32_BOUND}), ||g| − 1| {unit_err:.1e} "
+          f"({GP_UNIT_BOUND}); kernel launches {launches or 'none'}", flush=True)
+    return launches
+
+
+def store_examples(device, card):
+    """Phase 27: selfcal_ms_store and apply_phase_screen_ms_store at the
+    MeerKAT-64 1K geometry in a temporary directory, their own checks,
+    the written columns re-read bitwise. Returns their launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from africanus_tpu_torch.examples import apply_phase_screen_ms_store as screen
+    from africanus_tpu_torch.examples import selfcal_ms_store as sc
+    from africanus_tpu_torch.examples.predict_to_ms_store import chunk_digest
+    from africanus_tpu_torch.gridding.wgridder.core import (
+        grid_adjoint, grid_to_image, make_plan,
+    )
+    from africanus_tpu_torch.io import MSStore
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+    from africanus_tpu_torch.ops.cuda_predict import predict_kb_reference
+    from africanus_tpu_torch.rime.phase import phase_dot_cycles
+
+    s = STORE_1K
+    total, lines = {}, []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        path = os.path.join(tmp, "selfcal")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        true_phase = sc.make_corrupted_store(path, np.random.default_rng(17), s["nant"],
+                                             s["ntime"], s["nchan"], STORE_SELFCAL_NSRC,
+                                             device)
+        fabricate = time.perf_counter() - t0
+        run = sc.selfcal_ms_store(path, true_phase, device)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() - resident
+        _add(total, launches)
+        store = MSStore(path)
+        nrow = store.nrow
+        check(run.gain_error < STORE_SELFCAL_BOUND,
+              f"selfcal store gain products {run.gain_error:.3e}")
+        check(float(run.clean.max()) > 0, "selfcal store: CLEAN found no component")
+        check(chunk_digest(store.read_pair("CORRECTED_DATA")) == run.corrected_digest,
+              "selfcal store: CORRECTED_DATA re-read differs")
+        check(launches.get("predict_kb") == 1 and launches.get("grid_wstack") == 2,
+              f"selfcal store launches {launches}")
+        stages = dict(fabricate=fabricate, **run.stage_seconds)
+        uvw = store.read("UVW").astype(np.float32)
+        freq = np.asarray(store.subtables["SPECTRAL_WINDOW"]["CHAN_FREQ"], np.float32)
+
+        # MODEL_DATA (predict_kb) against its plain version on a row slice
+        # of the same operands: DATA was corrupted from the same model, so
+        # the gains cannot see a wrong one
+        sky = store.subtables["SKY"]
+        lm = torch.as_tensor(np.asarray(sky["LM"], np.float32), device=device)
+        flux = np.asarray(sky["FLUX"], np.float32)
+        b = torch.as_tensor(np.broadcast_to(flux[:, None, None],
+                                            (flux.size, s["nchan"], 1)).copy(),
+                            device=device).to(torch.complex64)
+        rows = slice(0, STORE_MODEL_ROWS)
+        t_freq = torch.as_tensor(freq, device=device)
+        model_p = predict_kb_reference(
+            phase_dot_cycles(lm, torch.as_tensor(uvw[rows], device=device)),
+            None, None, t_freq, torch.zeros_like(t_freq), b)
+        model = torch.as_tensor(store.read("MODEL_DATA")[rows], device=device)
+        model_err = float((model - model_p).abs().max() / model_p.abs().max())
+        check(model_err <= STORE_MODEL_BOUND,
+              f"selfcal store MODEL_DATA vs plain: {model_err:.3e}")
+        del model, model_p
+
+        # where the image stage goes: the dirty image again on its cached
+        # plan (a content key of uvw and freq), and the kernel alone; then
+        # both grids (image and PSF) against their plain versions on the
+        # same plans, and the example's normalised image against the one
+        # made from the plain grids
+        vis = torch.as_tensor(store.read("CORRECTED_DATA")[..., 0], device=device)
+        cell = np.float32(0.03 / sc.NX)
+
+        def image():
+            return grid_adjoint(uvw, freq, vis, None, sc.NX, sc.NX, cell, cell, 1e-4,
+                                do_wstacking=False)
+
+        again = host_median_ms(image, reps=1, warmup=0) / 1e3
+        grids = {}
+        for name, nx, values in (("image", sc.NX, vis), ("psf", 2 * sc.NX,
+                                                         torch.ones_like(vis))):
+            plan = make_plan(uvw, freq, nx, nx, cell, cell, 1e-4, False,
+                             torch.float32, device)
+            grids[name] = _grid_vs_plain(f"selfcal store {name}", plan,
+                                         values.reshape(-1).contiguous())
+            grids[name]["image"] = grid_to_image(plan, grids[name].pop("oracle"))
+            del plan
+        ndirty_p = grids["image"].pop("image") / grids["psf"].pop("image").max()
+        dirty_err = float((run.dirty - ndirty_p).abs().max() / ndirty_p.abs().max())
+        check(dirty_err <= WGRID_BOUND, f"selfcal store dirty image vs the float64-sum "
+              f"grids' image: {dirty_err:.3e}")
+        del vis, ndirty_p
+        lines.append(
+            f"selfcal_ms_store {nrow} rows x {s['nchan']} chan x 1 corr, "
+            f"{STORE_SELFCAL_NSRC} sources: seconds " + ", ".join(
+                f"{k} {v:.2f}" for k, v in stages.items())
+            + f" (the dirty image again on its cached plan {again:.2f} s); "
+            + "; ".join(f"{k} grid: {_grid_line(v)}" for k, v in grids.items())
+            + f"; normalised dirty image vs the float64-sum grids' {dirty_err:.2e} "
+            f"({WGRID_BOUND}); MODEL_DATA rows 0-{STORE_MODEL_ROWS} vs plain predict_kb "
+            f"{model_err:.2e} ({STORE_MODEL_BOUND}); {run.iterations} GN iterations, "
+            f"gain products {run.gain_error:.2e} (bound {STORE_SELFCAL_BOUND}), "
+            f"CORRECTED_DATA re-read bitwise; launches {launches}; peak "
+            f"{peak / 2**30:.2f} GiB")
+
+        path = os.path.join(tmp, "screen")
+        rng = np.random.default_rng(23)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        screen.fabricate_store(path, rng, s["nant"], s["ntime"], s["nchan"],
+                               STORE_SCREEN_NSRC)
+        fabricate = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srun = screen.apply_phase_screen(path, rng, device)
+        corrupt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, iterations, err = screen.calibrate(path, srun.phases, device)
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() - resident
+        _add(total, launches)
+        store = MSStore(path)
+        for sl, digest in zip(srun.slices, srun.digests):
+            check(chunk_digest(store.read_pair("DATA", sl)) == digest,
+                  f"screen store: DATA rows {sl.start}-{sl.stop} re-read differ")
+        check(err < STORE_SCREEN_BOUND, f"screen store gain products {err:.3e}")
+        chunks = {k: [x[k] for x in srun.stage_seconds] for k in srun.stage_seconds[0]}
+        lines.append(
+            f"apply_phase_screen_ms_store {store.nrow} rows x {s['nchan']} chan x "
+            f"{STORE_SCREEN_NSRC} directions, float64: seconds fabricate {fabricate:.2f}, "
+            f"corrupt + write {corrupt:.2f} ({len(srun.slices)} chunks: " + "; ".join(
+                f"{k} " + "/".join(f"{x:.2f}" for x in v) for k, v in chunks.items())
+            + f"), read + solve {solve:.2f}; {iterations} GN iterations, gain products "
+            f"{err:.2e} (bound {STORE_SCREEN_BOUND}), DATA re-read bitwise; launches "
+            f"{launches or 'none'}; peak {peak / 2**30:.2f} GiB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[27/{PHASES}] the MS-store examples on {card}: " + " | ".join(lines),
+          flush=True)
+    return total
+
+
+def spi_cube_problem(path, nband, npix, ncomp, cell, seed):
+    """spi_fitter_cube's inputs at full width under ``path``: a 257² beam
+    cube (testing.beam_factory), and an (nband, npix, npix) model of
+    ``ncomp`` power-law components on a jittered grid (≥ 20 pixels
+    apart) times the factory's cos³ beam at their radius, with a noise
+    residual, as FITS. Returns (model, residual, schema, truth) with
+    truth = (px, py, I₀, α) arrays."""
+    from africanus_tpu_torch.testing import beam_factory
+    from africanus_tpu_torch.utils.fits import write_fits
+
+    rng = np.random.default_rng(seed)
+    ref_freq = 1.2e9
+    freqs = np.linspace(0.9e9, 1.6e9, nband)
+    side = int(round(np.sqrt(ncomp)))
+    step = npix // side
+    grid = (np.arange(side) * step + step // 2)
+    px = (grid[:, None] + rng.integers(-step // 4, step // 4 + 1, (side, side))).ravel()
+    py = (grid[None, :] + rng.integers(-step // 4, step // 4 + 1, (side, side))).ravel()
+    i0 = rng.uniform(0.5, 5.0, px.size)
+    alpha = rng.uniform(-1.2, 0.3, px.size)
+    crpix = npix / 2 + 1.0
+    # the factory's beam: cos³(65 ν[GHz] r) clipped at 1.0881 rad
+    # the file's array is (band, m, l) — NAXIS1 (l) fastest — and the
+    # fitter's maps are read back in the same layout: a component at
+    # [px, py] lies at l of py and m of px
+    l = np.deg2rad((py + 1 - crpix) * -cell)  # noqa: E741
+    m = np.deg2rad((px + 1 - crpix) * cell)
+    r = np.hypot(l, m)
+    beam = np.cos(np.minimum(65 * freqs[:, None] * 1e-9 * r, 1.0881)) ** 3
+    cube = np.zeros((nband, npix, npix))
+    cube[:, px, py] = i0 * (freqs[:, None] / ref_freq) ** alpha * beam
+    cards = [
+        ("CTYPE1", "RA---SIN"), ("CUNIT1", "deg"),
+        ("CRPIX1", crpix), ("CDELT1", -cell), ("CRVAL1", 0.0),
+        ("CTYPE2", "DEC--SIN"), ("CUNIT2", "deg"),
+        ("CRPIX2", crpix), ("CDELT2", cell), ("CRVAL2", 0.0),
+        ("CTYPE3", "FREQ"), ("CUNIT3", "Hz"),
+        ("CRPIX3", 1.0 + (ref_freq - freqs[0]) / (freqs[1] - freqs[0])),
+        ("CDELT3", freqs[1] - freqs[0]), ("CRVAL3", ref_freq),
+        ("CTYPE4", "STOKES"),
+        ("BMAJ", 3 * cell), ("BMIN", 2 * cell), ("BPA", 30.0),
+    ]
+    model = os.path.join(path, "model.fits")
+    resid = os.path.join(path, "resid.fits")
+    write_fits(model, cube.reshape(1, nband, npix, npix), cards)
+    del cube
+    write_fits(resid, rng.normal(scale=1e-4, size=(1, nband, npix, npix)), cards)
+    schema = os.path.join(path, "beam_$(corr)_$(reim).fits")
+    beam_factory(schema=schema, rng=np.random.default_rng(seed))
+    return model, resid, schema, (px, py, i0, alpha)
+
+
+def other_examples(device, card):
+    """Phase 28: the other ten examples on the card through their library
+    functions, each example's own check, its launches and time. Returns
+    their launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from africanus_tpu_torch.examples import (
+        apply_gains, custom_rime_term, fit_spi, make_dirty, predict_dft,
+        predict_from_fits, predict_shapelet, predict_wsclean, selfcal,
+        spi_fitter_cube,
+    )
+    from africanus_tpu_torch.gridding.wgridder.core import grid_to_image, make_plan
+    from africanus_tpu_torch.ops import cuda_beam as cb
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+    from africanus_tpu_torch.utils.fits import read_fits
+
+    cpu = torch.device("cpu")
+    total, lines = {}, []
+
+    def on_card(name, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        _add(total, launches)
+        return out, seconds, launches
+
+    def report(name, seconds, launches, what):
+        lines.append(f"{name} {seconds:.2f} s, launches {launches or 'none'}: {what}")
+
+    def vs_cpu(got, want):
+        return rel_err(got.cpu().numpy() if isinstance(got, torch.Tensor) else got,
+                       want.numpy() if isinstance(want, torch.Tensor) else want)
+
+    # predict_dft at config 1
+    inputs = predict_dft.dft_inputs(**EX_DFT)
+    vis, sec, n = on_card("predict_dft", lambda: predict_dft.predict_dft(**inputs,
+                                                                        device=device))
+    err = vs_cpu(vis, predict_dft.predict_dft(**inputs, device=cpu))
+    check(tuple(vis.shape) == (2016, EX_DFT["nchan"], 2) and n.get("dft_forward") == 1,
+          f"predict_dft {tuple(vis.shape)} {n}")
+    check(err <= DFT_BOUND, f"predict_dft vs CPU {err:.3e}")
+    report("predict_dft", sec, n, f"{tuple(vis.shape)} vs CPU {err:.2e} ({DFT_BOUND})")
+
+    # make_dirty at 1024² from 1M rows x 4 channels
+    nx = EX_DIRTY["nx"]
+    uvw, freq, cell, srcs = make_dirty.dirty_inputs(nx, EX_DIRTY["nrow"])
+    vis = make_dirty.point_source_vis(uvw, freq, cell, srcs, device)
+    dirty, sec, n = on_card("make_dirty", lambda: make_dirty.make_dirty(uvw, freq, vis,
+                                                                        nx, cell))
+    dirty = dirty.cpu().numpy()
+    nvis = EX_DIRTY["nrow"] * make_dirty.NCHAN
+    got = [dirty[nx // 2 + x, nx // 2 + y] / nvis for x, y, _ in srcs]
+    check(all(abs(v - a) < 0.1 * a for v, (_, _, a) in zip(got, srcs)),
+          f"make_dirty recovered {got}")
+    check(np.unravel_index(np.argmax(dirty), dirty.shape) == (nx // 2, nx // 2),
+          "make_dirty peak off centre")
+    check(n.get("grid_wstack") == 1, f"make_dirty launches {n}")
+    # its grid against the plain version on the same (cached) plan, and its
+    # image against the one made from the plain grid
+    plan = make_plan(uvw, freq, nx, nx, cell, cell, make_dirty.EPSILON, True,
+                     torch.float32, device)
+    g = _grid_vs_plain("make_dirty", plan, vis.reshape(-1).contiguous())
+    dirty_err = rel_err(dirty, grid_to_image(plan, g.pop("oracle")).cpu().numpy())
+    check(dirty_err <= WGRID_BOUND, f"make_dirty image vs the float64-sum grid's: "
+          f"{dirty_err:.3e}")
+    report("make_dirty", sec, n, f"{nx}² from {nvis} vis ({plan.wgrid.nplanes} planes), "
+           "recovered " + "/".join(f"{v:.3f}" for v in got) + " (within 10%), peak at "
+           f"centre; grid: {_grid_line(g)}; image vs the float64-sum grid's "
+           f"{dirty_err:.2e} ({WGRID_BOUND})")
+    del vis, plan, g
+
+    # spi_fitter_cube with --beammodel at 8 x 4096²
+    c = EX_CUBE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cube_")
+    try:
+        t0 = time.perf_counter()
+        model, resid, schema, (px, py, i0, alpha) = spi_cube_problem(tmp, **c)
+        setup = time.perf_counter() - t0
+        fit, sec, n = on_card("spi_fitter_cube", lambda: spi_fitter_cube.fit_cube(
+            model, resid, os.path.join(tmp, "out-"), threshold=50.0, beammodel=schema,
+            device=device))
+        _, alpha_map = read_fits(os.path.join(tmp, "out-alpha.fits"))
+        _, i0_map = read_fits(os.path.join(tmp, "out-I0.fits"))
+        # the beam kernels against their plain versions on the operands
+        # this run gives them (the primary beam evaluated again)
+        hdr, _ = read_fits(model)
+        l_coord, m_coord, freqs = spi_fitter_cube.parse_cube_header(hdr)[:3]
+        ops = {}
+        spi_fitter_cube.evaluate_primary_beam(schema, fit.maskindices, l_coord, m_coord,
+                                              freqs, device, operands=ops)
+        beam_errs = {}
+        for name, kernel, plain in (("beam_interp", cb.beam_interp,
+                                     cb.beam_interp_reference),
+                                    ("beam_blend", cb.beam_blend,
+                                     cb.beam_blend_reference)):
+            check(name in ops, f"spi_fitter_cube: the beam route ran no {name}")
+            got, want = kernel(*ops[name]), plain(*ops[name])
+            beam_errs[name] = float((got - want).abs().max() / want.abs().max())
+            check(beam_errs[name] <= BEAM_BOUND,
+                  f"spi_fitter_cube {name} vs plain: {beam_errs[name]:.3e}")
+        nsamp = ops["beam_interp"][1].shape[0]
+        del ops, got, want
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a_err = float(np.abs(alpha_map[px, py] - alpha).max())
+    check(a_err < EX_ALPHA_BOUND, f"spi_fitter_cube α vs the truth {a_err:.3e}")
+    check(bool((i0_map[px, py] > 0.5 * i0).all()), "spi_fitter_cube I0 below half")
+    check(n.get("beam_interp") == 1 and n.get("beam_blend") == 1,
+          f"spi_fitter_cube launches {n}")
+    report("spi_fitter_cube", sec, n,
+           f"{c['nband']} x {c['npix']}² float64, {c['ncomp']} components "
+           f"({fit.maskindices.shape[0]} pixels fitted), inputs written in {setup:.1f} s, "
+           "stages " + ", ".join(f"{k} {v:.2f}" for k, v in fit.stage_seconds.items())
+           + f"; α at the components vs the truth {a_err:.2e} ({EX_ALPHA_BOUND}) with "
+           f"the beam model divided out (chan-invariant route); at its {nsamp} samples "
+           + ", ".join(f"{k} vs plain {v:.2e}" for k, v in beam_errs.items())
+           + f" ({BEAM_BOUND})")
+    del fit
+    torch.cuda.empty_cache()
+
+    # the rest at the JAX examples' defaults
+    obs = selfcal.observation()
+    run, sec, n = on_card("selfcal", lambda: selfcal.selfcal(obs, device))
+    peak = np.unravel_index(int(torch.argmax(run.clean)), tuple(run.clean.shape))
+    check(peak == (selfcal.NPIX // 2, selfcal.NPIX // 2) and run.iterations < 60,
+          f"selfcal CLEAN peak {peak}, {run.iterations} iterations")
+    check(n.get("dft_forward") == 1 and n.get("grid_wstack") == 2, f"selfcal {n}")
+    report("selfcal", sec, n, f"{run.iterations} GN iterations, CLEAN peak at centre")
+
+    (vis, fixed, k), sec, n = on_card("apply_gains", lambda: apply_gains.apply_and_undo(
+        **apply_gains.gain_inputs(), device=device))
+    err = float((fixed - k).abs().max() / k.abs().max())
+    check(err < 1e-5, f"apply_gains {err:.3e}")
+    report("apply_gains", sec, n, f"corrected vs uncorrupted {err:.2e} (1e-5)")
+
+    ds = custom_rime_term.dataset()
+    vis, sec, n = on_card("custom_rime_term",
+                          lambda: custom_rime_term.custom_rime(ds, device))
+    err = float((vis - custom_rime_term.explicit(ds, device)).abs().max()
+                / vis.abs().max())
+    check(err < 1e-6, f"custom_rime_term {err:.3e}")
+    report("custom_rime_term", sec, n, f"float64 vs the explicit sum {err:.2e} (1e-6)")
+
+    from africanus_tpu_torch.examples.predict_to_ms_store import DEMO_MODEL
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_model_"), "demo.txt")
+    try:
+        with open(path, "w") as fh:
+            fh.write(DEMO_MODEL)
+        _, sky = predict_wsclean.sky_model(path)
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    uvw, freq = predict_wsclean.observation()
+    vis, sec, n = on_card("predict_wsclean", lambda: predict_wsclean.predict_wsclean(
+        sky, uvw, freq, device))
+    err = vs_cpu(vis, predict_wsclean.predict_wsclean(sky, uvw, freq, cpu, torch.float64))
+    check(err <= EX_PLAIN_BOUND and n.get("predict_kb") == 1, f"predict_wsclean {err} {n}")
+    report("predict_wsclean", sec, n, f"vs CPU float64 {err:.2e} ({EX_PLAIN_BOUND})")
+
+    sinputs = predict_shapelet.shapelet_inputs()
+    vis, sec, n = on_card("predict_shapelet", lambda: predict_shapelet.predict_shapelet(
+        **sinputs, device=device))
+    err = vs_cpu(vis, predict_shapelet.predict_shapelet(**sinputs, device=cpu,
+                                                        dtype=torch.float64))
+    check(err <= EX_SHAPELET_BOUND, f"predict_shapelet vs CPU float64 {err:.3e}")
+    report("predict_shapelet", sec, n, f"vs CPU float64 {err:.2e} ({EX_SHAPELET_BOUND})")
+
+    rng = np.random.default_rng(0)
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_fits_"), "demo.fits")
+    try:
+        predict_from_fits.write_demo_model(path, rng)
+        flux, lm = predict_from_fits.fits_components(path)
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    uvw, freq = predict_from_fits.observation(rng)
+    vis, sec, n = on_card("predict_from_fits", lambda: predict_from_fits.predict_from_fits(
+        flux, lm, uvw, freq, device=device))
+    err = vs_cpu(vis, predict_from_fits.predict_from_fits(flux, lm, uvw, freq, device=cpu))
+    check(np.abs(vis).max() <= flux.sum() * (1 + 1e-4) and err <= DFT_BOUND
+          and n.get("dft_forward") == 3, f"predict_from_fits {err:.3e} {n}")
+    report("predict_from_fits", sec, n, f"|V| ≤ total flux, vs CPU {err:.2e} ({DFT_BOUND})")
+
+    data, weights, freqs, alpha_true, _ = fit_spi.spectra()
+    out, sec, n = on_card("fit_spi", lambda: fit_spi.fit_spi(data, weights, freqs, device))
+    want = fit_spi.fit_spi(data, weights, freqs, cpu)
+    a_err = float((out[0].cpu() - want[0]).abs().max())
+    mean_err = float(np.abs(out[0].cpu().double().numpy() - alpha_true).mean())
+    check(a_err <= 1e-4 and mean_err < 0.01, f"fit_spi α {a_err:.3e} {mean_err:.3e}")
+    report("fit_spi", sec, n, f"α vs CPU {a_err:.2e} (1e-4), mean α error {mean_err:.4f}")
+
+    print(f"[28/{PHASES}] the other examples on {card}: " + " | ".join(lines), flush=True)
+    return total
+
+
 def main():
     import torch
 
@@ -2897,6 +3511,14 @@ def main():
     for entry in kernels:
         entry["launches"] += store.get(entry["name"], 0)
     sky_tail(device, card)
+
+    # 26-28. the application layer: GP gains, the two store pipelines and
+    # the other ten examples, each path's launches counted in the kernels
+    # line
+    for path in (gp_gains, store_examples, other_examples):
+        launched = path(device, card)
+        for entry in kernels:
+            entry["launches"] += launched.get(entry["name"], 0)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

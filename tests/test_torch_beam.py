@@ -179,6 +179,21 @@ def test_beam_cube_dde_checks():
         beam_cube_dde_fr(_t(args[0][..., 0, :]), *[_t(a) for a in args[1:]])
 
 
+def test_port_beam_cube_dde_hands_out_its_kernel_operands():
+    """``operands`` receives each wrapper's positional operands: on the
+    chan-invariant route, beam_interp's raw sums feed beam_blend, whose
+    output is the result."""
+    from africanus_tpu_torch.ops import cuda_beam as cb
+
+    args = _f32(_problem("invariant"))
+    ops = {}
+    got = beam_cube_dde(_t(args[0]), *[_t(a) for a in args[1:]], operands=ops)
+    assert set(ops) == {"beam_interp", "beam_blend"}
+    raw = cb.beam_interp(*ops["beam_interp"])
+    assert torch.equal(raw, ops["beam_blend"][0])
+    assert torch.equal(cb.beam_blend(*ops["beam_blend"]).reshape(got.shape), got)
+
+
 # ------------------------------------------------------------ small modules
 
 def test_freq_grid_interp_matches_jax():

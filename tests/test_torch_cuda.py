@@ -1185,3 +1185,233 @@ def test_stream_rows_on_card_matches_cpu(device):
                         combine="sum", device=device)
     assert total.device.type == "cuda"
     np.testing.assert_allclose(total.cpu().numpy(), x.sum(0), rtol=1e-12)
+
+
+# ------------------------------------------------- the application layer
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_kron_products_on_card_match_cpu(device, dtype, bound):
+    from africanus_tpu_torch.linalg import (
+        kron_matmat, kron_matvec, kron_tensormat, kron_tensorvec,
+    )
+
+    rng = np.random.default_rng(31)
+    sq = [torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype) for n in (16, 64, 8)]
+    rect = [torch.as_tensor(rng.normal(size=s), dtype=dtype) for s in ((8, 16), (32, 64))]
+    b = torch.as_tensor(rng.normal(size=(16 * 64 * 8, 5)), dtype=dtype)
+    c = torch.as_tensor(rng.normal(size=(16 * 64, 3)), dtype=dtype)
+    for fn, factors, x in ((kron_matvec, sq, b[:, 0]), (kron_matmat, sq, b),
+                           (kron_tensorvec, rect, c[:, 0]), (kron_tensormat, rect, c)):
+        got = fn([f.to(device) for f in factors], x.to(device))
+        assert got.device.type == "cuda"
+        _rel_close(got, fn(factors, x), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kron_cholesky_retry_on_card(device, dtype):
+    """The first factor fails (info > 0) and the 1e6× jitter retry is
+    selected on the card, with no host sync; the CPU selects the same."""
+    from africanus_tpu_torch.linalg import kron_cholesky
+
+    eps = torch.finfo(dtype).eps
+    bad = torch.ones((4, 4), dtype=dtype) - 1e4 * eps * torch.eye(4, dtype=dtype)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.normal(size=(6, 6)), dtype=dtype)
+    good = x @ x.T + 6 * torch.eye(6, dtype=dtype)
+    got = kron_cholesky([bad.to(device), good.to(device)])
+    want = kron_cholesky([bad, good])
+    bound = 1e-12 if dtype == torch.float64 else 1e-5
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _rel_close(g, w, bound)
+
+
+def _example_launches(fn):
+    from africanus_tpu_torch.examples.launches import counts, since
+
+    before = counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, since(before)
+
+
+@pytest.mark.cuda
+def test_generate_gains_on_card_matches_cpu(device):
+    from africanus_tpu_torch.examples import generate_gains as ex
+
+    rng = np.random.default_rng(42)
+    t, nu, src = ex.example_coordinates(rng, 16, 8, 3)
+    xi = rng.normal(size=(7, 16 * 8 * 3))
+    for dtype, bound in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        got = ex.gp_phase_gains(t, nu, src, 7, xi=xi, device=device, dtype=dtype)
+        want = ex.gp_phase_gains(t, nu, src, 7, xi=xi, device="cpu", dtype=dtype)
+        _rel_close(got.gains, want.gains, bound)
+    gen = torch.Generator(device=device).manual_seed(1)
+    drawn = ex.gp_phase_gains(t, nu, src, 7, generator=gen, device=device)
+    assert drawn.gains.device.type == "cuda"
+    assert float((drawn.gains.abs() - 1).abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_predict_dft_example_on_card(device):
+    from africanus_tpu_torch.examples import predict_dft as ex
+
+    inputs = ex.dft_inputs(nsrc=20, nant=7, nchan=64, ntime=4)
+    got, n = _example_launches(lambda: ex.predict_dft(**inputs, device=device))
+    assert n == {"dft_forward": 1}
+    _rel_close(got, ex.predict_dft(**inputs, device="cpu"), 3e-6)
+
+
+@pytest.mark.cuda
+def test_make_dirty_example_on_card(device):
+    from africanus_tpu_torch.examples import make_dirty as ex
+
+    uvw, freq, cell, srcs = ex.dirty_inputs(64, 3000)
+    vis = ex.point_source_vis(uvw, freq, cell, srcs, device)
+    got, n = _example_launches(lambda: ex.make_dirty(uvw, freq, vis, 64, cell))
+    assert n == {"grid_wstack": 1}
+    _rel_close(got, ex.make_dirty(uvw, freq, vis.cpu(), 64, cell), 1e-5)
+
+
+@pytest.mark.cuda
+def test_selfcal_example_on_card(device):
+    from africanus_tpu_torch.examples import selfcal as ex
+
+    obs = ex.observation(nant=8, ntime=4)
+    run, n = _example_launches(lambda: ex.selfcal(obs, device))
+    assert n == {"dft_forward": 1, "grid_wstack": 2}
+    peak = np.unravel_index(int(torch.argmax(run.clean)), tuple(run.clean.shape))
+    assert peak == (ex.NPIX // 2, ex.NPIX // 2)
+    _rel_close(run.dirty, ex.selfcal(obs, "cpu").dirty, 1e-4)
+
+
+@pytest.mark.cuda
+def test_selfcal_ms_store_example_on_card(device, tmp_path):
+    """At 160 channels the model takes predict_kb; the gain products meet
+    the example's bound, and MODEL_DATA (2e-6, predict_kb's compensated
+    bound), CORRECTED_DATA (1e-5) and the normalised dirty image (1e-4,
+    as the selfcal example's) are what the CPU makes."""
+    from africanus_tpu_torch.examples import selfcal_ms_store as ex
+    from africanus_tpu_torch.io import MSStore
+
+    stores = {}
+    for dev in (device, "cpu"):
+        path = tmp_path / str(dev)
+
+        def pipeline():
+            true_phase = ex.make_corrupted_store(path, np.random.default_rng(17), 12, 4,
+                                                 160, 4, dev)
+            return ex.selfcal_ms_store(path, true_phase, dev)
+
+        run, n = _example_launches(pipeline)
+        assert run.gain_error < ex.GAIN_BOUND
+        store = MSStore(path)
+        stores[str(dev)] = (n, store.read("MODEL_DATA"), store.read("CORRECTED_DATA"),
+                            run.dirty.cpu())
+    assert stores[str(device)][0] == {"predict_kb": 1, "grid_wstack": 2}
+    for i, bound in ((1, 2e-6), (2, 1e-5)):
+        _rel_close(torch.as_tensor(stores[str(device)][i]),
+                   torch.as_tensor(stores["cpu"][i]), bound)
+    _rel_close(stores[str(device)][3], stores["cpu"][3], 1e-4)
+
+
+@pytest.mark.cuda
+def test_apply_phase_screen_example_on_card(device, tmp_path):
+    from africanus_tpu_torch.examples import apply_phase_screen_ms_store as ex
+    from africanus_tpu_torch.io import MSStore
+
+    data = {}
+    for dev in (device, "cpu"):
+        rng = np.random.default_rng(23)
+        path = tmp_path / str(dev)
+        ex.fabricate_store(path, rng)
+        run = ex.apply_phase_screen(path, rng, dev)
+        _, _, err = ex.calibrate(path, run.phases, dev)
+        assert err < ex.SCREEN_BOUND
+        data[str(dev)] = MSStore(path).read("DATA")
+    _rel_close(torch.as_tensor(data[str(device)]), torch.as_tensor(data["cpu"]), 1e-6)
+
+
+@pytest.mark.cuda
+def test_predict_wsclean_example_on_card(device, tmp_path):
+    from africanus_tpu_torch.examples import predict_wsclean as ex
+
+    model = tmp_path / "demo.txt"
+    model.write_text(ex.DEMO_MODEL)
+    _, sky = ex.sky_model(model)
+    uvw, freq = ex.observation()
+    got, n = _example_launches(lambda: ex.predict_wsclean(sky, uvw, freq, device))
+    assert n == {"predict_kb": 1}
+    _rel_close(got.to(torch.complex128),
+               ex.predict_wsclean(sky, uvw, freq, "cpu", torch.float64), 1e-5)
+
+
+@pytest.mark.cuda
+def test_predict_from_fits_example_on_card(device, tmp_path):
+    from africanus_tpu_torch.examples import predict_from_fits as ex
+
+    rng = np.random.default_rng(0)
+    ex.write_demo_model(tmp_path / "m.fits", rng)
+    flux, lm = ex.fits_components(tmp_path / "m.fits")
+    uvw, freq = ex.observation(rng)
+    got, n = _example_launches(
+        lambda: ex.predict_from_fits(flux, lm, uvw, freq, device=device))
+    assert n == {"dft_forward": 3}
+    want = ex.predict_from_fits(flux, lm, uvw, freq, device="cpu")
+    assert np.abs(got - want).max() <= 3e-6 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_spi_fitter_cube_beammodel_on_card(device, tmp_path):
+    """--beammodel on the card: the chan-invariant route, one beam_interp
+    and one beam_blend launch; the maps as the CPU's."""
+    from test_torch_examples_io import spi_cube
+
+    from africanus_tpu_torch.examples import spi_fitter_cube as ex
+
+    model, resid = spi_cube(tmp_path, "beam_$(corr)_$(reim).fits")
+    fits = {}
+    for dev in (device, "cpu"):
+        run, n = _example_launches(lambda: ex.fit_cube(
+            str(model), str(resid), str(tmp_path / f"{dev}-"), threshold=50.0,
+            beammodel=str(tmp_path / "beam_$(corr)_$(reim).fits"), device=dev))
+        fits[str(dev)] = (run, n)
+    assert fits[str(device)][1] == {"beam_interp": 1, "beam_blend": 1}
+    for letter in ("a", "I"):
+        _rel_close(fits[str(device)][0].maps[letter], fits["cpu"][0].maps[letter], 1e-5)
+
+
+@pytest.mark.cuda
+def test_examples_without_kernels_on_card_match_cpu(device):
+    """apply_gains, custom_rime_term, predict_shapelet and fit_spi are
+    torch operations on the card: no launch, the CPU's results."""
+    from africanus_tpu_torch.examples import (
+        apply_gains, custom_rime_term, fit_spi, predict_shapelet,
+    )
+
+    inputs = apply_gains.gain_inputs()
+    (vis, fixed, k), n = _example_launches(
+        lambda: apply_gains.apply_and_undo(**inputs, device=device))
+    assert n == {} and float((fixed - k).abs().max() / k.abs().max()) < 1e-5
+    _rel_close(vis, apply_gains.apply_and_undo(**inputs, device="cpu")[0], 1e-5)
+    ds = custom_rime_term.dataset()
+    got = custom_rime_term.custom_rime(ds, device)
+    _rel_close(got, custom_rime_term.explicit(ds, "cpu"), 1e-12)
+    sin = predict_shapelet.shapelet_inputs()
+    _rel_close(predict_shapelet.predict_shapelet(**sin, device=device),
+               predict_shapelet.predict_shapelet(**sin, device="cpu"), 1e-5)
+    data, weights, freqs, _, _ = fit_spi.spectra()
+    got = fit_spi.fit_spi(data, weights, freqs, device)
+    want = fit_spi.fit_spi(data, weights, freqs, "cpu")
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_examples_default_to_the_card(device, capsys):
+    from africanus_tpu_torch.examples import apply_gains
+
+    apply_gains.main([])
+    out = capsys.readouterr().out
+    assert torch.cuda.get_device_name(0) in out

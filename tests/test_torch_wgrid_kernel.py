@@ -82,6 +82,28 @@ def test_grid_matches_pallas_kernels(w):
         assert_allclose(got.imag, np.asarray(ref_im), rtol=2e-5, atol=2e-5)
 
 
+def test_port_grid_reference_float64_sums():
+    """``accumulate=torch.float64`` sums the float32 plan's taps times the
+    values, each product exact, in float64: a dense numpy sum of the same
+    products; the default sums in the plan's dtype."""
+    rng = np.random.default_rng(7)
+    w = 6
+    port, _ = _plans(rng, 300, w)
+    vis = torch.complex(torch.as_tensor(rng.normal(size=300).astype(np.float32)),
+                        torch.as_tensor(rng.normal(size=300).astype(np.float32)))
+    got = cw.grid_wstack_reference(port, vis, accumulate=torch.float64)
+    assert got.dtype == torch.complex128
+    want = np.zeros(NPLANES * NU * NV, np.complex128)
+    for lo, hi, sel in cw._chunks(port):
+        idx, wj = cw._chunk_taps(port, lo, hi)
+        v = vis[sel].numpy().astype(np.complex128)
+        np.add.at(want, idx.numpy().ravel(), (v[None, :] * wj.numpy().astype(np.float64)).ravel())
+    assert_allclose(got.numpy().ravel(), want, rtol=1e-13, atol=1e-13)
+    f32 = cw.grid_wstack_reference(port, vis)
+    assert f32.dtype == torch.complex64
+    assert np.abs(f32.numpy().ravel() - want).max() <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("w", [4, 6, 8])
 def test_degrid_matches_pallas_kernels(w):
     rng = np.random.default_rng(200 + w)
