@@ -46,7 +46,8 @@ from africanus_tpu_torch.ops.es import es_torch
 from africanus_tpu_torch.utils.plancache import LRUCache, content_key
 
 __all__ = ["grid_adjoint", "degrid", "es_kernel", "kernel_taper", "make_plan",
-           "build_plan", "ImagingPlan", "grid_to_image", "image_to_grid"]
+           "build_plan", "plan_geometry", "ImagingPlan", "grid_to_image",
+           "image_to_grid"]
 
 _SIGMA = 2  # oversampling factor
 
@@ -194,16 +195,41 @@ class ImagingPlan(nn.Module):
         self.register_buffer("screen", screen, persistent=False)
 
 
+def plan_geometry(uvw, freq, nx, ny, cellx, celly, epsilon,
+                  do_wstacking=True):
+    """The grid geometry of a problem — grid sizes, the w-plane layout
+    (nplanes, w0, dw, from the extent of ``uvw``'s w), the kernel's
+    support and shape, the tapers — as a dict, planned on the host. A
+    :func:`build_plan` given it as ``geometry`` plans only its own rows'
+    samples on that grid: how row shards share one w-stack. The dict
+    records the problem it was planned for under ``"problem"``, which
+    :func:`build_plan` checks."""
+    p = _plan(_host(uvw), _host(freq), nx, ny, cellx, celly, epsilon,
+              do_wstacking)
+    p["problem"] = (nx, ny, cellx, celly, epsilon, bool(do_wstacking))
+    return p
+
+
 def build_plan(uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking=True,
-               dtype=torch.float32, device="cuda"):
+               dtype=torch.float32, device="cuda", geometry=None):
     """Build an :class:`ImagingPlan` — grid sizes, w-planes, tapers and
     the per-sample geometry, planned in float64 on the host from concrete
     ``uvw`` (row, 3) and ``freq`` (chan,) — on ``device`` (the card unless
     the caller asks for ``"cpu"``; raises where there is no card), in
-    ``dtype`` (float32 or float64). Not cached: :func:`make_plan` is."""
+    ``dtype`` (float32 or float64). With ``geometry`` (a
+    :func:`plan_geometry` of other rows, e.g. the whole observation's,
+    with the same image, cells, epsilon and w-stacking) the grid,
+    w-planes and tapers are its, and only the samples are planned from
+    ``uvw``; a geometry planned for another image, cell, epsilon or
+    w-stacking raises ValueError. Not cached: :func:`make_plan` is."""
+    problem = (nx, ny, cellx, celly, epsilon, bool(do_wstacking))
+    if geometry is not None and geometry.get("problem") != problem:
+        raise ValueError(f"geometry planned for (nx, ny, cellx, celly, epsilon, "
+                         f"do_wstacking) = {geometry.get('problem')}, not {problem}")
     device = plan_device(device)
     uvw, freq = _host(uvw), _host(freq)
-    p = _plan(uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking)
+    p = geometry if geometry is not None else _plan(
+        uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking)
     u_l, v_l, w_l = _wavelength_coords(uvw.astype(np.float64),
                                        freq.astype(np.float64))
     geo = sample_geometry(u_l, v_l, w_l, p["nu"], p["nv"], cellx, celly,

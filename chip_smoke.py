@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's ten paths — the flagship RIME predict at a MeerKAT-64
+Drives the port's paths — the flagship RIME predict at a MeerKAT-64
 full-band size, one config-5 selfcal step at SKA-mid width, config-4
 w-stacked imaging, the config-3 beam DDE chain, the nifty-API gridder,
 the Perley-polyhedron facet gridder, the averagers (BDA and
 time-and-channel), the fused RIME, the WSClean predict from an MS-shaped
 store to MODEL_DATA, the sky-model terms (Zernike DDEs, shapelets,
-SPI fitting) and the application layer (GP phase gains, the examples) —
-and checks them, in twenty-eight phases that each print one line (some
-several):
+SPI fitting), the application layer (GP phase gains, the examples) and
+the sharded entry points over a device mesh — and checks them, in
+twenty-nine phases that each print one line (some several):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu,
@@ -177,7 +177,27 @@ several):
    selfcal, apply_gains, custom_rime_term, predict_wsclean,
    predict_shapelet, predict_from_fits and fit_spi at the JAX examples'
    defaults, each example's check (or the card against the CPU), its
-   launches and seconds.
+   launches and seconds;
+29. the sharded paths (africanus_tpu_torch.parallel) on a mesh of 8 shards
+   of the card ([cuda:0] * 8) and on the default make_mesh() (the card
+   alone), each against the unsharded call: sharded_im_to_vis and
+   sharded_vis_to_im at config 1 (100 sources, KAT-7 x 96 dumps = 2016
+   rows, 64 channels) and at the config-5 shape (38612 rows padded to
+   38616), 1e-6 of max and the DFT's 3e-6; sharded_rime_predict at the
+   flagship chunk in float64 on a (4, 2) row x chan mesh against one
+   shard (1e-10) and predict_kb (5e-6), and sharded_im_to_vis there
+   (predict_kb a shard); config-4 dirty, PSF, degrid and residual on one
+   geometry planned from the full uvw (1e-5), grid_wstack 8 launches a
+   dirty image; the PP facet gridder and degridder (1e-5); config-5
+   residual_vis (rtol 1e-12) and gauss_newton (gain products 1e-8) on 2
+   shards of its 2 time bins; bda and time_and_channel at MeerKAT-64 1K
+   on 8 shards of 2 dumps, each shard bitwise its averager's call on its
+   rows, padding inert, peak memory; the config-3 chan-invariant E·F leg
+   on 4 channel shards (rtol 1e-5, atol 1e-6); one shard of each kernel
+   against its plain version; the sums and the shards rerun bitwise; the
+   sharded calls' launches counted; CUDA-event medians beside the
+   unsharded calls' (on one card the shards run one after another: the
+   cost of sharding, no speed-up).
 
 Every failed check raises, so the exit code is non-zero; there is no
 CPU fallback. Before the last line it prints one JSON object about the
@@ -194,6 +214,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from africanus_tpu_torch.utils.profiling import FP32_RATE, HBM_RATE
 
 SEED = 2026
 NSRC, NTIME, NANT, NCHAN, NCORR = 100, 4, 64, 4096, 4
@@ -247,14 +269,14 @@ PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 # the PP gridder's conv_nn_scatter route: ~200 samples a cell
 PP_NN = dict(nrow=100_000, npix=32)
-PHASES = 28
+PHASES = 29
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
-# over HBM (3.35 TB/s) and its FP32 instructions over the FP32 pipes
-# (132 SMs x 128 lanes x 1.98 GHz = 3.35e13/s, i.e. 67 TFLOP/s as FMAs);
-# the instruction counts per work item are the kernels' own estimates
-# (the csrc/*.cu headers, PERF.md)
-HBM_RATE, FP32_RATE = 3.35e12, 3.35e13
+# over HBM (HBM_RATE, 3.35 TB/s) and its FP32 instructions over the FP32
+# pipes (FP32_RATE, 132 SMs x 128 lanes x 1.98 GHz = 3.35e13/s, i.e. 67
+# TFLOP/s as FMAs), both from the port's utils.profiling; the instruction
+# counts per work item are the kernels' own estimates (the csrc/*.cu
+# headers, PERF.md)
 PREDICT_INSTR = 65   # per (source, row, channel) term
 DFT_ADJ_INSTR = 330  # per (pixel, row, channel group of 8)
 DFT_FWD_INSTR = 220  # per (source, row, channel group of 2)
@@ -3420,6 +3442,528 @@ def other_examples(device, card):
     return total
 
 
+
+# phase 29: the sharded paths (parallel/) on one card, as meshes of 8 shards
+# of the card ([cuda:0] * 8) and the default make_mesh() (the card alone)
+SHARDS = 8
+SHARD_DFT = dict(nsrc=100, nant=7, ntime=96, nchan=64, seed=1)  # config 1
+SHARD_BOUND = 1e-6  # sharded against unsharded (not the DFT), of max
+SHARD_PREDICT_MESH = (4, 2)
+SHARD_PREDICT_BOUND = 1e-10  # the (4, 2) mesh against one shard, float64
+SHARD_PREDICT_KB_BOUND = 5e-6  # against predict_kb: the flagship's bar
+PREDICT_KB_PLAIN_BOUND = 2e-6  # a shard's predict_kb vs plain: phase 3's compensated bar
+SHARD_BEAM = 4  # channel shards of the config-3 chan-invariant leg
+SHARD_GN = dict(tol=1e-10, maxiter=50)  # tests/test_parallel.py:445-447
+
+
+def sharded_paths(device, card):
+    """Phase 29: every sharded entry point of africanus_tpu_torch.parallel
+    at full width on two meshes, 8 shards of the card and the default
+    make_mesh() (the card alone), each held against the unsharded call;
+    one shard of each kernel held against its plain version; reruns of
+    the sums bitwise; times beside the unsharded calls'. Returns the
+    sharded calls' launches."""
+    import torch
+    from africanus_tpu_torch import parallel as par
+    from africanus_tpu_torch.averaging import bda, time_and_channel
+    from africanus_tpu_torch.calibration.phase_only import gauss_newton
+    from africanus_tpu_torch.calibration.selfcal import (
+        grid_lm, make_data, selfcal_inputs,
+    )
+    from africanus_tpu_torch.calibration.utils import residual_vis
+    from africanus_tpu_torch.constants import ARCSEC2RAD
+    from africanus_tpu_torch.dft import im_to_vis, vis_to_im
+    from africanus_tpu_torch.dft.kernels import dft_plan
+    from africanus_tpu_torch.gridding import perleypolyhedron as pp
+    from africanus_tpu_torch.gridding.perleypolyhedron.kernels import (
+        kbsinc, pack_kernel,
+    )
+    from africanus_tpu_torch.gridding.wgridder.core import (
+        degrid, grid_adjoint, make_plan,
+    )
+    from africanus_tpu_torch.gridding.wgridder.imaging import imaging_inputs
+    from africanus_tpu_torch.ops import cuda_beam as cb
+    from africanus_tpu_torch.ops import cuda_dft as cd
+    from africanus_tpu_torch.ops import cuda_gridtab as gt
+    from africanus_tpu_torch.ops import cuda_wgrid as cw
+    from africanus_tpu_torch.ops.cuda_predict import predict_kb, predict_kb_reference
+    from africanus_tpu_torch.rime.beam_chain import beam_inputs
+    from africanus_tpu_torch.rime.beam_chain import from_numpy as beam_from_numpy
+    from africanus_tpu_torch.rime.flagship import from_numpy as flagship_from_numpy
+    from africanus_tpu_torch.rime.phase import phase_dot_cycles
+    from africanus_tpu_torch.testing.averaging import meerkat_inputs
+
+    mesh8 = par.make_mesh((SHARDS,), ("row",), devices=[device] * SHARDS)
+    mesh1 = par.make_mesh()
+    check(mesh1.size == 1 and mesh1.first == device, f"default mesh {mesh1}")
+    meshes = {"8 shards": mesh8, "the card": mesh1}
+    total, lines, times = {}, [], []
+
+    def counted(fn):
+        """(fn(), its launches): the counts zeroed just before, read just
+        after; added to the phase's total."""
+        torch.cuda.synchronize()
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n = read_counts()
+        _add(total, n)
+        return out, n
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            a if isinstance(a, (tuple, list)) else (a,),
+            b if isinstance(b, (tuple, list)) else (b,)))
+
+    def timed(name, sharded, unsharded, reps=5, on=None):
+        """CUDA-event medians of the sharded call on each mesh of ``on``
+        (default: 8 shards and the card) and of the unsharded call."""
+        ms = {k: cuda_median_ms(lambda m=m: sharded(m), reps=reps, warmup=1)[0]
+              for k, m in (on or meshes).items()}
+        ms["unsharded"] = cuda_median_ms(unsharded, reps=reps, warmup=1)[0]
+        times.append(f"{name} " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+    def vs_plain(name, fn, plain, ops, bound):
+        got, want = fn(*ops), plain(*ops)
+        err = rel(got, want)
+        check(err <= bound, f"{name} on a shard vs plain: {err:.3e}")
+        return err
+
+    def t(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
+
+    plain_errs = {}
+
+    # (a) the DFTs at config 1 and at the config-5 selfcal shape
+    rng = np.random.default_rng(SHARD_DFT["seed"])
+    nrow = SHARD_DFT["nant"] * (SHARD_DFT["nant"] - 1) // 2 * SHARD_DFT["ntime"]
+    f32 = np.float32
+    c1 = dict(uvw=rng.uniform(-200.0, 200.0, (nrow, 3)).astype(f32),
+              lm=rng.uniform(-0.02, 0.02, (SHARD_DFT["nsrc"], 2)).astype(f32),
+              freq=np.linspace(1.4e9, 1.5e9, SHARD_DFT["nchan"]).astype(f32),
+              image=rng.uniform(0.1, 1.0, (SHARD_DFT["nsrc"], SHARD_DFT["nchan"],
+                                           1)).astype(f32))
+    sc = selfcal_inputs(seed=SELFCAL_SEED, **SELFCAL)
+    sc.update(make_data(sc, device))
+    pad = par.pad_rows(sc["uvw"].shape[0], SHARDS)
+    s_uvw = np.concatenate([sc["uvw"], np.zeros((pad, 3), f32)])
+    s_data = sc["data"][0] + 1j * sc["data"][1]
+    s_vis = np.concatenate([s_data, np.zeros((pad,) + s_data.shape[1:], s_data.dtype)])
+    dft_cells = [
+        ("config 1", c1["image"], c1["uvw"], c1["lm"], c1["freq"], nrow),
+        (f"config 5 ({sc['uvw'].shape[0]} rows padded by {pad})", sc["image"],
+         s_uvw, sc["lm"], sc["frequency"], sc["uvw"].shape[0]),
+    ]
+    for cell, image, uvw, lm, freq, n in dft_cells:
+        img_d, lm_d, uvw_d = t(image), t(lm), t(uvw)
+        want = im_to_vis(img_d, uvw_d[:n], lm_d, freq)
+        got, launched = counted(lambda: par.sharded_im_to_vis(mesh8, image, uvw, lm_d,
+                                                               freq))
+        check(launched == {"dft_forward": SHARDS}, f"sharded im_to_vis {cell} {launched}")
+        fwd_err = rel(got[:n], want)
+        check(fwd_err <= SHARD_BOUND, f"sharded im_to_vis {cell}: {fwd_err:.3e}")
+        one = par.sharded_im_to_vis(mesh1, image, uvw, lm_d, freq)
+        one_err = rel(one[:n], want)
+        check(one_err <= SHARD_BOUND, f"one-shard im_to_vis {cell}: {one_err:.3e}")
+        # the adjoint of the data (config 5) or of the forward's output, on
+        # the pixels of a 64² image (config 5) or the sources (config 1)
+        if cell.startswith("config 5"):
+            lm_a, vis = t(grid_lm(SELFCAL_NPX)).to(torch.float32), t(s_vis)
+        else:
+            lm_a = lm_d
+            vis = torch.cat([want, torch.zeros((uvw.shape[0] - n,) + want.shape[1:],
+                                               dtype=want.dtype, device=device)])
+        flags = torch.zeros(vis.shape, dtype=torch.bool, device=device)
+        want_im = vis_to_im(vis[:n], uvw_d[:n], lm_a, freq, flags[:n])
+        got_im, launched = counted(lambda: par.sharded_vis_to_im(mesh8, vis, uvw, lm_a,
+                                                                 freq, flags))
+        check(launched == {"dft_adjoint": SHARDS}, f"sharded vis_to_im {cell} {launched}")
+        adj_err = rel(got_im, want_im)
+        check(adj_err <= DFT_BOUND, f"sharded vis_to_im {cell}: {adj_err:.3e}")
+        again = par.sharded_vis_to_im(mesh8, vis, uvw, lm_a, freq, flags)
+        check(torch.equal(again, got_im), f"sharded vis_to_im {cell}: reruns differ")
+        adj_one = rel(par.sharded_vis_to_im(mesh1, vis, uvw, lm_a, freq, flags), want_im)
+        check(adj_one <= DFT_BOUND, f"one-shard vis_to_im {cell}: {adj_one:.3e}")
+        # one shard's launches against the plain versions, on its plans
+        rows = slice(0, uvw.shape[0] // SHARDS)
+        fplan = dft_plan(uvw_d, lm_d, freq, image.shape[2])
+        aplan = dft_plan(uvw_d, lm_a, freq, vis.shape[2], adjoint=True)
+        plain_errs[f"dft_forward {cell}"] = vs_plain(
+            "dft_forward", cd.dft_forward, cd.dft_forward_reference,
+            (fplan, uvw_d[rows].contiguous(), img_d), DFT_BOUND)
+        plain_errs[f"dft_adjoint {cell}"] = vs_plain(
+            "dft_adjoint", cd.dft_adjoint, cd.dft_adjoint_reference,
+            (aplan, uvw_d[rows].contiguous(), vis[rows].contiguous()), DFT_BOUND)
+        lines.append(f"DFTs at {cell}: im_to_vis 8 shards {fwd_err:.2e}, the card "
+                     f"{one_err:.2e} ({SHARD_BOUND}); vis_to_im ({lm_a.shape[0]} "
+                     f"directions) 8 shards {adj_err:.2e}, the card {adj_one:.2e} "
+                     f"({DFT_BOUND}), reruns bitwise")
+        timed(f"im_to_vis {cell}",
+              lambda m: par.sharded_im_to_vis(m, image, uvw, lm_d, freq),
+              lambda: im_to_vis(img_d, uvw_d, lm_d, freq))
+        timed(f"vis_to_im {cell}",
+              lambda m: par.sharded_vis_to_im(m, vis, uvw, lm_a, freq, flags),
+              lambda: vis_to_im(vis, uvw_d, lm_a, freq, flags))
+    print(f"[29/{PHASES}] sharded paths: " + "; ".join(lines), flush=True)
+    lines = []
+
+    # (b) the flagship chunk: sharded_rime_predict in float64 on a (4, 2)
+    # row x chan mesh and on one shard, against predict_kb; and
+    # sharded_im_to_vis at 4096 channels (predict_kb's route)
+    chunk = slice_chunks()[0]
+    model, inputs = flagship_from_numpy(chunk, device)
+    ops = model.kernel_operands(inputs[3], inputs[4])
+    b = ops[-1]
+    lm64 = chunk[3].astype(np.float64)
+    uvw64, freq64 = chunk[4].astype(np.float64), chunk[5].astype(np.float64)
+    gs64 = chunk[9].astype(np.float64)
+    b64 = b.to(torch.complex128)
+    mesh42 = par.make_mesh(SHARD_PREDICT_MESH, devices=[device] * SHARDS)
+
+    def rime(mesh):
+        return par.sharded_rime_predict(mesh, lm64, uvw64, freq64, b64, gs64)
+
+    (got, launched), peak42 = _peak_of(lambda: counted(lambda: rime(mesh42)))
+    check(launched == {}, f"sharded_rime_predict launched {launched}")
+    check(tuple(got.shape) == (uvw64.shape[0], freq64.size, NCORR)
+          and got.dtype == torch.complex128, f"sharded_rime_predict {got.shape}")
+    one, peak1 = _peak_of(lambda: rime(mesh1))
+    one_err = rel(got, one)
+    check(one_err <= SHARD_PREDICT_BOUND, f"(4, 2) vs one shard: {one_err:.3e}")
+    check(torch.equal(rime(mesh42), got), "sharded_rime_predict reruns differ")
+    kb = predict_kb(*ops)
+    kb_err = rel(kb.to(torch.complex128), got)
+    check(kb_err <= SHARD_PREDICT_KB_BOUND, f"sharded_rime_predict vs predict_kb "
+          f"{kb_err:.3e}")
+    del one
+    lm32, uvw32, freq32 = t(chunk[3]), t(chunk[4]), chunk[5]
+    want = im_to_vis(b, uvw32, lm32, freq32)
+    got_kb, launched = counted(lambda: par.sharded_im_to_vis(mesh8, b, uvw32, lm32, freq32))
+    check(launched == {"predict_kb": SHARDS}, f"sharded im_to_vis ({NCHAN} chan) {launched}")
+    kb_shard_err = rel(got_kb, want)
+    check(kb_shard_err <= SHARD_BOUND, f"sharded im_to_vis ({NCHAN} chan) {kb_shard_err:.3e}")
+    del got_kb, want
+    # shard 0's predict_kb launch against its plain version, on the
+    # operands im_to_vis gives it (dft/kernels.py: the predict_kb route)
+    rows = slice(0, uvw32.shape[0] // SHARDS)
+    freq_d = torch.as_tensor(freq32, device=device, dtype=torch.float32)
+    kb_ops = (phase_dot_cycles(lm32.to(torch.float32).contiguous(),
+                               uvw32[rows].to(torch.float32).contiguous()),
+              None, None, freq_d, torch.zeros_like(freq_d), b)
+    plain_errs["predict_kb"] = vs_plain("predict_kb", predict_kb, predict_kb_reference,
+                                        kb_ops, PREDICT_KB_PLAIN_BOUND)
+    del kb_ops
+    lines.append(f"sharded_rime_predict at the flagship chunk ({uvw64.shape[0]} rows x "
+                 f"{freq64.size} chan x {NCORR} corr, {lm64.shape[0]} gaussian src, "
+                 f"float64) on a {SHARD_PREDICT_MESH} mesh vs one shard {one_err:.2e} "
+                 f"({SHARD_PREDICT_BOUND}), vs predict_kb {kb_err:.2e} "
+                 f"({SHARD_PREDICT_KB_BOUND}), rerun bitwise, peak {peak42 / 2**30:.2f} "
+                 f"GiB ((4, 2)) / {peak1 / 2**30:.2f} GiB (one shard); im_to_vis there "
+                 f"(predict_kb x {SHARDS}) vs unsharded {kb_shard_err:.2e}")
+    timed("sharded_rime_predict (unsharded: predict_kb)", rime,
+          lambda: predict_kb(*ops), reps=3,
+          on={f"{SHARD_PREDICT_MESH} mesh": mesh42, "the card": mesh1})
+    timed(f"im_to_vis at {NCHAN} chan", lambda m: par.sharded_im_to_vis(
+        m, b, uvw32, lm32, freq32), lambda: im_to_vis(b, uvw32, lm32, freq32))
+    del got, kb, b64, ops
+    torch.cuda.empty_cache()
+
+    # (c) config-4 imaging: dirty, PSF, degrid, residual on one geometry
+    args = imaging_inputs(**IMAGING)
+    nx, cell, uvw, freq = args["nx"], args["cell"], args["uvw"], args["freq"]
+    vis = t(args["vis"])
+    image = t(args["image"], torch.float32)
+    eps = IMAGING_EPS
+    plan = make_plan(uvw, freq, nx, nx, cell, cell, eps, True, device=device)
+    ones = torch.ones(vis.shape, dtype=torch.complex64, device=device)
+    want = {"dirty": grid_adjoint(uvw, freq, vis, None, nx, nx, cell, cell, eps, True,
+                                  plan=plan),
+            "psf": grid_adjoint(uvw, freq, ones, None, nx, nx, cell, cell, eps, True,
+                                plan=plan),
+            "degrid": degrid(uvw, freq, image, None, cell, cell, eps, True, plan=plan)}
+    want["residual"] = grid_adjoint(uvw, freq, vis - want["degrid"], None, nx, nx,
+                                    cell, cell, eps, True, plan=plan)
+    calls = {
+        "dirty": lambda m: par.sharded_dirty(m, uvw, freq, vis, nx, nx, cell, eps, True),
+        "psf": lambda m: par.sharded_psf(m, uvw, freq, nx, nx, cell, eps, True),
+        "degrid": lambda m: par.sharded_degrid(m, uvw, freq, image, cell=cell,
+                                               epsilon=eps, do_wstacking=True),
+        "residual": lambda m: par.sharded_residual(m, uvw, freq, vis, image, cell, eps,
+                                                   True),
+    }
+    expect = {"dirty": {"grid_wstack": SHARDS}, "psf": {"grid_wstack": SHARDS},
+              "degrid": {"degrid_wstack": SHARDS},
+              "residual": {"grid_wstack": SHARDS, "degrid_wstack": SHARDS}}
+    t0 = time.perf_counter()
+    plans = par.imaging.shard_plans(mesh8, uvw, freq, nx, nx, cell, eps, True,
+                                    torch.float32)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    check(all(p.wgrid.nplanes == plan.wgrid.nplanes for p in plans),
+          "shard plans: w-planes differ from the full uvw's")
+    errs = {}
+    for name, fn in calls.items():
+        got, launched = counted(lambda: fn(mesh8))
+        check(launched == expect[name], f"sharded {name} launches {launched}")
+        check(same(fn(mesh8), got), f"sharded {name}: reruns differ")
+        errs[name] = rel(got, want[name])
+        check(errs[name] <= WGRID_BOUND, f"sharded {name} vs unsharded: {errs[name]:.3e}")
+        one = rel(fn(mesh1), want[name])
+        check(one <= WGRID_BOUND, f"one-shard {name}: {one:.3e}")
+        errs[name + " (card)"] = one
+    rows = slice(0, uvw.shape[0] // SHARDS)
+    flat = vis[rows].reshape(-1).contiguous()
+    plain_errs["grid_wstack"] = vs_plain("grid_wstack", cw.grid_wstack,
+                                         cw.grid_wstack_reference,
+                                         (plans[0].wgrid, flat), WGRID_BOUND)
+    grid0 = cw.grid_wstack(plans[0].wgrid, flat)
+    plain_errs["degrid_wstack"] = vs_plain("degrid_wstack", cw.degrid_wstack,
+                                           cw.degrid_wstack_reference,
+                                           (plans[0].wgrid, grid0), WGRID_BOUND)
+    del grid0
+    lines.append(f"config-4 imaging ({uvw.shape[0]} rows x {freq.size} chan, {nx}², "
+                 f"{plan.wgrid.nplanes} planes; {SHARDS} shard plans on the full uvw's "
+                 f"geometry in {plan_s:.2f} s) vs unsharded: " + ", ".join(
+                     f"{k} {v:.2e}" for k, v in errs.items())
+                 + f" ({WGRID_BOUND}); reruns bitwise")
+    for name, fn in calls.items():
+        timed(f"{name} (config 4)", fn, {
+            "dirty": lambda: grid_adjoint(uvw, freq, vis, None, nx, nx, cell, cell, eps,
+                                          True, plan=plan),
+            "psf": lambda: grid_adjoint(uvw, freq, ones, None, nx, nx, cell, cell, eps,
+                                        True, plan=plan),
+            "degrid": lambda: degrid(uvw, freq, image, None, cell, cell, eps, True,
+                                     plan=plan),
+            "residual": lambda: grid_adjoint(
+                uvw, freq, vis - degrid(uvw, freq, image, None, cell, cell, eps, True,
+                                        plan=plan), None, nx, nx, cell, cell, eps,
+                True, plan=plan)}[name])
+    del want, plans, vis, ones
+
+    # (d) the PP facet cell: the sharded gridder and degridder
+    args = imaging_inputs(**FACET)
+    npix, cell_as = args["nx"], args["cell"] / ARCSEC2RAD
+    puvw, pfreq = args["uvw"].astype(np.float64), args["freq"].astype(np.float64)
+    wl = 2.99792458e8 / pfreq
+    chanmap = np.repeat(np.arange(FACET_BANDS), pfreq.size // FACET_BANDS)
+    phase_centre = (0.0, FACET_DEC)
+    image_centre = (0.0, FACET_DEC + np.deg2rad(FACET_OFFSET_DEG))
+    w, os_ = 7, 63
+    kern = pack_kernel(kbsinc(w, oversample=os_), w, os_)
+    prng = np.random.default_rng(SEED)
+    pshape = (puvw.shape[0], pfreq.size, 2)
+    pvis = t((prng.normal(size=pshape) + 1j * prng.normal(size=pshape))
+             .astype(np.complex64))
+    duvw = t(puvw)
+    gpol = ("rotate", "phase_rotate", "I_FROM_XXYY", "conv_1d_axisymmetric_packed_scatter")
+    dpol = ("rotate", "phase_rotate", "XXYY_FROM_I", "conv_1d_axisymmetric_packed_gather")
+    gargs = (wl, chanmap, npix, cell_as, image_centre, phase_centre, kern, w, os_) + gpol
+    dargs = (wl, chanmap, cell_as, image_centre, phase_centre, kern, w, os_) + dpol
+    common = (npix, cell_as, image_centre, phase_centre)
+    gplan = pp.pp_tile_plan(puvw, wl, chanmap, *common, w, os_, "rotate", "grid",
+                            torch.float32, device)
+    dplan = pp.pp_tile_plan(puvw, wl, chanmap, *common, w, os_, "rotate", "degrid",
+                            torch.float32, device)
+    want_g = pp.gridder(duvw, pvis, *gargs, tile_plan=gplan)
+    want_v = pp.degridder(duvw, want_g, *dargs, tile_plan=dplan)
+    pp_calls = {"gridder": (lambda m: par.sharded_pp_gridder(m, duvw, pvis, *gargs),
+                            want_g, {"grid_table": SHARDS}),
+                "degridder": (lambda m: par.sharded_pp_degridder(m, duvw, want_g, *dargs),
+                              want_v, {"degrid_table": SHARDS})}
+    pp_errs = {}
+    for name, (fn, want_x, n_expect) in pp_calls.items():
+        got, launched = counted(lambda: fn(mesh8))
+        check(launched == n_expect, f"sharded PP {name} launches {launched}")
+        check(torch.equal(fn(mesh8), got), f"sharded PP {name}: reruns differ")
+        pp_errs[name] = rel(got, want_x)
+        check(pp_errs[name] <= GRIDDER_BOUND, f"sharded PP {name}: {pp_errs[name]:.3e}")
+        pp_errs[name + " (card)"] = rel(fn(mesh1), want_x)
+        check(pp_errs[name + " (card)"] <= GRIDDER_BOUND, f"one-shard PP {name}")
+    sg = par.imaging._pp_shard_plans(mesh8, duvw, wl, chanmap, npix, cell_as,
+                                     image_centre, phase_centre, w, os_, "rotate",
+                                     gpol[-1], "grid", torch.float32)[0]
+    sd = par.imaging._pp_shard_plans(mesh8, duvw, wl, chanmap, npix, cell_as,
+                                     image_centre, phase_centre, w, os_, "rotate",
+                                     dpol[-1], "degrid", torch.float32)[0]
+    table = t(pp.kernels.unpack_kernel(kern, w, os_), torch.float32)
+    n = sg.ir0.shape[0]
+    stokes = t((prng.normal(size=n) + 1j * prng.normal(size=n)).astype(np.complex64))
+    plain_errs["grid_table"] = vs_plain("grid_table", gt.grid_table,
+                                        gt.grid_table_reference, (sg, table, stokes),
+                                        GRIDDER_BOUND)
+    plain_errs["degrid_table"] = vs_plain("degrid_table", gt.degrid_table,
+                                          gt.degrid_table_reference,
+                                          (sd, table, want_g.contiguous()), GRIDDER_BOUND)
+    lines.append(f"PP facet ({puvw.shape[0]} rows x {pfreq.size} chan, {npix}² x "
+                 f"{FACET_BANDS} bands) vs unsharded: " + ", ".join(
+                     f"{k} {v:.2e}" for k, v in pp_errs.items())
+                 + f" ({GRIDDER_BOUND}); reruns bitwise")
+    timed("PP gridder", pp_calls["gridder"][0],
+          lambda: pp.gridder(duvw, pvis, *gargs, tile_plan=gplan))
+    timed("PP degridder", pp_calls["degridder"][0],
+          lambda: pp.degridder(duvw, want_g, *dargs, tile_plan=dplan))
+    del want_g, want_v, pvis, duvw
+    print(f"[29/{PHASES}] sharded paths: " + "; ".join(lines), flush=True)
+    lines = []
+
+    # (e) config-5 calibration: 2 time bins over 2 shards, float64
+    mesh2 = par.make_mesh((2,), ("row",), devices=[device] * 2)
+    meta = (sc["time_bin_indices"], sc["time_bin_counts"], sc["antenna1"],
+            sc["antenna2"])
+    gains = t(np.exp(1j * sc["true_phase"].astype(np.float64)))
+    data = t(s_data.astype(np.complex128))
+    model_c = t((sc["model"][0] + 1j * sc["model"][1]).astype(np.complex128))
+    flag, weight = t(sc["flag"]), t(sc["weight"].astype(np.float64))
+    jones0 = torch.ones(gains.shape, dtype=torch.complex128, device=device)
+    want_r = residual_vis(*meta, gains, data, flag, model_c)
+    got_r, _ = counted(lambda: par.sharded_residual_vis(mesh2, *meta, gains, data,
+                                                        flag, model_c))
+    r_err = float(((got_r - want_r).abs() - 1e-12 * want_r.abs()).max())
+    check(r_err <= 1e-12, f"sharded residual_vis: {r_err:.3e} over rtol 1e-12")
+    gw = gauss_newton(*meta, jones0, data, flag, model_c, weight, **SHARD_GN)
+    gs_, _ = counted(lambda: par.sharded_gauss_newton(mesh2, *meta, jones0, data,
+                                                      flag, model_c, weight,
+                                                      **SHARD_GN))
+    a1u, a2u = np.triu_indices(SELFCAL["nant"], 1)
+
+    def prods(g):
+        g = g.cpu()
+        return g[:, a1u] * g[:, a2u].conj()
+
+    pw, pg = prods(gw[0]), prods(gs_[0])
+    gn_err = float(((pg - pw).abs() - 1e-8 * pw.abs()).max())
+    check(gn_err <= 1e-8, f"sharded gauss_newton products: {gn_err:.3e} over 1e-8")
+    lines.append(f"config-5 calibration on 2 shards of {sc['time_bin_indices'].size} "
+                 f"bins ({sc['uvw'].shape[0]} rows, float64): residual within rtol "
+                 f"1e-12 (excess {r_err:.1e}), gain products within 1e-8 (excess "
+                 f"{gn_err:.1e}), iterations {gs_[3]} (unsharded {int(gw[3])})")
+    cal_meshes = {"2 shards": mesh2, "the card": mesh1}
+    timed("residual_vis", lambda m: par.sharded_residual_vis(
+        m, *meta, gains, data, flag, model_c),
+        lambda: residual_vis(*meta, gains, data, flag, model_c), on=cal_meshes)
+    timed("gauss_newton", lambda m: par.sharded_gauss_newton(
+        m, *meta, jones0, data, flag, model_c, weight, **SHARD_GN),
+        lambda: gauss_newton(*meta, jones0, data, flag, model_c, weight, **SHARD_GN),
+        reps=3, on=cal_meshes)
+    del gains, data, model_c, flag, weight, got_r, want_r
+
+    # (f) MeerKAT-64 1K averaging: 8 shards of 2 dumps
+    om = meerkat_inputs(**MEERKAT)
+    d = {k: t(om[k]) for k in AVG_DATA if k in om}
+    rp = om["time"].size // SHARDS
+    kb = dict(visibilities=d["visibilities"], flag=d["flag"],
+              weight_spectrum=d["weight_spectrum"])
+    geo = (om["time"], om["interval"], om["antenna1"], om["antenna2"])
+
+    def avg_bda(m):
+        return par.sharded_bda(m, *geo, om["uvw"], om["chan_freq"], om["chan_width"],
+                               **kb, max_fov=om["max_fov"],
+                               decorrelation=om["decorrelation"])
+
+    tc_kw = dict(flag_row=om["flag_row"], uvw=om["uvw"], chan_freq=om["chan_freq"],
+                 chan_width=om["chan_width"], **d, **AVG_TC)
+
+    def avg_tc(m):
+        return par.sharded_time_and_channel(m, *geo, **tc_kw)
+
+    avg_lines = []
+    for name, fn, fields in (("bda", avg_bda, ("antenna1", "antenna2", "uvw",
+                                               "visibilities", "flag",
+                                               "weight_spectrum")),
+                             ("time_and_channel", avg_tc,
+                              ("antenna1", "antenna2", "uvw", "visibilities", "flag",
+                               "weight_spectrum", "sigma_spectrum"))):
+        (out, launched), peak = _peak_of(lambda: counted(lambda: fn(mesh8)))
+        check(launched == {}, f"sharded {name} launched {launched}")
+        again = fn(mesh8)
+        for k in fields:
+            check(torch.equal(getattr(out, k), getattr(again, k)),
+                  f"sharded {name} {k}: reruns differ")
+        del again
+        for s in range(SHARDS):
+            sl = slice(s * rp, (s + 1) * rp)
+            if name == "bda":
+                ref = bda(*(x[sl] for x in geo), uvw=om["uvw"][sl],
+                          chan_freq=om["chan_freq"], chan_width=om["chan_width"],
+                          **{k: v[sl] for k, v in kb.items()}, max_fov=om["max_fov"],
+                          decorrelation=om["decorrelation"])
+            else:
+                ref = time_and_channel(*(x[sl] for x in geo), flag_row=om["flag_row"][sl],
+                                       uvw=om["uvw"][sl],
+                                       **{k: v[sl] for k, v in d.items()}, **AVG_TC)
+            n = int(out.nout[s])
+            check(n == ref.time.shape[0], f"sharded {name} shard {s}: {n} outputs")
+            for k in fields:
+                x = getattr(out, k)
+                check(torch.equal(x[s, :n], getattr(ref, k)),
+                      f"sharded {name} shard {s} {k} differs from its call")
+                pad_ok = bool(x[s, n:].all()) if k == "flag" else not bool(
+                    x[s, n:].abs().sum() if x.is_floating_point() or x.is_complex()
+                    else x[s, n:].any())
+                check(pad_ok, f"sharded {name} shard {s} {k}: padding not inert")
+            del ref
+        avg_lines.append(f"{name} nout {int(out.nout.min())}-{int(out.nout.max())} a "
+                         f"shard, peak {peak / 2**30:.2f} GiB above the inputs "
+                         f"({nbytes(*d.values()) / 2**30:.2f} GiB)")
+        del out
+    lines.append(f"MeerKAT-64 1K averaging on {SHARDS} shards of {rp} rows (2 dumps): "
+                 "each shard bitwise its averager's call, padding inert, reruns "
+                 "bitwise; " + "; ".join(avg_lines))
+    timed("bda (MeerKAT-64 1K)", avg_bda, lambda: bda(
+        *geo, uvw=om["uvw"], chan_freq=om["chan_freq"], chan_width=om["chan_width"],
+        **kb, max_fov=om["max_fov"], decorrelation=om["decorrelation"]), reps=3)
+    timed("time_and_channel (MeerKAT-64 1K)", avg_tc, lambda: time_and_channel(
+        *geo, **tc_kw), reps=3)
+    del d, kb, tc_kw
+    torch.cuda.empty_cache()
+
+    # (g) the config-3 chan-invariant E·F leg on channel shards
+    bargs = beam_inputs(**BEAM)
+    chain, pa = beam_from_numpy(bargs, device)
+    want = chain(pa)
+    c = BEAM["nchan"] // SHARD_BEAM
+
+    def leg(s):
+        cs = slice(s * c, (s + 1) * c)
+        return beam_from_numpy(dict(bargs, freq=bargs["freq"][cs],
+                                    pe=bargs["pe"][:, :, cs],
+                                    asc=bargs["asc"][:, cs]), device)
+
+    legs = [leg(s) for s in range(SHARD_BEAM)]
+    got, launched = counted(lambda: torch.cat([m(p) for m, p in legs], dim=3))
+    check(launched == {"beam_interp": SHARD_BEAM, "beam_blend": SHARD_BEAM},
+          f"chan-split beam launches {launched}")
+    excess = float(((got - want).abs() - 1e-5 * want.abs()).max())
+    check(excess <= 1e-6, f"chan-split beam vs unsharded: {excess:.3e} over "
+          "rtol 1e-5 + atol 1e-6")
+    _, bops = legs[0][0].kernel_operands(legs[0][1])
+    plain_errs["beam_interp"] = vs_plain("beam_interp", cb.beam_interp,
+                                         cb.beam_interp_reference,
+                                         bops["beam_interp"], BEAM_BOUND)
+    plain_errs["beam_blend"] = vs_plain("beam_blend", cb.beam_blend,
+                                        cb.beam_blend_reference, bops["beam_blend"],
+                                        BEAM_BOUND)
+    timed("config-3 chan-invariant leg", lambda m: torch.cat(
+        [leg_m(p) for leg_m, p in legs], dim=3), lambda: chain(pa),
+        on={f"{SHARD_BEAM} channel shards": None})
+    lines.append(f"config-3 chan-invariant E·F on {SHARD_BEAM} channel shards of {c}: "
+                 f"within rtol 1e-5 + atol 1e-6 of the unsharded leg (excess "
+                 f"{excess:.1e})")
+    del got, want, legs
+
+    print(f"[29/{PHASES}] sharded paths: " + "; ".join(lines), flush=True)
+    print(f"[29/{PHASES}] one shard's kernels vs plain (relative to max): " + ", ".join(
+        f"{k} {v:.2e}" for k, v in plain_errs.items()) + f"; launches of the sharded "
+          f"calls {total}", flush=True)
+    print(f"[29/{PHASES}] sharded times on {card}, CUDA-event medians in ms (8 shards "
+          "of the card, the card as a one-device mesh, the unsharded call; on one "
+          "card the shards run one after another: the cost of sharding, no "
+          "speed-up): " + "; ".join(times), flush=True)
+    return total
+
 def main():
     import torch
 
@@ -3519,6 +4063,12 @@ def main():
         launched = path(device, card)
         for entry in kernels:
             entry["launches"] += launched.get(entry["name"], 0)
+
+    # 29. the sharded paths: every parallel/ entry point on 8 shards of the
+    # card and on the card alone, their launches counted in the kernels line
+    launched = sharded_paths(device, card)
+    for entry in kernels:
+        entry["launches"] += launched.get(entry["name"], 0)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

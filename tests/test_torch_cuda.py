@@ -1415,3 +1415,161 @@ def test_examples_default_to_the_card(device, capsys):
     apply_gains.main([])
     out = capsys.readouterr().out
     assert torch.cuda.get_device_name(0) in out
+
+
+# ------------------------------------------------- the sharded paths (parallel/)
+
+def _mesh4(device):
+    from africanus_tpu_torch.parallel import make_mesh
+
+    return make_mesh((4,), ("row",), devices=[device] * 4)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+def test_make_mesh_defaults_to_the_cards(device):
+    from africanus_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in mesh.devices.ravel())
+    assert mesh.first == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_sharded_dfts_on_card_match_unsharded(device):
+    """dft_forward, predict_kb (≥ 128 channels) and dft_adjoint, a launch
+    a shard; the sum of the shard images within the DFT's 3e-6."""
+    from africanus_tpu_torch import parallel as par
+    from africanus_tpu_torch.dft import im_to_vis, vis_to_im
+
+    rng = np.random.default_rng(29)
+    mesh = _mesh4(device)
+    for nchan, kernel in ((16, "dft_forward"), (128, "predict_kb")):
+        lm = torch.as_tensor(rng.uniform(-0.02, 0.02, (7, 2)), dtype=torch.float32,
+                             device=device)
+        uvw = rng.uniform(-500, 500, (400, 3)).astype(np.float32)
+        freq = np.linspace(1.0e9, 1.5e9, nchan).astype(np.float32)
+        image = rng.uniform(0.1, 1.0, (7, nchan, 2)).astype(np.float32)
+        got, n = _example_launches(lambda: par.sharded_im_to_vis(mesh, image, uvw, lm,
+                                                                 freq))
+        assert n == {kernel: 4}
+        want = im_to_vis(torch.as_tensor(image, device=device),
+                         torch.as_tensor(uvw, device=device), lm, freq)
+        assert _rel(got, want) <= 1e-6
+        flags = torch.zeros(want.shape, dtype=torch.bool, device=device)
+        got, n = _example_launches(lambda: par.sharded_vis_to_im(mesh, want, uvw, lm,
+                                                                 freq, flags))
+        assert n == {"dft_adjoint": 4}
+        ref = vis_to_im(want, torch.as_tensor(uvw, device=device), lm, freq, flags)
+        assert _rel(got, ref) <= 3e-6
+        assert torch.equal(got, par.sharded_vis_to_im(mesh, want, uvw, lm, freq, flags))
+
+
+@pytest.mark.cuda
+def test_sharded_imaging_on_card_matches_unsharded(device):
+    """grid_wstack / degrid_wstack a launch a shard, on the full uvw's
+    w-planes: the sharded dirty image, degrid and residual within 1e-5 of
+    max of the unsharded calls, the sums rerun bitwise."""
+    from africanus_tpu_torch import parallel as par
+    from africanus_tpu_torch.gridding.wgridder.core import (
+        degrid, grid_adjoint, make_plan,
+    )
+
+    args = imaging_inputs(nrow=4000, nchan=4, nx=64, seed=4)
+    nx, cell, uvw, freq = args["nx"], args["cell"], args["uvw"], args["freq"]
+    vis = torch.as_tensor(args["vis"], device=device)
+    image = torch.as_tensor(args["image"], dtype=torch.float32, device=device)
+    plan = make_plan(uvw, freq, nx, nx, cell, cell, 1e-4, True, device=device)
+    mesh = _mesh4(device)
+    got, n = _example_launches(lambda: par.sharded_dirty(mesh, uvw, freq, vis, nx, nx,
+                                                         cell, 1e-4, True))
+    assert n == {"grid_wstack": 4}
+    assert torch.equal(got, par.sharded_dirty(mesh, uvw, freq, vis, nx, nx, cell, 1e-4,
+                                              True))
+    want = grid_adjoint(uvw, freq, vis, None, nx, nx, cell, cell, 1e-4, True, plan=plan)
+    assert _rel(got, want) <= 1e-5
+    got, n = _example_launches(lambda: par.sharded_degrid(
+        mesh, uvw, freq, image, cell=cell, epsilon=1e-4, do_wstacking=True))
+    assert n == {"degrid_wstack": 4}
+    model = degrid(uvw, freq, image, None, cell, cell, 1e-4, True, plan=plan)
+    assert _rel(got, model) <= 1e-5
+    got = par.sharded_residual(mesh, uvw, freq, vis, image, cell, 1e-4, True)
+    want = grid_adjoint(uvw, freq, vis - model, None, nx, nx, cell, cell, 1e-4, True,
+                        plan=plan)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sharded_pp_on_card_matches_unsharded(device):
+    """grid_table / degrid_table a launch a shard, each on its own plan:
+    within 1e-5 of max of the unsharded gridder and degridder."""
+    from africanus_tpu_torch import parallel as par
+
+    rng = np.random.default_rng(30)
+    npix, cell, w, os_ = 64, 8.0, 7, 63
+    wl = 2.99792458e8 / np.array([1.0e9, 1.1e9])
+    uvw = rng.uniform(-0.4, 0.4, (400, 3)) / (npix * cell / 3600 * np.pi / 180)
+    uvw *= wl.min()
+    chanmap = np.zeros(2, np.int32)
+    kern = pp.kernels.kbsinc(w, oversample=os_)
+    vis = torch.as_tensor((rng.normal(size=(400, 2, 2))
+                           + 1j * rng.normal(size=(400, 2, 2))).astype(np.complex64),
+                          device=device)
+    centre = (0.2, -0.4)
+    gargs = (wl, chanmap, npix, cell, centre, centre, kern, w, os_, "None", "None",
+             "I_FROM_XXYY", "conv_1d_axisymmetric_unpacked_scatter")
+    mesh = _mesh4(device)
+    got, n = _example_launches(lambda: par.sharded_pp_gridder(mesh, uvw, vis, *gargs))
+    assert n == {"grid_table": 4}
+    want = pp.gridder(uvw, vis, *gargs)
+    assert _rel(got, want) <= 1e-5
+    dargs = (wl, chanmap, cell, centre, centre, kern, w, os_, "None", "None",
+             "XXYY_FROM_I", "conv_1d_axisymmetric_unpacked_gather")
+    got, n = _example_launches(lambda: par.sharded_pp_degridder(mesh, uvw, want, *dargs))
+    assert n == {"degrid_table": 4}
+    assert _rel(got, pp.degridder(uvw, want, *dargs)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sharded_calibration_and_averaging_on_card(device):
+    """The calibration residual (rtol 1e-12) and the averagers (each
+    shard bitwise its own call on the card) on shards of the card."""
+    from africanus_tpu_torch import parallel as par
+    from africanus_tpu_torch.calibration.utils import residual_vis
+
+    inputs = selfcal_inputs(nant=6, ntime=4, nchan=3, nsrc=3, ncorr=1, seed=5)
+    inputs.update(make_data(inputs, "cpu"))
+    meta = (inputs["time_bin_indices"], inputs["time_bin_counts"], inputs["antenna1"],
+            inputs["antenna2"])
+    c128 = torch.complex128
+    gains = torch.polar(torch.ones(inputs["true_phase"].shape, dtype=torch.float64),
+                        torch.as_tensor(inputs["true_phase"], dtype=torch.float64))
+    data = torch.complex(*map(torch.as_tensor, inputs["data"])).to(c128)
+    model_ = torch.complex(*map(torch.as_tensor, inputs["model"])).to(c128)
+    flag = torch.as_tensor(inputs["flag"])
+    ops = [x.to(device) for x in (gains, data, flag, model_)]
+    got = par.sharded_residual_vis(_mesh4(device), *meta, *ops)
+    want = residual_vis(*meta, gains, data, flag, model_)
+    assert np.allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+
+    om = meerkat_inputs(nant=6, ntime=8, nchan=16)
+    vis = torch.as_tensor(om["visibilities"], device=device)
+    fl = torch.as_tensor(om["flag"], device=device)
+    out = par.sharded_bda(_mesh4(device), om["time"], om["interval"], om["antenna1"],
+                          om["antenna2"], om["uvw"], om["chan_freq"], om["chan_width"],
+                          vis, flag=fl, decorrelation=om["decorrelation"])
+    rp = om["time"].size // 4
+    for s in range(4):
+        sl = slice(s * rp, (s + 1) * rp)
+        ref = bda(om["time"][sl], om["interval"][sl], om["antenna1"][sl],
+                  om["antenna2"][sl], uvw=om["uvw"][sl], chan_freq=om["chan_freq"],
+                  chan_width=om["chan_width"], visibilities=vis[sl], flag=fl[sl],
+                  decorrelation=om["decorrelation"])
+        n = int(out.nout[s])
+        assert torch.equal(out.visibilities[s, :n], ref.visibilities)
+        assert torch.equal(out.flag[s, :n], ref.flag)
+        assert bool(out.flag[s, n:].all())
