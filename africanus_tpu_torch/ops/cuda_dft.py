@@ -141,12 +141,15 @@ def _freq_rows_np(f64):
     return np.stack([f32, hh, hl, lo])
 
 
-def chan_group_tables(freq, nchan, ncorr, cap, delay_max=DELAY_MAX):
+def chan_group_tables(freq, nchan, ncorr, cap, delay_max=DELAY_MAX,
+                      x_max=_X_MAX):
     """Channel-group split and per-group scalar tables.
 
     ``freq`` holds concrete frequencies (a tensor is read on the host; an
     f64 grid is carried as two-float pairs). ``cap`` bounds cg·ncorr:
-    8 for the adjoint, 4 for the forward. Returns (cg, ngroups, mode,
+    8 for the adjoint, 4 for the forward. ``residual`` is engaged while
+    the rotation 2π·delay_max·max|δ| stays within ``x_max`` rad, the
+    range of the kernel's small-angle polynomial. Returns (cg, ngroups, mode,
     use_flo, fsm, usm): fsm is the (ngroups, 4, cg) float32 per-channel
     table ([ν, ν_hh, ν_hl, ν_lo] rows for ``direct``; [2π·δ_f, 0, 0, 0]
     for ``residual``), usm the (ngroups, 4, 2) float32 per-group
@@ -172,7 +175,7 @@ def chan_group_tables(freq, nchan, ncorr, cap, delay_max=DELAY_MAX):
     # phase at the caller's delay bound
     if _TWO_PI * dmax * float(delay_max) <= 1e-6:
         mode = "exact"
-    elif _TWO_PI * dmax * float(delay_max) <= _X_MAX:
+    elif _TWO_PI * dmax * float(delay_max) <= x_max:
         mode = "residual"
     else:
         mode = "direct"

@@ -8,32 +8,63 @@ for both (its header says what bounds it and how it is laid out):
 
     V[r,f,c] = Σ_s e^{iφ(s,r,f)} · env(s,r,f) · B[s,f,c]
 
+The Pallas kernels take a cos/sin and an exp per term. The CUDA kernels
+take the cos/sin per (source, row, channel group) instead, and at four
+correlations contract over the sources on the tensor cores: a
+:class:`PredictPlan`, made once from the concrete frequencies on the
+host, splits the channels into groups of ``cg`` ≤ 16 and chooses, by
+:func:`~africanus_tpu_torch.ops.cuda_dft.chan_group_tables`, one of the
+DFT kernels' three phase modes — ``exact`` (an even grid: the phasor at
+each group's base, then a unit-phasor recurrence by the step),
+``residual`` (``exact`` plus a small rotation by 2π·delay·δ_f per
+channel, δ_f its offset from the fitted grid, e.g. a float32 linspace's
+rounding) or ``direct`` (a phase per channel). A (source, row) pair whose
+|delay| exceeds the plan's ``delay_max`` takes the direct phase inside the
+kernel. :func:`predict_kb` finds the plan of its frequency tensor in a
+cache keyed on that tensor (:func:`plan_for`): the one host copy of the
+frequencies is taken when a tensor is first seen, so that a forward over
+fixed frequencies never waits for the card.
+
 :func:`predict_kb` launches the kernel on CUDA tensors and counts the
 launches in ``predict_kb.launches``; on CPU tensors it computes the same
-map with :func:`predict_kb_reference`, the plain PyTorch version, which
-the tests hold against both Pallas kernels and ``chip_smoke.py`` holds
-the kernel against on the card. Any S, R, F and C are accepted: the
-TPU's tile divisibility rules and padding do not carry over, and the
-kernel takes C ∈ {1, 2, 4} at a time, so another C is split into such
-groups on the card (3 = 2 + 1), one launch each, the outputs
-concatenated.
+map with :func:`predict_kb_reference`, the plain PyTorch version (the
+direct formula), which the tests hold against both Pallas kernels and
+``chip_smoke.py`` holds the kernel against on the card. Any S, R, F and
+C are accepted: the TPU's tile divisibility rules and padding do not
+carry over, and the kernel takes C ∈ {1, 2, 4} at a time, so another C is
+split into such groups on the card (3 = 2 + 1), one launch each, the
+outputs concatenated.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 
+import numpy as np
 import torch
+from torch import nn
 
 from africanus_tpu_torch.ops import _build
 from africanus_tpu_torch.ops.dfloat import frac_cycles
 
-__all__ = ["predict_kb", "predict_kb_reference", "build_predict_kb"]
+__all__ = ["predict_kb", "predict_kb_reference", "build_predict_kb",
+           "PredictPlan", "plan_for"]
 
 _SOURCES = ("predict_kb.cu",)
 # the correlation counts csrc/predict_kb.cu is instantiated for
 _KERNEL_CORRS = (1, 2, 4)
+# channels per group (csrc/predict_kb.cu's SLOTS): the recurrence's
+# float32 drift grows with the group, ~1e-7 a step; 16 steps stay well
+# inside the 2e-6 bar (tests/test_torch_predict_plan.py)
+CG_MAX = 16
+# the range (rad) of the kernel's rotation polynomial, cos to x⁴ and sin
+# to x³: both hold to 1e-7 while |x| ≤ 0.1; and of its first-order
+# rotation 1 + i·x, whose error x²/2 stays under 1e-7 while |x| ≤ 4e-4
+X_MAX = 0.1
+X_SMALL = 4e-4
+_MODES = {"direct": 0, "exact": 1, "residual": 2}
 
 
 def build_predict_kb():
@@ -43,15 +74,105 @@ def build_predict_kb():
 
 
 def _library():
-    lib = _build.load("predict_kb", _SOURCES)
-    fn = lib.predict_kb_launch
-    if fn.argtypes is None:
+    return _bind(_build.load("predict_kb", _SOURCES))
+
+
+def _bind(lib):
+    """The two launch functions of a build of ``csrc/predict_kb.cu``,
+    typed: the compensated phase's and the plain phase's."""
+    comp, plain = lib.predict_kb_launch, lib.predict_kb_plain_launch
+    if comp.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-        fn.restype = ctypes.c_int
-    return fn
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        comp.argtypes = [ptr] * 9 + [i32] * 3 + [f32, f32, ptr] + [i32] * 4 + [ptr]
+        comp.restype = ctypes.c_int
+        plain.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        plain.restype = ctypes.c_int
+    return comp, plain
+
+
+class PredictPlan(nn.Module):
+    """The channel groups and phase mode of :func:`predict_kb` at fixed
+    frequencies, planned once on the host.
+
+    Parameters
+    ----------
+    frequency : (chan,) concrete frequencies (tensor or array; read on
+        the host — one sync when it is on the card)
+    delay_max : bound on |delay| (s), by default the DFT plans'
+        ``cuda_dft.DELAY_MAX`` (1e-4 s): the mode is chosen for it, and a
+        (source, row) pair beyond it takes the direct phase in the kernel
+    device : where the tables live (default: the tensor's device, else
+        the card)
+
+    Attributes: ``nchan``, ``cg``, ``ngroups``, ``mode``, ``delay_max``,
+    ``delay_small`` (the bound on |delay| of a first-order rotation),
+    ``launch_groups`` (the kernel's channels a group and groups: (cg,
+    ngroups), or in the ``direct`` mode groups of 16 with the last one
+    ragged) and the numpy tables ``ftab`` ((chan, 4): each channel's frequency as
+    two-float [ν, ν_hh, ν_hl, ν_lo]), ``rtab`` ((chan,): 2π·δ_f in the
+    ``residual`` mode, else 0) and ``gtab`` ((ngroups, 2, 4): each group's
+    base and the grid's step, two-float, in the ``exact`` and
+    ``residual`` modes). Buffers, moved by ``.to()``: ``ftab_dev``,
+    ``rtab_dev``, ``gtab_dev``.
+    """
+
+    def __init__(self, frequency, delay_max=None, device=None):
+        # imported here: cuda_dft imports rime, whose flagship imports this
+        from africanus_tpu_torch.ops import cuda_dft
+
+        super().__init__()
+        if delay_max is None:
+            delay_max = cuda_dft.DELAY_MAX
+        if isinstance(frequency, torch.Tensor):
+            if device is None:
+                device = frequency.device
+            frequency = frequency.detach().cpu().numpy()  # read on the host once
+        device = _build.plan_device("cuda" if device is None else device)
+        f64 = np.asarray(frequency, np.float64)
+        if f64.ndim != 1 or f64.size == 0:
+            raise ValueError(f"PredictPlan: frequency must be a non-empty "
+                             f"(chan,) grid, got shape {f64.shape}")
+        self.nchan, self.delay_max = f64.size, float(delay_max)
+        self.cg, self.ngroups, self.mode, _, fsm, usm = cuda_dft.chan_group_tables(
+            f64, self.nchan, 1, CG_MAX, delay_max, X_MAX)
+        self.ftab = np.ascontiguousarray(cuda_dft._freq_rows_np(f64).T)
+        self.rtab = np.ascontiguousarray(
+            fsm[:, 0, :].reshape(-1) if self.mode == "residual"
+            else np.zeros(self.nchan, np.float32))
+        self.gtab = np.ascontiguousarray(usm.transpose(0, 2, 1))
+        # the delay below which a pair's rotation is first order
+        rmax = float(np.abs(self.rtab).max())
+        self.delay_small = min(X_SMALL / rmax, self.delay_max) if rmax else self.delay_max
+        # the kernel's (channels a group, groups): the direct phase needs
+        # no even grid, so it walks groups of CG_MAX, the last one ragged
+        self.launch_groups = (self.cg, self.ngroups)
+        if self.mode == "direct":
+            cg = min(CG_MAX, self.nchan)
+            self.launch_groups = (cg, -(-self.nchan // cg))
+        for name in ("ftab", "rtab", "gtab"):
+            self.register_buffer(f"{name}_dev",
+                                 cuda_dft._to_device(getattr(self, name), device),
+                                 persistent=False)
+
+
+# id(frequency tensor) -> (weak reference to it, its version, its plan)
+_PLANS = {}
+
+
+def plan_for(freq):
+    """The :class:`PredictPlan` of the frequency tensor ``freq`` (on its
+    device, default ``delay_max``), made when the tensor is first seen —
+    or changed in place since — and then kept while the tensor lives."""
+    key = id(freq)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0]() is freq and hit[1] == freq._version:
+        return hit[2]
+    plan = PredictPlan(freq)
+    _PLANS[key] = (weakref.ref(freq, lambda _, k=key: _PLANS.pop(k, None)),
+                   freq._version, plan)
+    return plan
 
 
 def _unpack(phase_dot, u1, v1, freq, scaled_freq, b):
@@ -96,6 +217,10 @@ def _unpack(phase_dot, u1, v1, freq, scaled_freq, b):
     return hi, lo, u1, v1
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
     """Fused K[×env]×B predict.
 
@@ -114,8 +239,10 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
     b : (src, chan, corr) complex64 brightness
 
     Every operand is contiguous and on one device. CUDA tensors launch
-    ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations);
-    CPU tensors take :func:`predict_kb_reference`.
+    ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations; the
+    compensated phase on :func:`plan_for` ``(freq)``, which reads ``freq``
+    on the host the first time it sees that tensor); CPU tensors take
+    :func:`predict_kb_reference`.
 
     Returns
     -------
@@ -134,18 +261,24 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
 
     nsrc, nrow = hi.shape
     nchan, ncorr = b.shape[1], b.shape[2]
-    fn = _library()
+    comp, plain = _library()
     out = torch.empty((nrow, nchan, ncorr), dtype=torch.complex64,
                       device=hi.device)
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(hi.data_ptr(),
-                lo.data_ptr() if lo is not None else None,
-                u1.data_ptr() if u1 is not None else None,
-                v1.data_ptr() if v1 is not None else None,
-                freq.data_ptr(), scaled_freq.data_ptr(),
-                b.data_ptr(), out.data_ptr(),
-                nsrc, nrow, nchan, ncorr, stream)
+        if lo is None:
+            rc = plain(hi.data_ptr(), _ptr(u1), _ptr(v1), freq.data_ptr(),
+                       scaled_freq.data_ptr(), b.data_ptr(), out.data_ptr(),
+                       nsrc, nrow, nchan, ncorr, stream)
+        else:
+            plan = plan_for(freq)
+            rc = comp(hi.data_ptr(), lo.data_ptr(), _ptr(u1), _ptr(v1),
+                      scaled_freq.data_ptr(), b.data_ptr(),
+                      plan.ftab_dev.data_ptr(), plan.rtab_dev.data_ptr(),
+                      plan.gtab_dev.data_ptr(), *plan.launch_groups,
+                      _MODES[plan.mode], plan.delay_max, plan.delay_small,
+                      out.data_ptr(),
+                      nsrc, nrow, nchan, ncorr, stream)
     if rc != 0:
         raise RuntimeError(f"predict_kb launch failed: CUDA error {rc}")
     predict_kb.launches += 1
@@ -163,7 +296,8 @@ def predict_kb_reference(phase_dot, u1, v1, freq, scaled_freq, b,
     so that its peak memory is a few (source_block, row, chan) planes —
     at the MeerKAT-64 full-band chunk a whole (src, row, chan) f32 plane
     would be 13 GB. The compensated phase is the same two-float chain as
-    the kernel's (:func:`africanus_tpu_torch.ops.dfloat.frac_cycles`).
+    the kernel's (:func:`africanus_tpu_torch.ops.dfloat.frac_cycles`),
+    evaluated directly at every channel.
     """
     hi, lo, u1, v1 = _unpack(phase_dot, u1, v1, freq, scaled_freq, b)
     nsrc, nrow = hi.shape

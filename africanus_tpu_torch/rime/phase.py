@@ -74,7 +74,9 @@ def phase_dot_cycles(lm, uvw, convention: str = "fourier"):
                two_prod(m[:, None], uvw[None, :, 1])),
         df_mul((n1h[:, None], n1l[:, None]), (w, torch.zeros_like(w))),
     )  # (src, row) metres, two-float
-    return df_mul(metres, df_const(sign / lightspeed, device=lm.device))
+    # the constant as 0-d CPU tensors: they enter the card's operations as
+    # scalars, with no copy to the card and so no wait for it
+    return df_mul(metres, df_const(sign / lightspeed))
 
 
 def reduced_phase(lm, uvw, frequency, convention: str = "fourier",

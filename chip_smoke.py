@@ -19,8 +19,10 @@ twenty-nine phases that each print one line (some several):
    averaging mappers' native/mappers.cpp with g++, into build/ (first
    use), all at once;
 3. predict kernel vs plain: predict_kb against its plain PyTorch version
-   on the card (four modes × corr 1/2/4 at a ragged shape), and against
-   a float64 oracle at 1e4 rad phases;
+   on the card (the plan's three phase modes × corr 1/2/4 × compensated
+   and plain × envelope and point sources at a ragged shape; a prime
+   channel count, one channel, groups of 10; source-row pairs beyond the
+   plan's delay bound), and against a float64 oracle at 1e4 rad phases;
 4. DFT kernels vs plain: dft_forward and dft_adjoint against their plain
    versions on the card (three phase modes × corr 1/2/4 × both
    conventions × real and complex sky, ragged shapes), two launches
@@ -32,8 +34,10 @@ twenty-nine phases that each print one line (some several):
    GHz, 4 correlations, 100 gaussian sources), counting the predict
    kernel's launches and checking windows of every chunk against a
    float64 oracle;
-6. flagship times: CUDA-event medians of the kernel and of the whole
-   forward at that shape, and one run of the plain version;
+6. flagship times: CUDA-event medians of the kernel (beside its bound
+   and the previous design's time) and of the whole forward at that
+   shape, one forward under set_sync_debug_mode("error"), two kernel
+   runs bitwise equal, and one run of the plain version;
 7. the selfcal step (bench.py config 5): SelfcalStep at 197 antennas
    (19306 baselines), 2 times (38612 rows), 16 channels, 2
    correlations, 20 sources, 10 Gauss-Newton iterations, a 64² residual
@@ -146,7 +150,8 @@ twenty-nine phases that each print one line (some several):
    window of 256 rows × 16 channels of every chunk against a float64
    oracle, MODEL_DATA re-read through a fresh handle bitwise equal to the
    prediction, the kernel against its plain version on 512 rows; the
-   kernel's time a chunk, each chunk's host-clock read, predict, copy and
+   kernel's time a chunk (beside its bound and the previous design's
+   time), each chunk's host-clock read, predict, copy and
    write seconds, the pipeline's Mvis/s with IO, peak device memory;
 23. the Zernike DDE at 100 sources × 4 times × 64 antennas × 4096
    channels × 2x2 correlations, 20 Noll terms, against the CPU in
@@ -257,14 +262,17 @@ FACET_BANDS, FACET_DEC, FACET_OFFSET_DEG = 2, -np.pi / 6, 0.5
 # order than index_add_'s and the gather-sum's
 GRIDDER_BOUND = 1e-5
 # the times of the designs that the tile gather, the table map's tile
-# spread and beam_interp's 2D grid replaced (a thread a sample or a
-# (sample, row); padded tiles and a fold), on an H100 80GB HBM3 at 700 W
+# spread, beam_interp's 2D grid and predict_kb's channel-group recurrence
+# replaced (a thread a sample or a (sample, row); padded tiles and a fold;
+# a sincospif and an expf per term), on an H100 80GB HBM3 at 700 W
 # (PERF.md §6), printed beside this run's times
 PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms",
                "degrid_wstack": "0.1633-0.1638 ms",
                "degrid_wstack_large": "3.30-3.31 ms", "degrid_table": "0.0836 ms",
                "beam_interp": "general 0.0753, chan-invariant 0.0047-0.0049, "
-                              "cell corners 0.0046-0.0048 ms"}
+                              "cell corners 0.0046-0.0048 ms",
+               "predict_kb": "9.805-9.978 ms",
+               "predict_kb_store": "C=1 store chunk 146.50-146.53 ms"}
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 # the PP gridder's conv_nn_scatter route: ~200 samples a cell
@@ -274,12 +282,25 @@ PHASES = 29
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
 # over HBM (HBM_RATE, 3.35 TB/s) and its FP32 instructions over the FP32
 # pipes (FP32_RATE, 132 SMs x 128 lanes x 1.98 GHz = 3.35e13/s, i.e. 67
-# TFLOP/s as FMAs), both from the port's utils.profiling; the instruction
-# counts per work item are the kernels' own estimates (the csrc/*.cu
+# TFLOP/s as FMAs), both from the port's utils.profiling. The phase
+# kernels' instructions are counted from the map, per (source or pixel,
+# row, channel) term: a complex multiply-accumulate into each of C
+# correlations (4·C FMAs; 2·C for the adjoint's real part), 4 to advance
+# a phasor, and 2 to apply an envelope where there is one; the other
+# kernels' counts per work item are their own estimates (the csrc/*.cu
 # headers, PERF.md)
-PREDICT_INSTR = 65   # per (source, row, channel) term
-DFT_ADJ_INSTR = 330  # per (pixel, row, channel group of 8)
-DFT_FWD_INSTR = 220  # per (source, row, channel group of 2)
+def predict_instr(ncorr, env):
+    return 4 * ncorr + 4 + (2 if env else 0)
+
+
+def dft_fwd_instr(ncorr):
+    return 4 * ncorr + 4
+
+
+def dft_adj_instr(ncorr):
+    return 2 * ncorr + 4
+
+
 ES_INSTR = 20        # per ES tap evaluation (sqrt, exp); 2W per sample
 GRID_TAP_INSTR = 3   # per grid tap (ku*kv, 2 FMAs)
 DEGRID_TAP_INSTR = 2  # per degrid tap (2 FMAs)
@@ -388,9 +409,26 @@ def bound(moved, instructions):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def kernel_problem(rng, S, R, F, C, compensated, env, device):
+def predict_freq(F, grid):
+    """float32 channel frequencies that engage one of predict_kb's phase
+    modes: an exact progression of 2^18 Hz steps from 856 MHz ("exact"), a
+    float32 linspace over 0.856-1.712 GHz ("residual") or a sorted random
+    grid ("direct")."""
+    if grid == "exact":
+        return (856e6 + np.arange(F) * 262144.0).astype(np.float32)
+    if grid == "residual":
+        return np.linspace(0.856e9, 1.712e9, F).astype(np.float32)
+    return np.sort(np.random.default_rng(F).uniform(0.856e9, 1.712e9, F)
+                   ).astype(np.float32)
+
+
+def kernel_problem(rng, S, R, F, C, compensated, env, device, grid="residual",
+                   far=0):
     """Random predict_kb operands on ``device``, made with numpy (also used
-    by tests/test_torch_cuda.py)."""
+    by tests/test_torch_cuda.py), on the frequencies of
+    :func:`predict_freq`. With ``far`` the baselines reach 80 km and the
+    first ``far`` sources sit at l = m = 0.7, so that their delays exceed
+    the predict plan's bound (1e-4 s) on most rows."""
     import torch
     from africanus_tpu_torch.rime.phase import phase_dot_cycles
 
@@ -399,13 +437,16 @@ def kernel_problem(rng, S, R, F, C, compensated, env, device):
 
     if compensated:
         lm = rng.uniform(-0.02, 0.02, (S, 2)).astype(np.float32)
+        lm[:far] = 0.7
         uvw = rng.uniform(-8000, 8000, (R, 3)).astype(np.float32)
+        if far:
+            uvw *= 10
         dot = phase_dot_cycles(t(lm), t(uvw))
     else:
         dot = t((rng.uniform(-100, 100, (S, R)) * 1e-7).astype(np.float32))
     u1 = t(rng.uniform(-100, 100, (S, R)).astype(np.float32)) if env else None
     v1 = t(rng.uniform(-100, 100, (S, R)).astype(np.float32)) if env else None
-    freq = np.linspace(0.856e9, 1.712e9, F).astype(np.float32)
+    freq = predict_freq(F, grid)
     b = (rng.normal(size=(S, F, C)) + 1j * rng.normal(size=(S, F, C))
          ).astype(np.complex64)
     return dot, u1, v1, t(freq), t((freq * 1e-12).astype(np.float32)), t(b)
@@ -616,29 +657,55 @@ def pp_nn_grid(problem, device):
 
 
 def phase_kernel_checks(device):
+    """Phase 3: predict_kb against its plain version: the three phase
+    modes of its plan x corr 1/2/4 x compensated and plain x envelope and
+    point sources at a ragged shape; a prime channel count (one-channel
+    groups), one channel and groups of 10; pairs beyond the plan's delay
+    bound; and the compensated phase against a float64 oracle."""
     import torch
     from africanus_tpu_torch.ops.cuda_predict import (
-        predict_kb, predict_kb_reference,
+        plan_for, predict_kb, predict_kb_reference,
     )
     from africanus_tpu_torch.rime.phase import phase_dot_cycles
 
     rng = np.random.default_rng(SEED)
-    worst = {}
-    for C in (4, 2, 1):
-        for compensated in (True, False):
-            for env in (True, False):
-                ops = kernel_problem(rng, 37, 1000, 300, C, compensated, env,
-                                     device)
-                got = predict_kb(*ops)
-                torch.cuda.synchronize()
-                want = predict_kb_reference(*ops)
-                check(got.shape == (1000, 300, C) and got.dtype == torch.complex64,
-                      f"kernel output {tuple(got.shape)} {got.dtype}")
-                err = float((got - want).abs().max() / want.abs().max())
-                bound = 2e-6 if compensated else 1e-5
-                key = f"C{C}/{'comp' if compensated else 'plain'}/{'env' if env else 'point'}"
-                worst[key] = err
-                check(err <= bound, f"kernel vs plain {key}: {err:.3e} > {bound}")
+    worst, modes = {}, set()
+
+    def compare(key, ops, bound):
+        got = predict_kb(*ops)
+        torch.cuda.synchronize()
+        want = predict_kb_reference(*ops)
+        check(got.shape == want.shape and got.dtype == torch.complex64,
+              f"kernel output {tuple(got.shape)} {got.dtype}")
+        err = float((got - want).abs().max() / want.abs().max())
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(err <= bound, f"kernel vs plain {key}: {err:.3e} > {bound}")
+
+    for grid in ("exact", "residual", "direct"):
+        for C in (4, 2, 1):
+            for compensated in (True, False):
+                for env in (True, False):
+                    ops = kernel_problem(rng, 37, 1000, 300, C, compensated,
+                                         env, device, grid)
+                    # worst over C 1/2/4 and envelope or point sources
+                    compare(f"{grid}/{'comp' if compensated else 'plain'}", ops,
+                            2e-6 if compensated else 1e-5)
+                    if compensated:
+                        modes.add(plan_for(ops[3]).mode)
+    check(modes == {"exact", "residual", "direct"}, f"plan modes run: {modes}")
+    cgs = {}
+    for S, R, F in ((5, 70, 4093), (3, 33, 1), (9, 45, 250)):
+        for C in (4, 1):
+            ops = kernel_problem(rng, S, R, F, C, True, True, device)
+            cgs[F] = plan_for(ops[3]).cg
+            compare(f"F{F}/C{C}", ops, 2e-6)
+    check(cgs == {4093: 1, 1: 1, 250: 10}, f"channel groups {cgs}")
+    ops = kernel_problem(rng, 6, 256, 4096, 4, True, True, device, far=2)
+    plan = plan_for(ops[3])
+    nfar = int((ops[0][0].abs() > plan.delay_max).sum())
+    check(plan.mode == "residual" and 0 < nfar < 6 * 256,
+          f"far pairs: mode {plan.mode}, {nfar} beyond {plan.delay_max} s")
+    compare("far pairs", ops, 2e-6)
 
     # compensated against complex128 at 1e4 rad phases
     # (tests/test_pallas_predict.py::test_pallas_predict_compensated)
@@ -661,7 +728,9 @@ def phase_kernel_checks(device):
     ref = np.einsum("srf,sfc->rfc", np.exp(1j * p), b.astype(np.complex128))
     f64_err = rel_err(got, ref)
     check(f64_err < 2e-6, f"kernel vs f64 oracle: {f64_err:.3e} >= 2e-6")
-    print(f"[3/{PHASES}] predict_kb vs plain on the card (S=37 R=1000 F=300, "
+    print(f"[3/{PHASES}] predict_kb vs plain on the card (S=37 R=1000 F=300 "
+          "in the plan's three modes; F 4093, 1 and 250 at C 4 and 1; "
+          f"{nfar} of 1536 pairs beyond the plan's delay bound at F=4096; "
           "rel to max|V|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f"; compensated vs f64 oracle (S=16 R=128 F=128 C=2): {f64_err:.2e}",
@@ -832,7 +901,17 @@ def flagship(device, card):
     ops = model.kernel_operands(inputs[0][3], inputs[0][4])
     kernel_ms, _ = cuda_median_ms(lambda: predict_kb(*ops))
     forward_ms, _ = cuda_median_ms(lambda: model(*inputs[0]))
+    # a forward never waits for the card: the frequencies' plan was made
+    # at the first call, and the kernel sums in a fixed order
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model(*inputs[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     got = predict_kb(*ops)
+    check(torch.equal(got, predict_kb(*ops)),
+          "predict_kb reruns at the flagship chunk are not bitwise equal")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     want, plain_ms = cuda_once_ms(lambda: predict_kb_reference(*ops))
@@ -842,9 +921,14 @@ def flagship(device, card):
     check(max_abs <= 2e-6 * scale,
           f"kernel vs plain at the slice shape: {max_abs:.3e} > 2e-6 x {scale:.3e}")
     nvis = nrow * NCHAN * NCORR
+    entry_bound = bound(nbytes(ops, got), NSRC * nrow * NCHAN * predict_instr(NCORR, True))
     print(f"[6/{PHASES}] flagship times on {card}: predict_kb kernel "
-          f"{kernel_ms:.3f} ms ({nvis / kernel_ms / 1e3:.1f} Mvis/s), forward "
-          f"{forward_ms:.3f} ms ({nvis / forward_ms / 1e3:.1f} Mvis/s), plain "
+          f"{kernel_ms:.3f} ms ({nvis / kernel_ms / 1e3:.1f} Mvis/s; bound "
+          f"{entry_bound['bound_ms']:.3f} ms by {entry_bound['bound_by']}, "
+          f"{entry_bound['bound_ms'] / kernel_ms:.0%} of it; was "
+          f"{PREVIOUS_MS['predict_kb']}), reruns bitwise equal, forward "
+          f"{forward_ms:.3f} ms ({nvis / forward_ms / 1e3:.1f} Mvis/s; one more "
+          "under set_sync_debug_mode('error')), plain "
           f"predict_kb_reference {plain_ms:.1f} ms ({nvis / plain_ms / 1e3:.1f} "
           f"Mvis/s, peak {plain_peak:.1f} GiB); kernel vs plain max abs err "
           f"{max_abs:.3e} (max|V| {scale:.3e})", flush=True)
@@ -858,7 +942,7 @@ def flagship(device, card):
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        **bound(nbytes(ops, got), NSRC * nrow * NCHAN * PREDICT_INSTR),
+        **entry_bound,
         "library_ms": None,
     }
 
@@ -1006,7 +1090,7 @@ def selfcal(device, card):
          "launches": launches["dft_forward"], "max_abs_err": fwd_abs,
          "ms": fwd_ms, "plain_ms": fwd_plain_ms,
          **bound(nbytes(fwd_plan, step.uvw, step.image, got),
-                 nsrc * nrow * fwd.ngroups * DFT_FWD_INSTR),
+                 nsrc * nrow * nchan * dft_fwd_instr(fwd.ncorr)),
          "library_ms": None},
         {"name": "dft_adjoint", "route": "cuda",
          "source": "africanus_tpu_torch/csrc/dft.cu",
@@ -1014,7 +1098,7 @@ def selfcal(device, card):
          "launches": launches["dft_adjoint"], "max_abs_err": adj_abs,
          "ms": adj_ms, "plain_ms": adj_plain_ms,
          **bound(nbytes(adj_plan, step.uvw, resid) + npx * npx * nchan * 4,
-                 npx * npx * nrow * adj.ngroups * DFT_ADJ_INSTR),
+                 npx * npx * nrow * nchan * dft_adj_instr(adj.ncorr)),
          "library_ms": None},
     ]
 
@@ -2514,7 +2598,6 @@ STORE_PHASE_DIR = (1.0472, -0.5236)
 STORE_WINDOW = (256, 16)  # rows × channels of every chunk against float64
 STORE_PLAIN_ROWS = 512  # rows of the kernel against its plain version
 STORE_BOUND = 1e-5  # both, relative to max|V|
-PREDICT_INSTR_C1 = PREDICT_INSTR - 12  # 4·C FMAs a term: 16 at C = 4, 4 at C = 1
 # phase 23: Zernike DDE, the first 20 Noll terms per (antenna, channel,
 # correlation); phase 24: shapelets of nmax 8×8 at the MeerKAT-64 chunk;
 # phase 25: the SPI fit of a 1024² model's components in 8 bands
@@ -2663,7 +2746,10 @@ def store_path(device, card):
         ops = operands(run.slices[0])
         kernel_ms, _ = cuda_median_ms(lambda: predict_kb(*ops), reps=3, warmup=1)
         nr = run.slices[0].stop
-        kb = bound(nbytes(ops) + nr * nchan * 8, STORE_NSRC * nr * nchan * PREDICT_INSTR_C1)
+        # the map's work: the envelope only on the gaussian components
+        kb = bound(nbytes(ops) + nr * nchan * 8,
+                   nr * nchan * (ngauss * predict_instr(1, True)
+                                 + (STORE_NSRC - ngauss) * predict_instr(1, False)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2678,7 +2764,9 @@ def store_path(device, card):
           "column {:.3f}, flush {:.3f} s (store under {})".format(
               *write_split, tempfile.gettempdir())
           + f"; predict_kb launches {launches}, kernel {kernel_ms:.2f} ms a chunk "
-          f"(bound {kb['bound_ms']:.2f} ms by {kb['bound_by']}); peak device memory "
+          f"(bound {kb['bound_ms']:.2f} ms by {kb['bound_by']}, "
+          f"{kb['bound_ms'] / kernel_ms:.0%} of it; was {PREVIOUS_MS['predict_kb_store']}"
+          f"); peak device memory "
           f"{peak / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB resident before "
           f"the pass; MODEL_DATA re-read bitwise equal; {wr} rows x "
           f"{wc} chan of every chunk vs float64 " + ", ".join(f"{e:.2e}" for e in errs)

@@ -9,8 +9,9 @@ JAX (the card's machine has none), so it also runs there on its own:
 
 Bounds: predict_kb 2e-6·max|V| for the compensated phase, 1e-5·max|V|
 for the plain phase (the bounds of tests/test_pallas_predict.py; the
-kernel and the plain version differ in cos/sin/exp rounding and in the
-order of the f32 source sum). The DFT kernels 3e-6·max|out|, the bound
+kernel and the plain version differ in cos/sin/exp rounding, in the
+kernel's phasor recurrence along a channel group against the plain
+version's phase per channel, and in the order of the f32 source sum). The DFT kernels 3e-6·max|out|, the bound
 of tests/test_dft.py:322,363, for the same reasons. The selfcal step
 takes the bounds and the two cases (converged, and a model that lacks a
 source) of tests/test_torch_selfcal.py. The wgrid kernels 1e-5·max|out| in
@@ -123,6 +124,63 @@ def test_kernel_is_deterministic(device):
                          device)
     a, b = cp.predict_kb(*ops), cp.predict_kb(*ops)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R,F", [(37, 1000, 300), (5, 70, 4093), (3, 33, 1),
+                                   (9, 45, 250)])
+@pytest.mark.parametrize("grid", ["exact", "residual", "direct"])
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("env", [True, False])
+def test_predict_kernel_plan_modes_match_plain(device, S, R, F, grid, C,
+                                               compensated, env):
+    """Every phase mode of the predict plan (and the one-channel groups
+    of a prime channel count, one channel, groups of 10) on the card."""
+    rng = np.random.default_rng(S * 1000 + R + F + C)
+    ops = kernel_problem(rng, S, R, F, C, compensated, env, device, grid)
+    got = cp.predict_kb(*ops)
+    want = cp.predict_kb_reference(*ops)
+    assert got.shape == (R, F, C)
+    bound = 2e-6 if compensated else 1e-5
+    assert (got - want).abs().max() <= bound * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_predict_kernel_pairs_beyond_the_delay_bound(device):
+    """(source, row) pairs whose |delay| exceeds the plan's bound take the
+    direct phase inside the kernel, beside pairs on the recurrence."""
+    ops = kernel_problem(np.random.default_rng(9), 6, 256, 4096, 4, True, True,
+                         device, far=2)
+    plan = cp.plan_for(ops[3])
+    far = (ops[0][0].abs() > plan.delay_max).sum()
+    assert plan.mode == "residual" and 0 < far < 6 * 256
+    got, want = cp.predict_kb(*ops), cp.predict_kb_reference(*ops)
+    assert (got - want).abs().max() <= 2e-6 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_predict_kernel_reruns_bitwise_at_the_flagship_chunk(device):
+    args = flagship_inputs(nsrc=100, ntime=4, nant=64, nchan=4096, seed=2026)
+    model, x = from_numpy(args, device)
+    ops = model.kernel_operands(x[3], x[4])
+    assert torch.equal(cp.predict_kb(*ops), cp.predict_kb(*ops))
+
+
+@pytest.mark.cuda
+def test_flagship_forward_does_not_sync(device):
+    """The flagship forward never waits for the card: the frequencies'
+    predict plan is made at the first call and kept (one warm-up call)."""
+    args = flagship_inputs(nsrc=20, ntime=2, nant=16, nchan=96, seed=4)
+    model, x = from_numpy(args, device)
+    model(*x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model(*x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
