@@ -17,11 +17,15 @@
 // It computes their map, not their schedule (a cos/sin and an exp per
 // term): no lane padding, no divisibility rules; any S, R and F.
 //
-// What bounds it on an H100: FP32 instruction issue. The map needs, per
-// (source, row, channel) term, 4*C FMAs to multiply and accumulate, 4 to
-// advance a phasor and 2 to apply an envelope; at the MeerKAT-64 full-band
-// chunk (100 sources x 8064 rows x 4096 channels, C = 4) that is 7.3e10
-// instructions (2.2 ms) against ~1 GB of output (0.3 ms of HBM time).
+// What bounds it on an H100: the operations. The map needs, per (source,
+// row, channel) term, 4*C FMAs to multiply and accumulate, 4 to advance a
+// phasor and 2 to apply an envelope. At C = 1, 2 all of them issue on the
+// FP32 pipes (3.35e13 a second). At C = 4 the multiply-accumulate runs on
+// the tensor cores in 3xTF32, 3 x 8*C operations a term at 495 TFLOP/s
+// dense, beside the other 6 on the FP32 pipes: at the MeerKAT-64
+// full-band chunk (100 sources x 8064 rows x 4096 channels) that is 0.64 ms
+// of tensor-core time and 0.59 ms of FP32 issue, against ~1 GB of output
+// (0.32 ms of HBM time).
 //
 // The phase (compensated; every caller's route). The host plans the
 // channels in groups of cg <= 16 (ops/cuda_predict.py, PredictPlan, on
@@ -48,7 +52,9 @@
 // thread runs all 16 without a branch). Per tile of SRC_TILE sources the
 // block stages the pairs' scalars (delay, its Dekker split, u1^2 + v1^2,
 // the step phasor and the kind: computed once per pair for all the block's
-// groups) and B[s, block's channels, :] in shared memory.
+// groups) and B[s, block's channels, :] in shared memory, B by cp.async,
+// in flight while the block computes the pairs (STAGES says why one
+// buffer).
 //  - C = 1, 2 (predict_kb_kernel): a thread owns one row's 16 x C complex
 //    accumulators and its warp's channel tables in registers; a term reads
 //    B from shared memory as a broadcast.
@@ -68,7 +74,8 @@
 // Every output is owned by one thread, which sums all sources in order: no
 // cross-block reduction, no atomics, reruns are bitwise equal. Registers
 // are the scarce resource: tools/predict_kb_variants.py times the designs
-// this one was chosen over (CUDA cores at C = 4, other register caps).
+// this one was chosen over (CUDA cores at C = 4, other register caps, two
+// buffers of sources).
 //
 // The plain-phase kernel (predict_kb_plain_kernel; no caller on a main
 // path) keeps the direct per-term evaluation: a thread a channel, ROWS rows
@@ -86,8 +93,6 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int DIRECT = 0, EXACT = 1, RESIDUAL = 2;
@@ -96,6 +101,10 @@ constexpr int LANES = 32;     // rows per block, one a lane
 constexpr int GPB = 4;        // channel groups per block, one a warp (C < 4)
 constexpr int MMA_GROUPS = 2; // C = 4: groups per block, two row tiles each
 constexpr int SRC_TILE = 8;   // sources staged in shared memory per pass
+// buffers of source tiles in shared memory: one, its B copied by cp.async
+// while the block computes the pairs' scalars; two (the next tile staged
+// while this one computes) time no faster (tools/predict_kb_variants.py)
+constexpr int STAGES = 1;
 constexpr int NSLICE = 2;     // C = 4: slices of 4 sources a thread takes together
 // blocks an SM holds: at C = 1 and C = 4 a cap of 128 registers a thread
 // (at C = 4 it spills a few hundred bytes, and still beats fewer warps to
@@ -205,6 +214,24 @@ __device__ __forceinline__ void stage_pairs(Pair (*s_pair)[LANES],
     }
 }
 
+// an asynchronous copy of N = 8 or 16 bytes from global to shared memory
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
 // B[s0 .. s0+SRC_TILE, the block's slots, :], zero past S and in padding
 template <int C, int NG>
 __device__ __forceinline__ void stage_b(float2 (*s_b)[NG][SLOTS * C],
@@ -212,14 +239,15 @@ __device__ __forceinline__ void stage_b(float2 (*s_b)[NG][SLOTS * C],
                                         int s0, int ns) {
     constexpr int N = NG * SLOTS * C;
     if (ns == SRC_TILE && sl.gpb == NG && sl.cg == SLOTS && (sl.g0 + NG) * SLOTS <= sl.F) {
-        // every slot a channel: each source's block of B is contiguous
-        constexpr int V = (C % 2 == 0) ? 2 : 1;  // float2s a load
-        using T = typename std::conditional<V == 2, float4, float2>::type;
+        // every slot a channel: each source's block of B is contiguous, and
+        // copied asynchronously (cp_async_wait before it is read)
+        constexpr int V = (C % 2 == 0) ? 2 : 1;  // float2s a copy
         for (int i = threadIdx.x; i < SRC_TILE * N / V; i += blockDim.x) {
             const int ls = i / (N / V), j = i % (N / V);
-            reinterpret_cast<T*>(s_b[ls][0])[j] = reinterpret_cast<const T*>(
-                b + ((size_t)(s0 + ls) * sl.F + (size_t)sl.g0 * SLOTS) * C)[j];
+            cp_async<8 * V>(s_b[ls][0] + V * j,
+                            b + ((size_t)(s0 + ls) * sl.F + (size_t)sl.g0 * SLOTS) * C + V * j);
         }
+        cp_async_commit();
         return;
     }
     for (int i = threadIdx.x; i < SRC_TILE * N; i += blockDim.x) {
@@ -278,8 +306,8 @@ __device__ __forceinline__ void advance(float& zr, float& zi, const Pair& q) {
 template <int C, int MODE, bool ENV>
 __global__ void __launch_bounds__(LANES * GPB, C == 1 ? CORE_MIN_BLOCKS : CORE2_MIN_BLOCKS)
 predict_kb_kernel(PREDICT_ARGS) {
-    __shared__ Pair s_pair[SRC_TILE][LANES];
-    __shared__ __align__(16) float2 s_b[SRC_TILE][GPB][SLOTS * C];
+    __shared__ Pair s_pair[STAGES][SRC_TILE][LANES];
+    __shared__ __align__(16) float2 s_b[STAGES][SRC_TILE][GPB][SLOTS * C];
     __shared__ float4 s_freq[GPB][SLOTS];  // [nu, hh, hl, lo] (DIRECT)
     __shared__ float2 s_chan[GPB][SLOTS];  // [2*pi*delta, -log2(e)*sf^2]
 
@@ -338,18 +366,28 @@ predict_kb_kernel(PREDICT_ARGS) {
         }
     };
 
-    for (int s0 = 0; s0 < S; s0 += SRC_TILE) {
+    // the tile of sources from s0 into buffer buf
+    auto stage = [&](int s0, int buf) {
         const int ns = min(SRC_TILE, S - s0);
-        __syncthreads();  // the previous tile has been consumed
-        stage_pairs<MODE, ENV>(s_pair, hi, lo, u1, v1, step, delay_max,
+        stage_b<C, GPB>(s_b[buf], sl, b, s0, ns);
+        stage_pairs<MODE, ENV>(s_pair[buf], hi, lo, u1, v1, step, delay_max,
                                delay_small, s0, ns, r0, R);
-        stage_b<C, GPB>(s_b, sl, b, s0, ns);
-        __syncthreads();
+    };
+    if (STAGES == 2) stage(0, 0);
+    for (int s0 = 0, t = 0; s0 < S; s0 += SRC_TILE, ++t) {
+        const int ns = min(SRC_TILE, S - s0), buf = t % STAGES;
+        if (STAGES == 1) {
+            __syncthreads();  // the previous tile has been consumed
+            stage(s0, 0);
+        }
+        cp_async_wait();
+        __syncthreads();  // this tile is staged, the previous one consumed
+        if (STAGES == 2 && s0 + SRC_TILE < S) stage(s0 + SRC_TILE, buf ^ 1);
         if (!active) continue;
 
         for (int ls = 0; ls < ns; ++ls) {
-            const Pair q = s_pair[ls][lane];
-            const float2* bp = s_b[ls][w];
+            const Pair q = s_pair[buf][ls][lane];
+            const float2* bp = s_b[buf][ls][w];
             if (MODE == DIRECT || __any_sync(0xffffffffu, q.kind == FAR)) {
 #pragma unroll
                 for (int k = 0; k < SLOTS; ++k) {
@@ -405,8 +443,8 @@ template <int MODE, bool ENV>
 __global__ void __launch_bounds__(LANES * 2 * MMA_GROUPS, MMA_MIN_BLOCKS)
 predict_kb_mma_kernel(PREDICT_ARGS) {
     constexpr int C = 4;
-    __shared__ Pair s_pair[SRC_TILE][LANES];
-    __shared__ __align__(16) float2 s_b[SRC_TILE][MMA_GROUPS][SLOTS * C];
+    __shared__ Pair s_pair[STAGES][SRC_TILE][LANES];
+    __shared__ __align__(16) float2 s_b[STAGES][SRC_TILE][MMA_GROUPS][SLOTS * C];
     __shared__ float4 s_freq[MMA_GROUPS][SLOTS];
     __shared__ float2 s_chan[MMA_GROUPS][SLOTS];
 
@@ -432,15 +470,15 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
 
     // slot k: A from the pairs' terms y, B from shared memory; the slices'
     // products summed from zero, then added to the running sum
-    auto product = [&](int h, int k, const float (&yr)[NSLICE][2],
-                       const float (&yi)[NSLICE][2]) {
+    auto product = [&](const float2 (*sb)[MMA_GROUPS][SLOTS * C], int h, int k,
+                       const float (&yr)[NSLICE][2], const float (&yi)[NSLICE][2]) {
         float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
         for (int u = 0; u < NSLICE; ++u) {
             // b0 = Bm[(source t, re), n = g], b1 = Bm[(source t, im), n = g];
             // n < 4 is correlation n's real part, n >= 4 correlation n-4's
             // imaginary part
-            const float2 bv = s_b[h + 4 * u + tq][wg][k * C + (gq & 3)];
+            const float2 bv = sb[h + 4 * u + tq][wg][k * C + (gq & 3)];
             unsigned b0b, b0s, b1b, b1s;
             split_tf32(gq < 4 ? bv.x : bv.y, b0b, b0s);
             split_tf32(gq < 4 ? -bv.y : bv.x, b1b, b1s);
@@ -458,7 +496,8 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
         for (int i = 0; i < 4; ++i) acc[k][i] += d[i];
     };
     // the recurrence along the slots, with rotation ROT
-    auto recur = [&](auto rot, int h, const Pair (&q)[NSLICE][2]) {
+    auto recur = [&](auto rot, const float2 (*sb)[MMA_GROUPS][SLOTS * C], int h,
+                     const Pair (&q)[NSLICE][2]) {
         float zr[NSLICE][2], zi[NSLICE][2], yr[NSLICE][2], yi[NSLICE][2];
 #pragma unroll
         for (int u = 0; u < NSLICE; ++u)
@@ -477,18 +516,29 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
                                                     q[u][j].a, ck, yr[u][j], yi[u][j]);
                     advance(zr[u][j], zi[u][j], q[u][j]);
                 }
-            product(h, k, yr, yi);
+            product(sb, h, k, yr, yi);
         }
     };
 
-    for (int s0 = 0; s0 < S; s0 += SRC_TILE) {
+    // the tile of sources from s0 into buffer buf
+    auto stage = [&](int s0, int buf) {
         const int ns = min(SRC_TILE, S - s0);
-        __syncthreads();  // the previous tile has been consumed
-        stage_pairs<MODE, ENV>(s_pair, hi, lo, u1, v1, step, delay_max,
+        stage_b<C, MMA_GROUPS>(s_b[buf], sl, b, s0, ns);
+        stage_pairs<MODE, ENV>(s_pair[buf], hi, lo, u1, v1, step, delay_max,
                                delay_small, s0, ns, r0, R);
-        stage_b<C, MMA_GROUPS>(s_b, sl, b, s0, ns);
-        __syncthreads();
+    };
+    if (STAGES == 2) stage(0, 0);
+    for (int s0 = 0, t = 0; s0 < S; s0 += SRC_TILE, ++t) {
+        const int ns = min(SRC_TILE, S - s0), buf = t % STAGES;
+        if (STAGES == 1) {
+            __syncthreads();  // the previous tile has been consumed
+            stage(s0, 0);
+        }
+        cp_async_wait();
+        __syncthreads();  // this tile is staged, the previous one consumed
+        if (STAGES == 2 && s0 + SRC_TILE < S) stage(s0 + SRC_TILE, buf ^ 1);
         if (!active) continue;
+        const float2(*sb)[MMA_GROUPS][SLOTS * C] = s_b[buf];
 
         // NSLICE slices at a time; a source past S has zero B
         for (int h = 0; h < ns; h += 4 * NSLICE) {
@@ -498,7 +548,7 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
             for (int u = 0; u < NSLICE; ++u)
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
-                    q[u][j] = s_pair[h + 4 * u + tq][16 * tile + gq + 8 * j];
+                    q[u][j] = s_pair[buf][h + 4 * u + tq][16 * tile + gq + 8 * j];
                     far = far || q[u][j].kind == FAR;
                     small = small && q[u][j].kind == SMALL;
                 }
@@ -517,14 +567,14 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
                             term<ROT_NONE, ENV>(cs, sn, q[u][j].hi, q[u][j].a, ck,
                                                 yr[u][j], yi[u][j]);
                         }
-                    product(h, k, yr, yi);
+                    product(sb, h, k, yr, yi);
                 }
             } else if (MODE == EXACT) {
-                recur(Rot<ROT_NONE>(), h, q);
+                recur(Rot<ROT_NONE>(), sb, h, q);
             } else if (__all_sync(0xffffffffu, small)) {
-                recur(Rot<ROT_SMALL>(), h, q);
+                recur(Rot<ROT_SMALL>(), sb, h, q);
             } else {
-                recur(Rot<ROT_FULL>(), h, q);
+                recur(Rot<ROT_FULL>(), sb, h, q);
             }
         }
     }

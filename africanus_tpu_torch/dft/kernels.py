@@ -17,7 +17,9 @@ tensors. Routes, chosen from the working dtype and the device:
   wrappers run their plain PyTorch versions. Their host planning (the
   phase mode, the channel tables, n−1) is :func:`dft_plan`'s; a caller
   whose directions and frequencies are fixed makes the plan once and
-  passes it as ``plan``.
+  passes it as ``plan``. The predict route's plan depends on the
+  frequencies alone: :func:`~africanus_tpu_torch.ops.cuda_predict.
+  plan_for` keeps it, keyed on the caller's frequencies.
 
 The JAX package's TPU gates do not carry over: the 2048-source cap and
 the padding of the predict route are VMEM rules, and the ≤ 64-channel
@@ -31,7 +33,7 @@ import torch
 from africanus_tpu_torch.ops.cuda_dft import (
     DftPlan, dft_adjoint, dft_forward, measured_delay_max,
 )
-from africanus_tpu_torch.ops.cuda_predict import predict_kb
+from africanus_tpu_torch.ops.cuda_predict import plan_for, predict_kb
 from africanus_tpu_torch.rime.phase import _sign_for, phase_dot_cycles, reduced_phase
 from africanus_tpu_torch.utils.types import complex_dtype_for, real_dtype_for
 
@@ -101,9 +103,11 @@ def im_to_vis(image, uvw, lm, frequency, convention: str = "fourier",
     _sign_for(convention)
     device = lm.device
     uvw = torch.as_tensor(uvw, device=device)
-    # the plan's channel tables read the caller's frequencies on the
+    # the plans' channel tables read the caller's frequencies on the
     # host: a host array costs no device sync, and an f64 grid keeps its
-    # precision; only the einsum and predict routes need them on the device
+    # precision in the DFT plan (the predict plan's are the float32 values
+    # the kernel is given); only the einsum and predict routes need the
+    # frequencies on the device
     freq_raw = frequency
     frequency = torch.as_tensor(frequency)
     out_dtype = (dtype if dtype is not None
@@ -118,9 +122,17 @@ def im_to_vis(image, uvw, lm, frequency, convention: str = "fourier",
         uvw32 = uvw.to(torch.float32).contiguous()
         if nchan >= _PREDICT_MIN_CHAN:
             b = image.to(torch.complex64).contiguous()
-            freq = frequency.to(device, torch.float32).contiguous()
+            if device.type == "cuda":
+                # the plan is kept, keyed on the caller's frequencies, and
+                # its table holds their float32 values on the card: no
+                # copy from the host, which would wait for the card
+                kb_plan = plan_for(freq_raw, device)
+                freq = kb_plan.ftab_dev[:, 0].contiguous()
+            else:
+                kb_plan, freq = None, frequency.to(device, torch.float32).contiguous()
             vis = predict_kb(phase_dot_cycles(lm32, uvw32, convention),
-                             None, None, freq, torch.zeros_like(freq), b)
+                             None, None, freq, torch.zeros_like(freq), b,
+                             kb_plan)
         else:
             img = (image.to(torch.float32) if real_sky
                    else image.to(torch.complex64)).contiguous()

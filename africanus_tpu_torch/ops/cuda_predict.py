@@ -20,10 +20,14 @@ each group's base, then a unit-phasor recurrence by the step),
 channel, δ_f its offset from the fitted grid, e.g. a float32 linspace's
 rounding) or ``direct`` (a phase per channel). A (source, row) pair whose
 |delay| exceeds the plan's ``delay_max`` takes the direct phase inside the
-kernel. :func:`predict_kb` finds the plan of its frequency tensor in a
-cache keyed on that tensor (:func:`plan_for`): the one host copy of the
-frequencies is taken when a tensor is first seen, so that a forward over
-fixed frequencies never waits for the card.
+kernel. :func:`predict_kb` takes the plan it is given, else finds the
+plan of its frequency tensor in a cache keyed on that tensor
+(:func:`plan_for`): the one host copy of the frequencies is taken when a
+tensor is first seen, so that a forward over fixed frequencies never
+waits for the card. A caller that holds the frequencies on the host
+(:func:`~africanus_tpu_torch.dft.kernels.im_to_vis`) plans from them
+instead, through the same cache keyed on their values, and reads nothing
+back from the card.
 
 :func:`predict_kb` launches the kernel on CUDA tensors and counts the
 launches in ``predict_kb.launches``; on CPU tensors it computes the same
@@ -157,21 +161,47 @@ class PredictPlan(nn.Module):
                                  persistent=False)
 
 
-# id(frequency tensor) -> (weak reference to it, its version, its plan)
+# (id of a frequency tensor on a card, device) -> (weak reference to it,
+# its version, its plan)
 _PLANS = {}
+# (float32 values of a host grid, device) -> its plan, the newest
+# HOST_PLANS_KEPT
+_HOST_PLANS = {}
+HOST_PLANS_KEPT = 16
 
 
-def plan_for(freq):
-    """The :class:`PredictPlan` of the frequency tensor ``freq`` (on its
-    device, default ``delay_max``), made when the tensor is first seen —
-    or changed in place since — and then kept while the tensor lives."""
-    key = id(freq)
-    hit = _PLANS.get(key)
-    if hit is not None and hit[0]() is freq and hit[1] == freq._version:
-        return hit[2]
-    plan = PredictPlan(freq)
-    _PLANS[key] = (weakref.ref(freq, lambda _, k=key: _PLANS.pop(k, None)),
-                   freq._version, plan)
+def plan_for(freq, device=None):
+    """The :class:`PredictPlan` (default ``delay_max``) of the float32
+    frequencies ``freq``, made once and then kept.
+
+    A tensor on a card is keyed on the tensor: planned when first seen —
+    or changed in place since — by its one host read, and kept while it
+    lives. Host frequencies (a numpy array, a sequence or a CPU tensor)
+    are keyed on their float32 values and read no card. The plan lies on
+    ``device``, by default the tensor's device, else the card.
+    """
+    if isinstance(freq, torch.Tensor) and freq.device.type != "cpu":
+        device = _build.plan_device(freq.device if device is None else device)
+        key = (id(freq), device)
+        hit = _PLANS.get(key)
+        if hit is not None and hit[0]() is freq and hit[1] == freq._version:
+            return hit[2]
+        plan = PredictPlan(freq.detach().to(torch.float32), device=device)
+        _PLANS[key] = (weakref.ref(freq, lambda _, k=key: _PLANS.pop(k, None)),
+                       freq._version, plan)
+        return plan
+    if isinstance(freq, torch.Tensor):
+        if device is None:
+            device = freq.device
+        freq = freq.detach().numpy()
+    f32 = np.ascontiguousarray(freq, np.float32)
+    key = (f32.tobytes(), _build.plan_device("cuda" if device is None else device))
+    plan = _HOST_PLANS.pop(key, None)
+    if plan is None:
+        plan = PredictPlan(f32, device=key[1])
+        if len(_HOST_PLANS) >= HOST_PLANS_KEPT:
+            del _HOST_PLANS[next(iter(_HOST_PLANS))]
+    _HOST_PLANS[key] = plan  # the newest last
     return plan
 
 
@@ -221,7 +251,7 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
+def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
     """Fused K[×env]×B predict.
 
     Parameters
@@ -237,12 +267,14 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
         (envelope = exp(−((u1·sf)² + (v1·sf)²))); None for point sources
     freq : (chan,) float32; scaled_freq : (chan,) float32 (gauss-scaled)
     b : (src, chan, corr) complex64 brightness
+    plan : the :class:`PredictPlan` of ``freq``'s values on the operands'
+        card, for the compensated phase; by default :func:`plan_for`
+        ``(freq)``, which reads ``freq`` on the host the first time it
+        sees that tensor
 
     Every operand is contiguous and on one device. CUDA tensors launch
-    ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations; the
-    compensated phase on :func:`plan_for` ``(freq)``, which reads ``freq``
-    on the host the first time it sees that tensor); CPU tensors take
-    :func:`predict_kb_reference`.
+    ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations);
+    CPU tensors take :func:`predict_kb_reference`.
 
     Returns
     -------
@@ -255,7 +287,7 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
         raise ValueError(f"predict_kb runs on cuda or cpu, not {hi.device}")
     if b.shape[2] not in _KERNEL_CORRS:
         return torch.cat([predict_kb(phase_dot, u1, v1, freq, scaled_freq,
-                                     b[..., c0:c0 + k].contiguous())
+                                     b[..., c0:c0 + k].contiguous(), plan)
                           for c0, k in _build.groups(b.shape[2], _KERNEL_CORRS)],
                          dim=-1)
 
@@ -271,7 +303,12 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b):
                        scaled_freq.data_ptr(), b.data_ptr(), out.data_ptr(),
                        nsrc, nrow, nchan, ncorr, stream)
         else:
-            plan = plan_for(freq)
+            if plan is None:
+                plan = plan_for(freq)
+            elif plan.nchan != nchan or plan.ftab_dev.device != hi.device:
+                raise ValueError(f"the plan is of {plan.nchan} channels on "
+                                 f"{plan.ftab_dev.device}, the operands of "
+                                 f"{nchan} on {hi.device}")
             rc = comp(hi.data_ptr(), lo.data_ptr(), _ptr(u1), _ptr(v1),
                       scaled_freq.data_ptr(), b.data_ptr(),
                       plan.ftab_dev.data_ptr(), plan.rtab_dev.data_ptr(),

@@ -15,7 +15,8 @@ dask ``EstimatingProgressBar``).
 - :class:`Roofline` / :func:`roofline`: arithmetic-intensity accounting,
   by default against one H100 SXM's published peaks (``HBM_RATE``, and
   ``FP32_RATE`` float32 instructions a second, i.e. ``FP32_PEAK_FLOPS``
-  as fused multiply-adds).
+  as fused multiply-adds); ``TF32_PEAK_FLOPS`` is the tensor cores' dense
+  TF32 rate, for work that runs there.
 """
 
 from __future__ import annotations
@@ -29,14 +30,16 @@ import numpy as np
 import torch
 
 __all__ = ["trace", "measure", "Roofline", "roofline", "HBM_RATE",
-           "FP32_RATE", "FP32_PEAK_FLOPS"]
+           "FP32_RATE", "FP32_PEAK_FLOPS", "TF32_PEAK_FLOPS"]
 
-# one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes a second, and
-# float32 instructions a second outside the tensor cores (132 SMs x 128
-# lanes x 1.98 GHz); an FMA counts two operations
+# one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes a second, float32
+# instructions a second outside the tensor cores (132 SMs x 128 lanes x
+# 1.98 GHz; an FMA counts two operations), and the tensor cores' dense
+# TF32 operations a second
 HBM_RATE = 3.35e12
 FP32_RATE = 3.35e13
 FP32_PEAK_FLOPS = 2 * FP32_RATE
+TF32_PEAK_FLOPS = 4.95e14
 
 
 @contextlib.contextmanager

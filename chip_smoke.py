@@ -22,7 +22,8 @@ twenty-nine phases that each print one line (some several):
    on the card (the plan's three phase modes × corr 1/2/4 × compensated
    and plain × envelope and point sources at a ragged shape; a prime
    channel count, one channel, groups of 10; source-row pairs beyond the
-   plan's delay bound), and against a float64 oracle at 1e4 rad phases;
+   plan's delay bound at corr 1/2/4, in the first tile of sources and in
+   a later one), and against a float64 oracle at 1e4 rad phases;
 4. DFT kernels vs plain: dft_forward and dft_adjoint against their plain
    versions on the card (three phase modes × corr 1/2/4 × both
    conventions × real and complex sky, ragged shapes), two launches
@@ -220,7 +221,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from africanus_tpu_torch.utils.profiling import FP32_RATE, HBM_RATE
+from africanus_tpu_torch.utils.profiling import FP32_RATE, HBM_RATE, TF32_PEAK_FLOPS
 
 SEED = 2026
 NSRC, NTIME, NANT, NCHAN, NCORR = 100, 4, 64, 4096, 4
@@ -273,6 +274,10 @@ PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"
                               "cell corners 0.0046-0.0048 ms",
                "predict_kb": "9.805-9.978 ms",
                "predict_kb_store": "C=1 store chunk 146.50-146.53 ms"}
+# phase 3: (sources, the far ones) of predict_kb's pairs beyond its plan's
+# delay bound: the first tile of sources, and the second tile beside a
+# first on the recurrence
+FAR_PAIRS = ((6, (0, 1)), (16, (8, 9)))
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 # the PP gridder's conv_nn_scatter route: ~200 samples a cell
@@ -280,17 +285,25 @@ PP_NN = dict(nrow=100_000, npix=32)
 PHASES = 29
 
 # the least time of a kernel (bound_ms): the larger of its compulsory bytes
-# over HBM (HBM_RATE, 3.35 TB/s) and its FP32 instructions over the FP32
-# pipes (FP32_RATE, 132 SMs x 128 lanes x 1.98 GHz = 3.35e13/s, i.e. 67
-# TFLOP/s as FMAs), both from the port's utils.profiling. The phase
-# kernels' instructions are counted from the map, per (source or pixel,
-# row, channel) term: a complex multiply-accumulate into each of C
-# correlations (4·C FMAs; 2·C for the adjoint's real part), 4 to advance
-# a phasor, and 2 to apply an envelope where there is one; the other
-# kernels' counts per work item are their own estimates (the csrc/*.cu
-# headers, PERF.md)
+# over HBM (HBM_RATE, 3.35 TB/s) and its operations over the unit that
+# runs them: FP32 instructions over the FP32 pipes (FP32_RATE, 132 SMs x
+# 128 lanes x 1.98 GHz = 3.35e13/s, i.e. 67 TFLOP/s as FMAs) and, beside
+# them, TF32 operations over the tensor cores (TF32_PEAK_FLOPS, 495
+# TFLOP/s dense), all from the port's utils.profiling. The phase kernels'
+# work is counted from the map, per (source or pixel, row, channel) term:
+# a complex multiply-accumulate into each of C correlations (4·C FMAs;
+# 2·C for the adjoint's real part), 4 to advance a phasor, and 2 to apply
+# an envelope where there is one; at C = 4 predict_kb runs the
+# multiply-accumulate on the tensor cores in 3xTF32 (3 products of the
+# term's [re im] into B's 2·C columns: 3·8·C operations) and the rest on
+# the FP32 pipes. The other kernels' counts per work item are their own
+# estimates (the csrc/*.cu headers, PERF.md)
 def predict_instr(ncorr, env):
-    return 4 * ncorr + 4 + (2 if env else 0)
+    return (0 if ncorr == 4 else 4 * ncorr) + 4 + (2 if env else 0)
+
+
+def predict_tf32(ncorr):
+    return 3 * 8 * ncorr if ncorr == 4 else 0
 
 
 def dft_fwd_instr(ncorr):
@@ -400,11 +413,12 @@ def nbytes(*xs):
     return total
 
 
-def bound(moved, instructions):
-    """bound_ms and bound_by of a kernel that must move ``moved`` bytes
-    and issue ``instructions`` FP32 instructions."""
+def bound(moved, instructions, tf32=0):
+    """bound_ms and bound_by of a kernel that must move ``moved`` bytes,
+    issue ``instructions`` FP32 instructions and, on the tensor cores
+    beside them, ``tf32`` TF32 operations."""
     t_bytes = moved / HBM_RATE * 1e3
-    t_ops = instructions / FP32_RATE * 1e3
+    t_ops = max(instructions / FP32_RATE, tf32 / TF32_PEAK_FLOPS) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -423,11 +437,11 @@ def predict_freq(F, grid):
 
 
 def kernel_problem(rng, S, R, F, C, compensated, env, device, grid="residual",
-                   far=0):
+                   far=()):
     """Random predict_kb operands on ``device``, made with numpy (also used
     by tests/test_torch_cuda.py), on the frequencies of
-    :func:`predict_freq`. With ``far`` the baselines reach 80 km and the
-    first ``far`` sources sit at l = m = 0.7, so that their delays exceed
+    :func:`predict_freq`. With ``far`` (source indices) the baselines reach
+    80 km and those sources sit at l = m = 0.7, so that their delays exceed
     the predict plan's bound (1e-4 s) on most rows."""
     import torch
     from africanus_tpu_torch.rime.phase import phase_dot_cycles
@@ -437,9 +451,9 @@ def kernel_problem(rng, S, R, F, C, compensated, env, device, grid="residual",
 
     if compensated:
         lm = rng.uniform(-0.02, 0.02, (S, 2)).astype(np.float32)
-        lm[:far] = 0.7
+        lm[list(far)] = 0.7
         uvw = rng.uniform(-8000, 8000, (R, 3)).astype(np.float32)
-        if far:
+        if len(far):
             uvw *= 10
         dot = phase_dot_cycles(t(lm), t(uvw))
     else:
@@ -661,7 +675,8 @@ def phase_kernel_checks(device):
     modes of its plan x corr 1/2/4 x compensated and plain x envelope and
     point sources at a ragged shape; a prime channel count (one-channel
     groups), one channel and groups of 10; pairs beyond the plan's delay
-    bound; and the compensated phase against a float64 oracle."""
+    bound (FAR_PAIRS) at corr 1/2/4; and the compensated phase against a
+    float64 oracle."""
     import torch
     from africanus_tpu_torch.ops.cuda_predict import (
         plan_for, predict_kb, predict_kb_reference,
@@ -700,12 +715,19 @@ def phase_kernel_checks(device):
             cgs[F] = plan_for(ops[3]).cg
             compare(f"F{F}/C{C}", ops, 2e-6)
     check(cgs == {4093: 1, 1: 1, 250: 10}, f"channel groups {cgs}")
-    ops = kernel_problem(rng, 6, 256, 4096, 4, True, True, device, far=2)
-    plan = plan_for(ops[3])
-    nfar = int((ops[0][0].abs() > plan.delay_max).sum())
-    check(plan.mode == "residual" and 0 < nfar < 6 * 256,
-          f"far pairs: mode {plan.mode}, {nfar} beyond {plan.delay_max} s")
-    compare("far pairs", ops, 2e-6)
+    # pairs beyond the delay bound: in the first tile of sources, and in
+    # the second beside a first tile on the recurrence
+    nfar = {}
+    for S, far in FAR_PAIRS:
+        for C in (4, 2, 1):
+            ops = kernel_problem(rng, S, 256, 4096, C, True, True, device, far=far)
+            plan = plan_for(ops[3])
+            beyond = ops[0][0].abs() > plan.delay_max
+            nfar[S] = int(beyond.sum())
+            check(plan.mode == "residual" and 0 < nfar[S] < len(far) * 256
+                  and not beyond[[s for s in range(S) if s not in far]].any(),
+                  f"far pairs: mode {plan.mode}, {nfar[S]} beyond {plan.delay_max} s")
+            compare(f"far pairs S{S}", ops, 2e-6)
 
     # compensated against complex128 at 1e4 rad phases
     # (tests/test_pallas_predict.py::test_pallas_predict_compensated)
@@ -730,7 +752,9 @@ def phase_kernel_checks(device):
     check(f64_err < 2e-6, f"kernel vs f64 oracle: {f64_err:.3e} >= 2e-6")
     print(f"[3/{PHASES}] predict_kb vs plain on the card (S=37 R=1000 F=300 "
           "in the plan's three modes; F 4093, 1 and 250 at C 4 and 1; "
-          f"{nfar} of 1536 pairs beyond the plan's delay bound at F=4096; "
+          + ", ".join(f"{nfar[S]} of {S} x 256 pairs (sources {far})"
+                      for S, far in FAR_PAIRS)
+          + " beyond the plan's delay bound at F=4096, C 4/2/1; "
           "rel to max|V|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f"; compensated vs f64 oracle (S=16 R=128 F=128 C=2): {f64_err:.2e}",
@@ -921,7 +945,9 @@ def flagship(device, card):
     check(max_abs <= 2e-6 * scale,
           f"kernel vs plain at the slice shape: {max_abs:.3e} > 2e-6 x {scale:.3e}")
     nvis = nrow * NCHAN * NCORR
-    entry_bound = bound(nbytes(ops, got), NSRC * nrow * NCHAN * predict_instr(NCORR, True))
+    terms = NSRC * nrow * NCHAN
+    entry_bound = bound(nbytes(ops, got), terms * predict_instr(NCORR, True),
+                        terms * predict_tf32(NCORR))
     print(f"[6/{PHASES}] flagship times on {card}: predict_kb kernel "
           f"{kernel_ms:.3f} ms ({nvis / kernel_ms / 1e3:.1f} Mvis/s; bound "
           f"{entry_bound['bound_ms']:.3f} ms by {entry_bound['bound_by']}, "

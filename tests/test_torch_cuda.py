@@ -49,7 +49,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    beam_problem, dft_problem, grid2d_problem, kernel_problem, pp_nn_grid,
+    FAR_PAIRS, beam_problem, dft_problem, grid2d_problem, kernel_problem, pp_nn_grid,
     pp_nn_problem, shapelet_problem, spi_problem, table_problem, wgrid_problem,
     zernike_problem,
 )
@@ -147,14 +147,20 @@ def test_predict_kernel_plan_modes_match_plain(device, S, R, F, grid, C,
 
 
 @pytest.mark.cuda
-def test_predict_kernel_pairs_beyond_the_delay_bound(device):
+@pytest.mark.parametrize("S,far", FAR_PAIRS)
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_predict_kernel_pairs_beyond_the_delay_bound(device, S, far, C):
     """(source, row) pairs whose |delay| exceeds the plan's bound take the
-    direct phase inside the kernel, beside pairs on the recurrence."""
-    ops = kernel_problem(np.random.default_rng(9), 6, 256, 4096, 4, True, True,
-                         device, far=2)
+    direct phase inside the kernel, beside pairs on the recurrence: in
+    the first tile of sources, and in the second after a tile that is
+    all on the recurrence."""
+    ops = kernel_problem(np.random.default_rng(9), S, 256, 4096, C, True, True,
+                         device, far=far)
     plan = cp.plan_for(ops[3])
-    far = (ops[0][0].abs() > plan.delay_max).sum()
-    assert plan.mode == "residual" and 0 < far < 6 * 256
+    beyond = ops[0][0].abs() > plan.delay_max
+    near = [s for s in range(S) if s not in far]
+    assert plan.mode == "residual" and 0 < beyond.sum() < len(far) * 256
+    assert not beyond[near].any()
     got, want = cp.predict_kb(*ops), cp.predict_kb_reference(*ops)
     assert (got - want).abs().max() <= 2e-6 * want.abs().max()
 
@@ -181,6 +187,55 @@ def test_flagship_forward_does_not_sync(device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_predict_plan_for_keys_a_card_tensor_on_itself(device):
+    freq = torch.as_tensor(np.linspace(0.856e9, 1.712e9, 256).astype(np.float32),
+                           device=device)
+    plan = cp.plan_for(freq)
+    assert plan.ftab_dev.device == freq.device and cp.plan_for(freq) is plan
+    freq.add_(1e6)  # an in-place change plans anew
+    assert cp.plan_for(freq) is not plan
+
+
+@pytest.mark.cuda
+def test_im_to_vis_plans_the_predict_route_once(device, monkeypatch):
+    """At >= 128 channels im_to_vis plans predict_kb from the caller's
+    host frequencies, keyed on their values: a second call, with a new
+    array of the same grid, plans nothing and never waits for the card
+    (its operands on the card)."""
+    from africanus_tpu_torch.dft import im_to_vis
+
+    rng = np.random.default_rng(5)
+    lm = torch.as_tensor(rng.uniform(-0.01, 0.01, (7, 2)).astype(np.float32),
+                         device=device)
+    uvw = torch.as_tensor(rng.uniform(-4000, 4000, (50, 3)).astype(np.float32),
+                          device=device)
+    image = torch.as_tensor(rng.normal(size=(7, 300, 2)).astype(np.float32),
+                            device=device)
+    freq = np.linspace(0.9e9, 1.6e9, 300).astype(np.float32)
+    first = im_to_vis(image, uvw, lm, freq)
+
+    def planned(*args, **kwargs):
+        pytest.fail("im_to_vis planned the same grid again")
+
+    monkeypatch.setattr(cp, "PredictPlan", planned)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = im_to_vis(image, uvw, lm, freq.copy())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_predict_kernel_refuses_a_plan_of_other_channels(device):
+    ops = kernel_problem(np.random.default_rng(3), 4, 40, 64, 1, True, False, device)
+    other = cp.plan_for(np.linspace(0.9e9, 1.6e9, 65).astype(np.float32), device)
+    with pytest.raises(ValueError, match="65 channels"):
+        cp.predict_kb(*ops, plan=other)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ The CUDA kernel runs only on the card (tests/test_torch_cuda.py,
 frequency; its mode follows the grid (an even float64 grid ``exact``, a
 float32 linspace ``residual``, an irregular grid, a large delay bound or
 a one-channel group ``direct``); :func:`plan_for` keeps one plan per
-frequency tensor; and a float32 numpy emulation of the kernel's
+host grid, keyed on its values; and a float32 numpy emulation of the kernel's
 recurrence — the two-float phasor at each group's base and step, the
 first-order rotation or the rotation polynomial, the envelope, the
 multiply-accumulate, in the kernel's order of operations — holds against complex128 at the
@@ -15,7 +15,6 @@ flagship's geometry (8 km baselines, 4096 channels 0.856-1.712 GHz)
 under 2e-6 of max|V|, the compensated bar of tests/test_pallas_predict.py.
 """
 
-import gc
 import math
 
 import numpy as np
@@ -104,17 +103,37 @@ def test_port_plan_reads_a_tensor_and_moves():
 
 
 def test_port_plan_for_keeps_one_plan_per_tensor():
+    """Host frequencies are keyed on their float32 values, so that a
+    caller that makes a new tensor or array of one grid on every call
+    (im_to_vis) plans once; a tensor on a card is keyed on itself
+    (tests/test_torch_cuda.py)."""
     freq = torch.from_numpy(_linspace(64, F32))
     plan = cp.plan_for(freq)
+    assert plan.ftab_dev.device == freq.device
     assert cp.plan_for(freq) is plan
-    other = freq.clone()
-    assert cp.plan_for(other) is not plan
-    freq.mul_(1.0)  # an in-place change plans anew
+    assert cp.plan_for(freq.clone()) is plan
+    # the same float32 values: the kernel is given the float32 grid
+    assert cp.plan_for(_linspace(64, np.float64), "cpu") is plan
+    freq.add_(1e6)  # other values plan anew
     assert cp.plan_for(freq) is not plan
-    key = id(other)
-    del other
-    gc.collect()
-    assert key not in cp._PLANS
+    assert cp.plan_for(freq.numpy(), "cpu") is cp.plan_for(freq)
+
+
+def test_port_plan_for_keeps_the_newest_host_grids():
+    grids = [_linspace(32 + i, F32) for i in range(cp.HOST_PLANS_KEPT + 1)]
+    plans = [cp.plan_for(g, "cpu") for g in grids]
+    assert len(cp._HOST_PLANS) <= cp.HOST_PLANS_KEPT
+    assert cp.plan_for(grids[-1], "cpu") is plans[-1]
+    assert cp.plan_for(grids[0], "cpu") is not plans[0]  # the oldest went
+
+
+def test_port_plan_for_a_host_grid_asks_for_the_card():
+    """A host grid is planned on the card unless the CPU is asked for:
+    no quiet fallback where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("there is a card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cp.plan_for(_linspace(48, F32))
 
 
 def _phasor(hi, hh, hl, lo, f):

@@ -11,10 +11,13 @@ launches), at two shapes: the flagship chunk (chip_smoke.py's phase 6:
 100 gaussian sources x 8064 rows x 4096 channels, C = 4) and a chunk of
 the WSClean store's shape (2,000 components within 1 deg, 30% gaussian,
 8064 rows of a 4 km box x 4096 channels, C = 1). The variants are the
-designs the kernel was chosen over (the C = 4 contraction on the CUDA
+designs the kernel was chosen over (two buffers of sources, the next
+tile staged while this one computes; the C = 4 contraction on the CUDA
 cores, no register caps, the tensor cores' own accumulation, the full
-rotation polynomial for every pair) and stages switched off, which no
-longer compute the map: their errors against the plain version say so.
+rotation polynomial for every pair) and stages switched off, which no longer compute the
+map: their errors against the plain version say so. A variant whose
+text does not stand once in the source is not built: variant_source
+raises.
 Prints the card's name and power limit first.
 """
 
@@ -28,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 MMA_LAUNCH = "    if constexpr (C == 4)\n        predict_kb_mma_kernel"
+STAGES = "constexpr int STAGES = 1;"
 MMA_CAP = "constexpr int MMA_MIN_BLOCKS = 4;"
 CORE_CAP = "constexpr int CORE_MIN_BLOCKS = 4;"
 TILE_SUM = "        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
@@ -41,10 +45,11 @@ NO_MMAS = ("            d[0] += __uint_as_float(rs[0] ^ rb[0]) + __uint_as_float
            "            d[1] += __uint_as_float(rs[1] ^ rb[1]) + __uint_as_float(b1b ^ b1s);\n"
            "            d[2] += __uint_as_float(is[0] ^ ib[0]);\n"
            "            d[3] += __uint_as_float(is[1] ^ ib[1]);\n")
-STAGE_B = ("        stage_b<C, MMA_GROUPS>(s_b, sl, b, s0, ns);\n",
-           "        stage_b<C, GPB>(s_b, sl, b, s0, ns);\n")
+STAGE_B = ("        stage_b<C, MMA_GROUPS>(s_b[buf], sl, b, s0, ns);\n",
+           "        stage_b<C, GPB>(s_b[buf], sl, b, s0, ns);\n")
 VARIANTS = {
     "kernel": [],
+    "double-buffered staging": [(STAGES, "constexpr int STAGES = 2;")],
     "C = 4 on the CUDA cores": [(MMA_LAUNCH, MMA_LAUNCH.replace("C == 4", "C == 5"))],
     "C = 4 without the register cap": [(MMA_CAP, "constexpr int MMA_MIN_BLOCKS = 1;")],
     "C = 1 without the register cap": [(CORE_CAP, "constexpr int CORE_MIN_BLOCKS = 1;")],
@@ -58,14 +63,20 @@ VARIANTS = {
 }
 
 
-def build(name):
-    from africanus_tpu_torch.ops import _build
-
-    text = (_build.CSRC / "predict_kb.cu").read_text()
+def variant_source(name, text):
+    """The text of variant ``name`` of the kernel's source ``text``;
+    raises where a text it replaces does not stand there once."""
     for old, new in VARIANTS[name]:
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name!r}: the source has not one {old!r}")
         text = text.replace(old, new)
+    return text
+
+
+def build(name):
+    from africanus_tpu_torch.ops import _build
+
+    text = variant_source(name, (_build.CSRC / "predict_kb.cu").read_text())
     d = _build.BUILD_DIR / "variants" / "predict_kb" / "".join(
         c if c.isalnum() else "_" for c in name)
     d.mkdir(parents=True, exist_ok=True)
