@@ -3,8 +3,7 @@
 
 Port of ``africanus_tpu/ops/pallas_dft.py``. Its two Pallas TPU kernels,
 ``dft_forward_pallas`` (Q2-3) and ``dft_adjoint_pallas`` (Q2-4), become
-two hand-written CUDA kernels for Hopper in ``csrc/dft.cu`` (its header
-says what bounds them and how they are laid out):
+two hand-written CUDA kernels for Hopper in ``csrc/dft.cu``:
 
     forward:  V[r,f,c] = Σ_s e^{2πi·delay(s,r)·ν_f} · I[s,f,c]
     adjoint:  I[p,f,c] = Σ_r Re(e^{2πi·delay(p,r)·ν_f} · V[r,f,c])
@@ -16,37 +15,50 @@ these take ``lm`` and ``uvw`` and compute the delay themselves, by the
 same error-free chain: at the config-5 residual image the planes would be
 632 MB each.
 
-The per-channel phase economics stay: the host splits the channels into
-groups and chooses, from the concrete frequencies, one of three modes
-(:func:`chan_group_tables`, a numpy copy of the JAX package's
-``_chan_group_tables`` whose tables are bitwise equal to it):
+What bounds them on the card is FP32 instruction issue, and most of it
+is each (pixel or source, row) pair's own work: the two-float delay
+(~70 rounded operations) and two phasor evaluations. So a
+:class:`DftPlan` groups the channels more widely than the JAX package
+does (its caps, cg·C ≤ 8 and ≤ 4, no longer apply): ``cg`` ≤ 16
+channels with cg·C ≤ 32 (:func:`_slots`, the thread's accumulators or
+complex pairs), chosen by :func:`chan_group_tables` (a numpy copy of the
+JAX package's ``_chan_group_tables``, bitwise equal to it at its caps)
+with the JAX package's mode thresholds:
 
 ``direct``
-    one two-float phase and one cos/sin per channel;
+    one two-float phase and one cos/sin per channel (the kernel's groups
+    are then ``cg`` = min(16 or 8, chan) channels, the last one ragged);
 ``exact``
     the channel grid is an exact progression: the phasor at each group's
-    base frequency and at the step, then a unit-phasor recurrence;
+    middle channel and at the step, then a unit-phasor recurrence up and
+    down the group (at most cg/2 steps);
 ``residual``
     ``exact`` for the fitted progression plus a rotation by
-    2π·delay·δ_f per channel (6th-order small-angle polynomial), engaged
-    while |2π·delay_max·max δ| ≤ 0.35 rad.
+    2π·delay·δ_f per channel, engaged while |2π·delay_max·max δ| ≤ 0.35
+    rad: 1 + i·x where |delay| ≤ ``delay_small`` (x²/2 ≤ 8e-8, as
+    ``cuda_predict.PredictPlan`` chooses it), else the 6th-order
+    small-angle polynomial.
+
+A pair's delay and step phasor are computed once for all the channel
+groups of a kernel block (``csrc/dft.cu``'s header says how; at config 5
+one group holds the band).
 
 Everything that depends only on the directions, the frequencies and
-the convention — the mode, the channel tables on the device, l, m and
-the two-float n−1 — is planned once in a :class:`DftPlan`, a module
-whose tensors move with ``.to()``. :func:`dft_forward` and
-:func:`dft_adjoint` take a plan, the rows' ``uvw`` and the values; they
-launch the kernels on CUDA tensors and count their launches in
-``.launches``; on CPU tensors they compute the same maps with
+the convention — the groups, the mode, the channel tables on the
+device, l, m and the two-float n−1 — is planned once in a
+:class:`DftPlan`, a module whose tensors move with ``.to()``.
+:func:`dft_forward` and :func:`dft_adjoint` take a plan, the rows' ``uvw``
+and the values; they launch the kernels on CUDA tensors and count their
+launches in ``.launches``; on CPU tensors they compute the same maps with
 :func:`dft_forward_reference` and :func:`dft_adjoint_reference`, the
-plain PyTorch versions, which follow the same tables and recurrence (the
-tests hold them against both Pallas kernels in interpret mode;
-``chip_smoke.py`` holds the kernels against them on the card). Any S,
-R, P, F and C are accepted. The kernels take C ∈ {1, 2, 4}; for another
-C a plan holds one sub-plan per group of correlations that they take
-(3 = 2 + 1: the channel groups depend on C), and on the card each group
-is launched on its own columns of the values and the outputs are
-concatenated.
+plain PyTorch versions, which follow the same groups, recurrence and
+rotation (the tests hold them against both Pallas kernels in interpret
+mode and against float64 oracles; ``chip_smoke.py`` holds the kernels
+against them on the card). Any S, R, P, F and C are accepted. The
+kernels take C ∈ {1, 2, 4}; for another C a plan holds one sub-plan per
+group of correlations that they take (3 = 2 + 1: the channel groups
+depend on C), and on the card each group is launched on its own columns
+of the values and the outputs are concatenated.
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from torch import nn
 from africanus_tpu_torch.constants import c as lightspeed
 from africanus_tpu_torch.coordinates.transforms import n_minus_one
 from africanus_tpu_torch.ops import _build
+from africanus_tpu_torch.ops.cuda_predict import X_SMALL
 from africanus_tpu_torch.ops.dfloat import n_minus_one_df, split
 from africanus_tpu_torch.rime.phase import _sign_for, phase_dot_cycles
 
@@ -77,19 +90,20 @@ _X_MAX = 0.35
 DELAY_MAX = 1e-4
 _TWO_PI = 2.0 * np.pi
 
-# accumulators per thread: cg·C ≤ 8 (adjoint), cg·C pairs ≤ 4 (forward);
-# the JAX package's caps, so that the channel groups are the same
-_CAPS = {"forward": 4, "adjoint": 8}
 # the correlation counts csrc/dft.cu is instantiated for
 _KERNEL_CORRS = (1, 2, 4)
+_KINDS = ("forward", "adjoint")
 _MODES = {"direct": 0, "exact": 1, "residual": 2}
+# the most channels a group (csrc/dft.cu's slots)
+_CG_MAX = 16
 
-# adjoint launch shape (csrc/dft.cu): pixels per block, rows per staged
-# tile, and the block count that row chunking aims for (~16 blocks of
-# 128 threads on each of the H100's 132 SMs)
-_PIX_BLOCK = 128
+# launch shape (csrc/dft.cu): threads a block (a lane a pixel or a row, a
+# warp a channel group), the adjoint's rows staged a pass, and the block
+# count that its row chunks aim for: many waves of the ~4-8 blocks each
+# of the H100's 132 SMs holds, so that the last one costs little
+_THREADS = 128
 _ROW_TILE = 32
-_TARGET_BLOCKS = 2048
+_TARGET_BLOCKS = 4096
 
 # the plain versions' blocking, which bounds their peak memory to a few
 # (block, row) planes, and measured_delay_max's
@@ -105,16 +119,21 @@ def build_dft():
 
 
 def _library():
-    lib = _build.load("dft", _SOURCES)
+    return _bind(_build.load("dft", _SOURCES))
+
+
+def _bind(lib):
+    """The two launch functions of a build of ``csrc/dft.cu``, typed:
+    (forward, adjoint)."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, adj = lib.dft_forward_launch, lib.dft_adjoint_launch
     if fwd.argtypes is None:
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
-        fwd.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2 + [i32] * 4
-                        + [f32] * 2 + [ptr] + [i32] * 4 + [ptr])
+        fwd.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3 + [i32] * 4
+                        + [f32] * 3 + [ptr] + [i32] * 4 + [ptr])
         fwd.restype = ctypes.c_int
-        adj.argtypes = ([ptr] * 8 + [i32] * 4 + [f32] * 2 + [ptr] * 2
+        adj.argtypes = ([ptr] * 9 + [i32] * 4 + [f32] * 3 + [ptr] * 2
                         + [i32] * 6 + [ptr])
         adj.restype = ctypes.c_int
     return fwd, adj
@@ -146,8 +165,9 @@ def chan_group_tables(freq, nchan, ncorr, cap, delay_max=DELAY_MAX,
     """Channel-group split and per-group scalar tables.
 
     ``freq`` holds concrete frequencies (a tensor is read on the host; an
-    f64 grid is carried as two-float pairs). ``cap`` bounds cg·ncorr:
-    8 for the adjoint, 4 for the forward. ``residual`` is engaged while
+    f64 grid is carried as two-float pairs). ``cap`` bounds cg·ncorr
+    (the JAX package's kernels take 8 for the adjoint and 4 for the
+    forward; :class:`DftPlan` passes ncorr·:func:`_slots`). ``residual`` is engaged while
     the rotation 2π·delay_max·max|δ| stays within ``x_max`` rad, the
     range of the kernel's small-angle polynomial. Returns (cg, ngroups, mode,
     use_flo, fsm, usm): fsm is the (ngroups, 4, cg) float32 per-channel
@@ -246,6 +266,18 @@ def _sign_pair(convention):
     return float(hi), float(np.float32(np.float64(value) - np.float64(hi)))
 
 
+def _slots(ncorr):
+    """Channels a group at ``ncorr`` correlations (csrc/dft.cu's slots):
+    cg·C ≤ 32, the adjoint thread's accumulators or the forward thread's
+    complex pairs, and at most 16."""
+    return min(_CG_MAX, 32 // ncorr)
+
+
+def _groups_a_block(ngroups):
+    """Channel groups a kernel block takes, a warp each (1, 2 or 4)."""
+    return 1 if ngroups == 1 else 2 if ngroups == 2 else 4
+
+
 class DftPlan(nn.Module):
     """The host planning of one DFT at fixed directions, frequencies and
     phase convention, made once and reused by every transform of values
@@ -253,8 +285,7 @@ class DftPlan(nn.Module):
 
     Parameters
     ----------
-    kind : "forward" (:func:`dft_forward`, cg·C ≤ 4) or "adjoint"
-        (:func:`dft_adjoint`, cg·C ≤ 8) — the JAX package's caps
+    kind : "forward" (:func:`dft_forward`) or "adjoint" (:func:`dft_adjoint`)
     lm : (n, 2) float32 sources or pixels, on the device of the values
     frequency : (chan,) concrete frequencies (tensor or array; read on
         the host — a sync when it is on the card; an f64 grid is carried
@@ -264,19 +295,26 @@ class DftPlan(nn.Module):
     convention : the sign of the phase, as for ``phase_dot_cycles``
     delay_max : bound on |delay| (s) for the residual-mode engagement
 
-    Attributes: ``cg``, ``ngroups``, ``mode``, ``use_flo`` and the numpy
-    tables ``fsm``, ``usm`` of :func:`chan_group_tables`; ``sign``, the
-    two-float sign/c. Buffers, moved by ``.to()``: ``lm``, ``l``, ``m``,
-    ``n1h``, ``n1l`` (the two-float n−1) and the tables on the device,
-    ``fsm_dev`` and ``usm_dev``. ``groups``: (first, count) of the
-    correlation groups the kernels take, with ``parts`` their plans
-    (empty when ncorr is 1, 2 or 4).
+    Attributes: ``mode`` and ``cg``, ``ngroups`` (channels a group and
+    groups, as the kernels take them: :func:`chan_group_tables` at
+    cg·C ≤ 32 and cg ≤ 16; in the ``direct`` mode ``cg`` = min(16 or 8,
+    chan) channels a group, the last one ragged), ``delay_max``,
+    ``delay_small`` (the bound on |delay| of a first-order rotation),
+    ``sign`` (the two-float sign/c) and the numpy tables ``ftab``
+    ((chan, 4): each channel's frequency as two-float [ν, ν_hh, ν_hl,
+    ν_lo]), ``rtab`` ((chan,): 2π·δ_f in the ``residual`` mode, else 0)
+    and ``gtab`` ((ngroups, 2, 4): each group's middle channel and the
+    grid's step, two-float, in the ``exact`` and ``residual`` modes).
+    Buffers, moved by ``.to()``: ``lm``, ``l``, ``m``, ``n1h``, ``n1l``
+    (the two-float n−1) and ``ftab_dev``, ``rtab_dev``, ``gtab_dev``.
+    ``groups``: (first, count) of the correlation groups the kernels take,
+    with ``parts`` their plans (empty when ncorr is 1, 2 or 4).
     """
 
     def __init__(self, kind, lm, frequency, ncorr, convention,
                  delay_max=DELAY_MAX):
         super().__init__()
-        if kind not in _CAPS:
+        if kind not in _KINDS:
             raise ValueError(f"kind must be 'forward' or 'adjoint', got {kind!r}")
         if lm.ndim != 2 or lm.shape[1] != 2 or lm.dtype != torch.float32:
             raise ValueError(f"DftPlan: lm must be float32 (n, 2), got "
@@ -287,18 +325,40 @@ class DftPlan(nn.Module):
             raise ValueError(f"DftPlan: corr must be positive, got {ncorr}")
         if isinstance(frequency, torch.Tensor):
             frequency = frequency.detach().cpu().numpy()  # read on the host once
+        f64 = np.asarray(frequency, np.float64)
         self.kind, self.convention = kind, convention
         self.sign = _sign_pair(convention)
-        self.nchan, self.ncorr = len(frequency), int(ncorr)
-        (self.cg, self.ngroups, self.mode, self.use_flo, self.fsm,
-         self.usm) = chan_group_tables(frequency, self.nchan, self.ncorr,
-                                       _CAPS[kind], delay_max)
+        self.nchan, self.ncorr = f64.size, int(ncorr)
+        self.delay_max = float(delay_max)
+        slots = _slots(self.ncorr)
+        self.cg, self.ngroups, self.mode, _, fsm, _ = chan_group_tables(
+            f64, self.nchan, self.ncorr, self.ncorr * slots, delay_max)
+        self.ftab = np.ascontiguousarray(_freq_rows_np(f64).T)
+        self.rtab = np.ascontiguousarray(
+            fsm[:, 0, :].reshape(-1) if self.mode == "residual"
+            else np.zeros(self.nchan, np.float32))
+        if self.mode == "direct":
+            self.cg = min(slots, self.nchan)
+            self.ngroups = -(-self.nchan // self.cg) if self.nchan else 0
+        self.gtab = np.zeros((self.ngroups, 2, 4), np.float32)
+        if self.mode != "direct":
+            # the step as chan_group_tables fits it, and each group's
+            # middle channel, the base of the recurrence
+            step = (f64[-1] - f64[0]) / (self.nchan - 1)
+            mids = f64[0] + (np.arange(self.ngroups) * self.cg + self.cg // 2) * step
+            self.gtab[:, 0] = _freq_rows_np(mids).T
+            self.gtab[:, 1] = _freq_rows_np([step])[:, 0]
+        # the delay below which a pair's rotation is first order
+        rmax = float(np.abs(self.rtab).max(initial=0.0))
+        self.delay_small = (min(X_SMALL / rmax, self.delay_max) if rmax
+                            else self.delay_max)
         lm = lm.contiguous()
         n1h, n1l = n_minus_one_df(lm[:, 0], lm[:, 1])
         for name, x in (("lm", lm), ("l", lm[:, 0]), ("m", lm[:, 1]),
                         ("n1h", n1h), ("n1l", n1l),
-                        ("fsm_dev", _to_device(self.fsm, lm.device)),
-                        ("usm_dev", _to_device(self.usm, lm.device))):
+                        ("ftab_dev", _to_device(self.ftab, lm.device)),
+                        ("rtab_dev", _to_device(self.rtab, lm.device)),
+                        ("gtab_dev", _to_device(self.gtab, lm.device))):
             self.register_buffer(name, x.contiguous(), persistent=False)
         self.groups = _build.groups(self.ncorr, _KERNEL_CORRS)
         self.parts = nn.ModuleList(
@@ -328,40 +388,54 @@ def _check(name, plan, uvw, values, lead, complex_only):
         raise ValueError(f"{name}: all operands must be contiguous")
 
 
+def _phasor(dhi, dlo, dhh, dhl, f):
+    """cos/sin of 2π·frac((dhi + dlo)·(f + flo)) on the delay planes, f =
+    [ν, ν_hh, ν_hl, ν_lo] a two-float frequency (csrc/dft.cu's phasor)."""
+    f, fhh, fhl, flo = (float(x) for x in f)
+    p = dhi * f
+    e = ((((dhh * fhh) - p) + dhh * fhl) + dhl * fhh) + dhl * fhl
+    e = (e + dlo * f) + dhi * flo
+    ph = _TWO_PI * ((p - torch.round(p)) + e)
+    return torch.cos(ph), torch.sin(ph)
+
+
 def _channel_phasors(dhi, dlo, plan, g):
     """Yield (f, kre, kim) for each channel f of group ``g``: the phasor
-    e^{2πi·delay·ν} on the delay planes (dhi, dlo), by the plan's mode —
-    the per-channel body of ``pallas_dft._dft_adj_kernel`` and
-    ``_dft_fwd_kernel`` in eager torch."""
-    cg, fsm, usm = plan.cg, plan.fsm, plan.usm
+    e^{2πi·delay·ν} on the delay planes (dhi, dlo), by the plan's mode as
+    ``csrc/dft.cu`` computes it — in the ``exact`` and ``residual`` modes
+    the phasor at the group's middle channel, the recurrence up by the
+    step and down by its conjugate, and the ``residual`` rotation to
+    first order where |dhi| ≤ ``delay_small``, else by the polynomial."""
+    cg, f0 = plan.cg, g * plan.cg
     dhh, dhl = split(dhi)
-
-    def phase_cs(f, fhh, fhl, flo):
-        p = dhi * f
-        e = ((((dhh * fhh) - p) + dhh * fhl) + dhl * fhh) + dhl * fhl
-        e = e + dlo * f
-        if plan.use_flo:
-            e = e + dhi * flo
-        ph = _TWO_PI * ((p - torch.round(p)) + e)
-        return torch.cos(ph), torch.sin(ph)
-
     if plan.mode == "direct":
-        for f in range(cg):
-            yield (f, *phase_cs(*(float(fsm[g, k, f]) for k in range(4))))
+        for f in range(f0, min(f0 + cg, plan.nchan)):
+            yield (f, *_phasor(dhi, dlo, dhh, dhl, plan.ftab[f]))
         return
-    bre, bim = phase_cs(*(float(usm[g, k, 0]) for k in range(4)))
-    sre, sim = phase_cs(*(float(usm[g, k, 1]) for k in range(4)))
-    for f in range(cg):
-        kre, kim = bre, bim
-        if plan.mode == "residual":
-            x = dhi * float(fsm[g, 0, f])
-            x2 = x * x
-            c = 1.0 - x2 * (0.5 - x2 * ((1.0 / 24.0) - x2 * (1.0 / 720.0)))
-            s = x * (1.0 - x2 * ((1.0 / 6.0) - x2 * (1.0 / 120.0)))
-            kre, kim = kre * c - kim * s, kim * c + kre * s
-        yield f, kre, kim
-        if f + 1 < cg:
-            bre, bim = bre * sre - bim * sim, bre * sim + bim * sre
+    small = dhi.abs() <= plan.delay_small
+
+    def rotated(f, kre, kim):
+        if plan.mode == "exact":
+            return f, kre, kim
+        x = dhi * float(plan.rtab[f])
+        x2 = x * x
+        c = 1.0 - x2 * (0.5 - x2 * ((1.0 / 24.0) - x2 * (1.0 / 720.0)))
+        s = x * (1.0 - x2 * ((1.0 / 6.0) - x2 * (1.0 / 120.0)))
+        c, s = torch.where(small, 1.0, c), torch.where(small, x, s)
+        return f, kre * c - kim * s, kim * c + kre * s
+
+    mid = cg // 2
+    bre, bim = _phasor(dhi, dlo, dhh, dhl, plan.gtab[g, 0])
+    sre, sim = _phasor(dhi, dlo, dhh, dhl, plan.gtab[g, 1])
+    ure, uim = bre, bim
+    for k in range(mid, cg):
+        if k > mid:
+            ure, uim = ure * sre - uim * sim, ure * sim + uim * sre
+        yield rotated(f0 + k, ure, uim)
+    dre, dim = bre, bim
+    for k in range(mid - 1, -1, -1):
+        dre, dim = dre * sre + dim * sim, dim * sre - dre * sim
+        yield rotated(f0 + k, dre, dim)
 
 
 def _launch(fn, name, plan, *args):
@@ -371,6 +445,13 @@ def _launch(fn, name, plan, *args):
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _tables(plan):
+    """The plan's channel tables and groups, as the kernels take them."""
+    return (plan.ftab_dev.data_ptr(), plan.rtab_dev.data_ptr(),
+            plan.gtab_dev.data_ptr(), plan.cg, plan.ngroups,
+            _groups_a_block(plan.ngroups), _MODES[plan.mode])
 
 
 # ------------------------------------------------------------ forward
@@ -407,9 +488,8 @@ def dft_forward(plan, uvw, image):
     fwd, _ = _library()
     _launch(fwd, "dft_forward", plan, plan.l.data_ptr(), plan.m.data_ptr(),
             plan.n1h.data_ptr(), plan.n1l.data_ptr(), uvw.data_ptr(),
-            image.data_ptr(), int(image.is_complex()), plan.fsm_dev.data_ptr(),
-            plan.usm_dev.data_ptr(), plan.cg, plan.ngroups, _MODES[plan.mode],
-            int(plan.use_flo), *plan.sign, out.data_ptr(), nsrc, nrow, nchan,
+            image.data_ptr(), int(image.is_complex()), *_tables(plan),
+            *plan.sign, plan.delay_small, out.data_ptr(), nsrc, nrow, nchan,
             ncorr)
     dft_forward.launches += 1
     return out
@@ -422,9 +502,9 @@ def dft_forward_reference(plan, uvw, image):
     """The plain PyTorch version of :func:`dft_forward` (same operands).
 
     ``_REF_SOURCE_BLOCK`` sources at a time: the delay planes come from
-    ``phase_dot_cycles``, the phasors follow the plan's channel-group
-    tables and recurrence, as the kernel does, and each channel's source
-    sum is a (row, src)·(src, corr) product.
+    ``phase_dot_cycles``, the phasors follow the plan's channel groups,
+    recurrence and rotation, as the kernel does (:func:`_channel_phasors`),
+    and each channel's source sum is a (row, src)·(src, corr) product.
     """
     lm = plan.lm
     _check("dft_forward", plan, uvw, image, lm.shape[0], complex_only=False)
@@ -440,8 +520,7 @@ def dft_forward_reference(plan, uvw, image):
         blk = slice(s0, s0 + _REF_SOURCE_BLOCK)
         dhi, dlo = phase_dot_cycles(lm[blk], uvw, plan.convention)  # (sb, row)
         for g in range(plan.ngroups):
-            for f, kre, kim in _channel_phasors(dhi, dlo, plan, g):
-                ch = g * plan.cg + f
+            for ch, kre, kim in _channel_phasors(dhi, dlo, plan, g):
                 ir = ire[blk, ch]  # (sb, corr)
                 re[:, ch] += kre.T @ ir
                 im[:, ch] += kim.T @ ir
@@ -457,9 +536,11 @@ def dft_forward_reference(plan, uvw, image):
 def _row_chunks(npix, nrow, ngroups):
     """(rows per chunk, chunks) of the adjoint's row axis: enough chunks
     that the grid holds ~_TARGET_BLOCKS blocks, each chunk a multiple of
-    the staged row tile. A function of the shapes only, so the partial
-    sums (and the result) are the same on every run."""
-    blocks = -(-npix // _PIX_BLOCK) * ngroups
+    the staged row tile and at least 4 of them. A function of the shapes
+    only, so the partial sums (and the result) are the same on every
+    run."""
+    gpb = _groups_a_block(ngroups)
+    blocks = -(-npix // (_THREADS // gpb)) * -(-ngroups // gpb)
     nchunks = max(1, min(-(-_TARGET_BLOCKS // blocks), -(-nrow // (4 * _ROW_TILE))))
     rows = -(-nrow // nchunks)
     rows = -(-rows // _ROW_TILE) * _ROW_TILE
@@ -503,10 +584,9 @@ def dft_adjoint(plan, uvw, vis):
     _, adj = _library()
     _launch(adj, "dft_adjoint", plan, plan.l.data_ptr(), plan.m.data_ptr(),
             plan.n1h.data_ptr(), plan.n1l.data_ptr(), uvw.data_ptr(),
-            vis.data_ptr(), plan.fsm_dev.data_ptr(), plan.usm_dev.data_ptr(),
-            plan.cg, plan.ngroups, _MODES[plan.mode], int(plan.use_flo),
-            *plan.sign, partial.data_ptr(), out.data_ptr(), npix, nrow, nchan,
-            ncorr, rows, nchunks)
+            vis.data_ptr(), *_tables(plan), *plan.sign, plan.delay_small,
+            partial.data_ptr(), out.data_ptr(), npix, nrow, nchan, ncorr,
+            rows, nchunks)
     dft_adjoint.launches += 1
     return out
 
@@ -519,8 +599,8 @@ def dft_adjoint_reference(plan, uvw, vis):
 
     ``_REF_PIXEL_BLOCK`` pixels at a time, so that its peak memory is a
     few (pixel block, row) planes (40 MB each at the config-5 row count);
-    the phasors follow the plan's tables and recurrence, as the kernel
-    does, and each channel's row sum is a (pixel, row)·(row, corr)
+    the phasors follow the plan's groups, recurrence and rotation, as the
+    kernel does, and each channel's row sum is a (pixel, row)·(row, corr)
     product.
     """
     lm = plan.lm
@@ -535,7 +615,6 @@ def dft_adjoint_reference(plan, uvw, vis):
         blk = slice(p0, p0 + _REF_PIXEL_BLOCK)
         dhi, dlo = phase_dot_cycles(lm[blk], uvw, plan.convention)  # (pb, row)
         for g in range(plan.ngroups):
-            for f, kre, kim in _channel_phasors(dhi, dlo, plan, g):
-                ch = g * plan.cg + f
+            for ch, kre, kim in _channel_phasors(dhi, dlo, plan, g):
                 out[blk, ch] = kre @ vr[:, ch] - kim @ vi[:, ch]
     return out

@@ -777,14 +777,20 @@ def dft_kernel_checks(device):
         worst[key] = max(worst.get(key, 0.0), err)
         check(err <= DFT_BOUND, f"{key}: {err:.3e} > {DFT_BOUND}")
 
-    modes = set()
+    modes, groups = set(), set()
     # (S, P, R, F): the ragged shape for every mode, corr and convention,
-    # plus one-channel and many-group edges
+    # one-channel and many-group edges, and the edges of the channel
+    # groups and tiles: F = 16 (one full group), 17 (a ragged group), 64
+    # (several groups a block); P not a multiple of the pixel tile, R under
+    # one row tile; C = 3 as 2 + 1 launches. Each launch twice, bitwise.
     for S, P, R, F, grids in ((37, 300, 1000, 12, ("exact", "residual", "direct")),
                               (1, 5, 9, 1, ("exact",)),
-                              (70, 129, 33, 16, ("residual",))):
+                              (70, 129, 33, 16, ("residual",)),
+                              (20, 200, 10, 16, ("exact", "residual", "direct")),
+                              (9, 77, 300, 17, ("residual", "direct")),
+                              (40, 300, 500, 64, ("exact", "residual", "direct"))):
         for grid in grids:
-            for C in (1, 2, 4):
+            for C in (1, 2, 3, 4):
                 for conv in ("fourier", "casa"):
                     lm_s, lm_p, uvw, freq, img, vis = dft_problem(
                         rng, S, P, R, F, C, grid, device)
@@ -795,15 +801,21 @@ def dft_kernel_checks(device):
                         want = cd.dft_forward_reference(fwd, uvw, image)
                         check(got.shape == (R, F, C)
                               and got.dtype == torch.complex64, "forward shape")
+                        check(torch.equal(got, cd.dft_forward(fwd, uvw, image)),
+                              f"dft_forward rerun differs at {(S, R, F, C)}")
                         compare(f"forward/{sky}", got, want)
                     adj = cd.DftPlan("adjoint", lm_p, freq, C, conv)
                     got = cd.dft_adjoint(adj, uvw, vis)
                     want = cd.dft_adjoint_reference(adj, uvw, vis)
                     check(got.shape == (P, F, C) and got.dtype == torch.float32,
                           "adjoint shape")
+                    check(torch.equal(got, cd.dft_adjoint(adj, uvw, vis)),
+                          f"dft_adjoint rerun differs at {(P, R, F, C)}")
                     compare("adjoint", got, want)
                     modes.update((fwd.mode, adj.mode))
+                    groups.update((q.cg, q.ngroups) for q in (fwd.parts or [fwd]))
     check(modes == {"exact", "residual", "direct"}, f"modes run: {modes}")
+    check({(16, 1), (16, 2), (16, 4), (8, 8)} <= groups, f"groups run: {groups}")
 
     # three correlations: each plan holds a sub-plan per group the kernels
     # take (2 + 1), launched on its own columns; predict_kb splits the same
@@ -848,8 +860,9 @@ def dft_kernel_checks(device):
     wide = float((got.cpu() - want).abs().max() / want.abs().max())
     check(wide <= 2e-6, f"im_to_vis via predict_kb vs CPU: {wide:.3e} > 2e-6")
     print(f"[4/{PHASES}] dft kernels vs plain on the card (S=37 P=300 R=1000 "
-          f"F=12, modes {sorted(modes)}, C 1/2/4, both conventions, and edge "
-          "shapes; C 3 as 2 + 1 launches; rel to max|out|): "
+          f"F=12, modes {sorted(modes)}, C 1/2/3/4, both conventions, and edge "
+          f"shapes: F 1/16/17/64, P 5/77/129/200, R 9/10/33; (cg, groups) "
+          f"{sorted(groups)}; reruns bitwise; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f"; predict_kb C 3 (2 + 1) {pk3:.2e}; deterministic; im_to_vis 256 "
           f"chan via predict_kb vs CPU {wide:.2e}",
@@ -1067,7 +1080,11 @@ def selfcal(device, card):
     adj_scale = float(want.abs().max())
     check(adj_abs <= DFT_BOUND * adj_scale,
           f"dft_adjoint vs plain at the step shape: {adj_abs:.3e}")
+    check(torch.equal(got, cd.dft_adjoint(adj, step.uvw, data_i)),
+          "dft_adjoint rerun differs at the step shape")
     got = cd.dft_forward(fwd, step.uvw, step.image)
+    check(torch.equal(got, cd.dft_forward(fwd, step.uvw, step.image)),
+          "dft_forward rerun differs at the step shape")
     want, fwd_plain_ms = cuda_once_ms(
         lambda: cd.dft_forward_reference(fwd, step.uvw, step.image))
     fwd_abs = float((got - want).abs().max())
@@ -1103,11 +1120,17 @@ def selfcal(device, card):
           f"(residual image, {npx * npx} px x {nrow} rows x {nchan} chan); "
           f"dft_forward kernel {fwd_ms:.3f} ms per launch, im_to_vis "
           f"{fwd_call_ms:.3f} ms, plain {fwd_plain_ms:.1f} ms (re-predict); "
-          f"the kernels line shows the per-launch times; kernel vs plain max "
+          f"the kernels line shows the per-launch times; plans: adjoint cg "
+          f"{adj.cg} x {adj.ngroups} {adj.mode}, forward cg {fwd.cg} x "
+          f"{fwd.ngroups} {fwd.mode}, every pair's rotation first order "
+          f"{adj.delay_small >= adj.delay_max and fwd.delay_small >= fwd.delay_max}; "
+          f"reruns bitwise; kernel vs plain max "
           f"abs err adjoint {adj_abs:.3e} (max {adj_scale:.3e}), forward "
           f"{fwd_abs:.3e} (max {fwd_scale:.3e})", flush=True)
-    fwd_plan = (fwd.l, fwd.m, fwd.n1h, fwd.n1l, fwd.fsm_dev, fwd.usm_dev)
-    adj_plan = (adj.l, adj.m, adj.n1h, adj.n1l, adj.fsm_dev, adj.usm_dev)
+    fwd_plan = (fwd.l, fwd.m, fwd.n1h, fwd.n1l, fwd.ftab_dev, fwd.rtab_dev,
+                fwd.gtab_dev)
+    adj_plan = (adj.l, adj.m, adj.n1h, adj.n1l, adj.ftab_dev, adj.rtab_dev,
+                adj.gtab_dev)
     nsrc = step.lm.shape[0]
     return [
         {"name": "dft_forward", "route": "cuda",

@@ -264,31 +264,41 @@ def _assert_close(got, want, bound=3e-6):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,P,R,F", [(37, 300, 1000, 12), (1, 5, 9, 1),
                                      (70, 129, 33, 16), (0, 3, 8, 4),
-                                     (5, 4, 0, 4)])
+                                     (5, 4, 0, 4), (20, 200, 10, 16),
+                                     (9, 77, 300, 17), (40, 300, 500, 64),
+                                     (20, 4096, 38612, 16)])
 @pytest.mark.parametrize("grid", ["exact", "residual", "direct"])
-@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
 @pytest.mark.parametrize("convention", ["fourier", "casa"])
 def test_dft_kernels_match_plain(device, S, P, R, F, grid, C, convention):
+    """Both kernels against their plain versions, and a rerun bitwise, at
+    the edges of the channel groups and tiles — one full group (F = 16),
+    a ragged one (17), several (64); P not a multiple of the pixel tile,
+    R under one row tile; C = 3 as 2 + 1 launches — and the config-5
+    shape (4096 pixels or 20 sources, 38612 rows, 16 channels)."""
     rng = np.random.default_rng(S * 1000 + R + F + C)
     lm_s, lm_p, uvw, freq, img, vis = dft_problem(rng, S, P, R, F, C, grid,
                                                   device)
     fwd = cd.DftPlan("forward", lm_s, freq, C, convention)
+    launches = len(fwd.parts) or 1
     for image in (img, img.real.contiguous()):
         before = cd.dft_forward.launches
         got = cd.dft_forward(fwd, uvw, image)
         torch.cuda.synchronize()
-        assert cd.dft_forward.launches == before + (S > 0 and R > 0)
+        assert cd.dft_forward.launches == before + launches * (S > 0 and R > 0)
         want = cd.dft_forward_reference(fwd, uvw, image)
         assert got.shape == (R, F, C) and got.dtype == torch.complex64
         _assert_close(got, want)
+        assert torch.equal(got, cd.dft_forward(fwd, uvw, image))
     adj = cd.DftPlan("adjoint", lm_p, freq, C, convention)
     before = cd.dft_adjoint.launches
     got = cd.dft_adjoint(adj, uvw, vis)
     torch.cuda.synchronize()
-    assert cd.dft_adjoint.launches == before + (R > 0)
+    assert cd.dft_adjoint.launches == before + launches * (R > 0)
     want = cd.dft_adjoint_reference(adj, uvw, vis)
     assert got.shape == (P, F, C) and got.dtype == torch.float32
     _assert_close(got, want)
+    assert torch.equal(got, cd.dft_adjoint(adj, uvw, vis))
 
 
 @pytest.mark.cuda
