@@ -39,6 +39,23 @@
 //             takes it by vote over its pairs), else the 6th-order
 //             small-angle polynomial, which holds to |x| <= 0.35 rad (the
 //             plan engages the mode only there).
+// The plan's delay bound (delay_max) only chooses the mode: it is measured
+// on the uvw the plan was made from, and a call may bring longer
+// baselines. A pair beyond it (delay_far: delay_max and a slack for its
+// float32 measurement) is exact: in the EXACT and RESIDUAL modes a warp
+// votes on its pairs, and if any is that far the whole warp takes the
+// pair's DIRECT phase at every slot's channel, from the [nu, hh, hl, lo]
+// rows the block stages in every mode (the DIRECT table: no more shared
+// memory, and no channel map or table pointer in registers, which
+// spilled). In the pair loop the vote cost ~5% where no pair is far, so a
+// warp takes the loop with the vote only on a tile of rows (sources) where
+// a pair may be far, by a bound on |delay| from the warp's largest |l|,
+// |m|, |n-1| (forward: |u|, |v|, |w|) and a row's |u|, |v|, |w| (a
+// source's |l|, |m|, |n-1|); in that loop the RESIDUAL mode's near pairs
+// take the polynomial (two votes in one loop spilled at C = 4). The second
+// loop, even unrun, changes the first's schedule (~3.5% of the adjoint at
+// config 5, ~5% of the forward): the adjoint gets it back by taking two
+// rows at a time at C = 1, the forward does not (tools/dft_variants.py).
 // At the config-5 residual image (4096 pixels x 38612 rows x 16 channels,
 // C = 1, one group, every pair on the first-order rotation) the compiled
 // loop is ~130 instructions a pair and ~10 a channel, ~18 a term against
@@ -234,8 +251,9 @@ struct Slots {
     }
 };
 
-// the block's channel tables: [nu, hh, hl, lo] (DIRECT) and 2*pi*delta_f
-// (RESIDUAL) of each of its gpb groups' slots, zero in padding
+// the block's channel tables: [nu, hh, hl, lo] (DIRECT, and the far pairs
+// of EXACT and RESIDUAL) and 2*pi*delta_f (RESIDUAL) of each of its gpb
+// groups' slots, zero in padding
 template <int CG, int MODE>
 __device__ __forceinline__ void stage_tables(const Slots<CG>& sl, int g0, int gpb,
                                              const float4* __restrict__ ftab,
@@ -243,20 +261,45 @@ __device__ __forceinline__ void stage_tables(const Slots<CG>& sl, int g0, int gp
                                              float4 (*s_freq)[CG], float (*s_rot)[CG]) {
     for (int i = threadIdx.x; i < gpb * CG; i += THREADS) {
         const int s = i / CG, k = i % CG, f = sl.chan(g0 + s, k);
-        if (MODE == DIRECT) s_freq[s][k] = f >= 0 ? ftab[f] : make_float4(0, 0, 0, 0);
+        s_freq[s][k] = f >= 0 ? ftab[f] : make_float4(0, 0, 0, 0);
         if (MODE == RESIDUAL) s_rot[s][k] = f >= 0 ? rtab[f] : 0.0f;
     }
+}
+
+// a tile of the loop with (true) or without the far-pair vote
+template <bool B>
+struct Far {
+    static constexpr bool value = B;
+};
+
+// the largest |x| over the warp (non-negative floats order as their bits)
+__device__ __forceinline__ float warp_max_abs(float x) {
+    return __uint_as_float(__reduce_max_sync(FULL_MASK, __float_as_uint(fabsf(x))));
+}
+
+// whether a pair of a warp and a row (or source) may lie beyond delay_far:
+// a is the warp's largest |l|, |m|, |n-1| (or |u|, |v|, |w|), b the row's
+// (source's) other three, c = |sign/c|; the margin covers the float32
+// rounding of the bound
+__device__ __forceinline__ bool may_be_far(float3 a, float3 b, float c,
+                                           float delay_far) {
+    const float bound = (a.x * fabsf(b.x) + a.y * fabsf(b.y) + a.z * fabsf(b.z)) * c;
+    return bound * 1.00001f > delay_far;
 }
 
 // Calls body(k, y) for every slot k of a group, y the phasor of the pair
 // with delay (hi, lo) and step phasor st (EXACT, RESIDUAL) at that slot's
 // channel: freq and rot are the group's staged tables, base its middle
-// channel's frequency.
-template <int CG, int MODE, typename Body>
+// channel's frequency. With FAR, a warp with a pair beyond delay_far takes
+// the direct phase (a padding slot's frequency is zero, and so are its
+// staged values), and the RESIDUAL mode's near pairs the polynomial
+// rotation without the first-order vote (the two votes in one loop
+// spilled at C = 4).
+template <int CG, int MODE, bool FAR, typename Body>
 __device__ __forceinline__ void channels(float hi, float lo, float2 st, float4 base,
                                          const float4* freq, const float* rot,
-                                         float delay_small, Body body) {
-    if (MODE == DIRECT) {
+                                         float delay_small, float delay_far, Body body) {
+    if (MODE == DIRECT || (FAR && __any_sync(FULL_MASK, fabsf(hi) > delay_far))) {
 #pragma unroll
         for (int k = 0; k < CG; ++k) body(k, phasor(hi, lo, freq[k]));
         return;
@@ -264,7 +307,7 @@ __device__ __forceinline__ void channels(float hi, float lo, float2 st, float4 b
     const float2 z = phasor(hi, lo, base);
     if (MODE == EXACT)
         walk<CG, ROT_NONE>(z, st, hi, rot, body);
-    else if (__all_sync(FULL_MASK, fabsf(hi) <= delay_small))
+    else if (!FAR && __all_sync(FULL_MASK, fabsf(hi) <= delay_small))
         walk<CG, ROT_SMALL>(z, st, hi, rot, body);
     else
         walk<CG, ROT_FULL>(z, st, hi, rot, body);
@@ -279,7 +322,7 @@ dft_adjoint_kernel(const float* __restrict__ l, const float* __restrict__ m,
                    const float* __restrict__ uvw, const float2* __restrict__ vis,
                    const float4* __restrict__ ftab, const float* __restrict__ rtab,
                    const float4* __restrict__ gtab, int cg, int ngroups, int gpb,
-                   float chi, float clo, float delay_small,
+                   float chi, float clo, float delay_small, float delay_far,
                    float* __restrict__ partial, int P, int R, int F,
                    int rows_per_chunk) {
     constexpr int CG = slots<C>();
@@ -344,26 +387,48 @@ dft_adjoint_kernel(const float* __restrict__ l, const float* __restrict__ m,
         }
         if (!active) continue;
 
-        for (int lr = 0; lr < nr; ++lr) {
-            float hi, lo;
-            float2 st;
-            if (STAGE) {
-                const float4 q = s_pair[lr][pb];
-                hi = q.x;
-                lo = q.y;
-                st = make_float2(q.z, q.w);
-            } else {
-                pair(lr, hi, lo, st);
-            }
-            const float2* v = s_vis[lr] + gs * CG * C;
-            channels<CG, MODE>(hi, lo, st, base, s_freq[gs], s_rot[gs], delay_small,
-                               [&](int k, float2 y) {
-#pragma unroll
-                for (int c = 0; c < C; ++c) {
-                    const float2 b = v[k * C + c];
-                    acc[k][c] = fmaf(-y.y, b.y, fmaf(y.x, b.x, acc[k][c]));
+        auto rows = [&](auto far) {
+            // two rows at a time on the route without the vote at C = 1,
+            // where its registers allow it (tools/dft_variants.py)
+#pragma unroll ((C == 1 && !decltype(far)::value) ? 2 : 1)
+            for (int lr = 0; lr < nr; ++lr) {
+                float hi, lo;
+                float2 st;
+                if (STAGE) {
+                    const float4 q = s_pair[lr][pb];
+                    hi = q.x;
+                    lo = q.y;
+                    st = make_float2(q.z, q.w);
+                } else {
+                    pair(lr, hi, lo, st);
                 }
-            });
+                const float2* v = s_vis[lr] + gs * CG * C;
+                channels<CG, MODE, decltype(far)::value>(
+                    hi, lo, st, base, s_freq[gs], s_rot[gs], delay_small, delay_far,
+                    [&](int k, float2 y) {
+#pragma unroll
+                    for (int c = 0; c < C; ++c) {
+                        const float2 b = v[k * C + c];
+                        acc[k][c] = fmaf(-y.y, b.y, fmaf(y.x, b.x, acc[k][c]));
+                    }
+                });
+            }
+        };
+        if constexpr (MODE == DIRECT) {
+            rows(Far<false>());
+        } else {
+            // the far-pair vote only where a pair of the warp may need it:
+            // the warp's pixels' largest |l|, |m|, |n-1| (made again a tile,
+            // so that no register holds them through the loop)
+            const float3 dmax = make_float3(warp_max_abs(d.l), warp_max_abs(d.m),
+                                            warp_max_abs(d.nh));
+            bool far_rows = false;
+            for (int i = lane; i < nr; i += LANES)
+                far_rows |= may_be_far(dmax, s_row[i], fabsf(chi), delay_far);
+            if (__any_sync(FULL_MASK, far_rows))
+                rows(Far<true>());
+            else
+                rows(Far<false>());
         }
     }
 
@@ -398,13 +463,14 @@ template <int C, int MODE, bool STAGE>
 void adjoint(const float* l, const float* m, const float* n1h, const float* n1l,
              const float* uvw, const float2* vis, const float4* ftab,
              const float* rtab, const float4* gtab, int cg, int ngroups, int gpb,
-             float chi, float clo, float delay_small, float* partial, int P,
-             int R, int F, int rows_per_chunk, int nchunks, cudaStream_t stream) {
+             float chi, float clo, float delay_small, float delay_far,
+             float* partial, int P, int R, int F, int rows_per_chunk, int nchunks,
+             cudaStream_t stream) {
     const int pix = THREADS / gpb;
     const dim3 grid((P + pix - 1) / pix, (ngroups + gpb - 1) / gpb, nchunks);
     dft_adjoint_kernel<C, MODE, STAGE><<<grid, THREADS, 0, stream>>>(
         l, m, n1h, n1l, uvw, vis, ftab, rtab, gtab, cg, ngroups, gpb, chi, clo,
-        delay_small, partial, P, R, F, rows_per_chunk);
+        delay_small, delay_far, partial, P, R, F, rows_per_chunk);
 }
 
 template <int C>
@@ -412,11 +478,13 @@ void adjoint_mode(int mode, const float* l, const float* m, const float* n1h,
                   const float* n1l, const float* uvw, const float2* vis,
                   const float4* ftab, const float* rtab, const float4* gtab,
                   int cg, int ngroups, int gpb, float chi, float clo,
-                  float delay_small, float* partial, int P, int R, int F,
-                  int rows_per_chunk, int nchunks, cudaStream_t stream) {
+                  float delay_small, float delay_far, float* partial, int P,
+                  int R, int F, int rows_per_chunk, int nchunks,
+                  cudaStream_t stream) {
 #define ADJ(M, S) adjoint<C, M, S>(l, m, n1h, n1l, uvw, vis, ftab, rtab, gtab, cg, \
-                                   ngroups, gpb, chi, clo, delay_small, partial,  \
-                                   P, R, F, rows_per_chunk, nchunks, stream)
+                                   ngroups, gpb, chi, clo, delay_small,           \
+                                   delay_far, partial, P, R, F, rows_per_chunk,   \
+                                   nchunks, stream)
     const bool staged = gpb > 1;
     if (mode == DIRECT) { if (staged) ADJ(DIRECT, true); else ADJ(DIRECT, false); }
     else if (mode == EXACT) { if (staged) ADJ(EXACT, true); else ADJ(EXACT, false); }
@@ -449,7 +517,7 @@ dft_forward_kernel(const float* __restrict__ l, const float* __restrict__ m,
                    const float* __restrict__ uvw, const float* __restrict__ image,
                    const float4* __restrict__ ftab, const float* __restrict__ rtab,
                    const float4* __restrict__ gtab, int cg, int ngroups, int gpb,
-                   float chi, float clo, float delay_small,
+                   float chi, float clo, float delay_small, float delay_far,
                    float2* __restrict__ out, int S, int R, int F) {
     using Sh = FwdShared<C, STAGE>;
     constexpr int CG = Sh::CG;
@@ -512,31 +580,51 @@ dft_forward_kernel(const float* __restrict__ l, const float* __restrict__ m,
         }
         if (!active) continue;
 
-        for (int ls = slice; ls < ns; ls += nslice) {
-            float hi, lo;
-            float2 st;
-            if (STAGE) {
-                const float4 pq = tile.pair[ls][lane];
-                hi = pq.x;
-                lo = pq.y;
-                st = make_float2(pq.z, pq.w);
-            } else {
-                pair(ls, hi, lo, st);
-            }
-            const float2* v = tile.img[ls] + gs * CG * C;
-            channels<CG, MODE>(hi, lo, st, base, s_freq[gs], s_rot[gs], delay_small,
-                               [&](int k, float2 y) {
-#pragma unroll
-                for (int c = 0; c < C; ++c) {
-                    const float2 b = v[k * C + c];
-                    acc_re[k][c] = fmaf(y.x, b.x, acc_re[k][c]);
-                    acc_im[k][c] = fmaf(y.y, b.x, acc_im[k][c]);
-                    if (IMAG) {
-                        acc_re[k][c] = fmaf(-y.y, b.y, acc_re[k][c]);
-                        acc_im[k][c] = fmaf(y.x, b.y, acc_im[k][c]);
-                    }
+        auto sources = [&](auto far) {
+            for (int ls = slice; ls < ns; ls += nslice) {
+                float hi, lo;
+                float2 st;
+                if (STAGE) {
+                    const float4 pq = tile.pair[ls][lane];
+                    hi = pq.x;
+                    lo = pq.y;
+                    st = make_float2(pq.z, pq.w);
+                } else {
+                    pair(ls, hi, lo, st);
                 }
-            });
+                const float2* v = tile.img[ls] + gs * CG * C;
+                channels<CG, MODE, decltype(far)::value>(
+                    hi, lo, st, base, s_freq[gs], s_rot[gs], delay_small, delay_far,
+                    [&](int k, float2 y) {
+#pragma unroll
+                    for (int c = 0; c < C; ++c) {
+                        const float2 b = v[k * C + c];
+                        acc_re[k][c] = fmaf(y.x, b.x, acc_re[k][c]);
+                        acc_im[k][c] = fmaf(y.y, b.x, acc_im[k][c]);
+                        if (IMAG) {
+                            acc_re[k][c] = fmaf(-y.y, b.y, acc_re[k][c]);
+                            acc_im[k][c] = fmaf(y.x, b.y, acc_im[k][c]);
+                        }
+                    }
+                });
+            }
+        };
+        if constexpr (MODE == DIRECT) {
+            sources(Far<false>());
+        } else {
+            // the far-pair vote only where a pair of the warp may need it:
+            // the warp's rows' largest |u|, |v|, |w| (made again a tile)
+            const float3 qmax = make_float3(warp_max_abs(q.x), warp_max_abs(q.y),
+                                            warp_max_abs(q.z));
+            bool far_sources = false;
+            for (int i = lane; i < ns; i += LANES)
+                far_sources |= may_be_far(qmax, make_float3(tile.dir[i].l, tile.dir[i].m,
+                                                            tile.dir[i].nh),
+                                          fabsf(chi), delay_far);
+            if (__any_sync(FULL_MASK, far_sources))
+                sources(Far<true>());
+            else
+                sources(Far<false>());
         }
     }
 
@@ -571,11 +659,12 @@ void forward(bool imag, const float* l, const float* m, const float* n1h,
              const float* n1l, const float* uvw, const float* image,
              const float4* ftab, const float* rtab, const float4* gtab, int cg,
              int ngroups, int gpb, float chi, float clo, float delay_small,
-             float2* out, int S, int R, int F, cudaStream_t stream) {
+             float delay_far, float2* out, int S, int R, int F,
+             cudaStream_t stream) {
     const dim3 grid((R + LANES - 1) / LANES, (ngroups + gpb - 1) / gpb);
 #define FWD(I) dft_forward_kernel<C, MODE, I, STAGE><<<grid, THREADS, 0, stream>>>( \
         l, m, n1h, n1l, uvw, image, ftab, rtab, gtab, cg, ngroups, gpb, chi, clo,  \
-        delay_small, out, S, R, F)
+        delay_small, delay_far, out, S, R, F)
     if (imag) FWD(true);
     else FWD(false);
 #undef FWD
@@ -586,11 +675,11 @@ void forward_mode(int mode, bool imag, const float* l, const float* m,
                   const float* n1h, const float* n1l, const float* uvw,
                   const float* image, const float4* ftab, const float* rtab,
                   const float4* gtab, int cg, int ngroups, int gpb, float chi,
-                  float clo, float delay_small, float2* out, int S, int R,
-                  int F, cudaStream_t stream) {
+                  float clo, float delay_small, float delay_far, float2* out,
+                  int S, int R, int F, cudaStream_t stream) {
 #define FWD(M, ST) forward<C, M, ST>(imag, l, m, n1h, n1l, uvw, image, ftab, rtab, \
                                      gtab, cg, ngroups, gpb, chi, clo,            \
-                                     delay_small, out, S, R, F, stream)
+                                     delay_small, delay_far, out, S, R, F, stream)
     const bool staged = gpb > 1;
     if (mode == DIRECT) { if (staged) FWD(DIRECT, true); else FWD(DIRECT, false); }
     else if (mode == EXACT) { if (staged) FWD(EXACT, true); else FWD(EXACT, false); }
@@ -615,7 +704,8 @@ bool valid_groups(int mode, int cg, int ngroups, int gpb, int F, int C) {
 // gtab (ngroups, 2, 4) [the group's middle channel, the step], two-float;
 // (cg, ngroups): channels a group and groups, gpb groups a block; mode 0
 // direct, 1 exact, 2 residual; delay_small: the |delay| of a first-order
-// rotation. (chi, clo): sign/c as a two-float pair. partial: (nchunks, F,
+// rotation; delay_far: the |delay| beyond which a pair takes the direct
+// phase (ftab's rows). (chi, clo): sign/c as a two-float pair. partial: (nchunks, F,
 // C, P) float32 scratch; out: (P, F, C) float32. Launches both passes on
 // `stream`; returns cudaGetLastError().
 extern "C" int dft_adjoint_launch(const float* l, const float* m,
@@ -624,7 +714,8 @@ extern "C" int dft_adjoint_launch(const float* l, const float* m,
                                   const void* ftab, const float* rtab,
                                   const void* gtab, int cg, int ngroups,
                                   int gpb, int mode, float chi, float clo,
-                                  float delay_small, float* partial,
+                                  float delay_small, float delay_far,
+                                  float* partial,
                                   float* out, int P, int R, int F, int C,
                                   int rows_per_chunk, int nchunks,
                                   void* stream) {
@@ -637,9 +728,9 @@ extern "C" int dft_adjoint_launch(const float* l, const float* m,
     const float4* gt = static_cast<const float4*>(gtab);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (C) {
-        case 1: adjoint_mode<1>(mode, l, m, n1h, n1l, uvw, v, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, partial, P, R, F, rows_per_chunk, nchunks, st); break;
-        case 2: adjoint_mode<2>(mode, l, m, n1h, n1l, uvw, v, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, partial, P, R, F, rows_per_chunk, nchunks, st); break;
-        case 4: adjoint_mode<4>(mode, l, m, n1h, n1l, uvw, v, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, partial, P, R, F, rows_per_chunk, nchunks, st); break;
+        case 1: adjoint_mode<1>(mode, l, m, n1h, n1l, uvw, v, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, delay_far, partial, P, R, F, rows_per_chunk, nchunks, st); break;
+        case 2: adjoint_mode<2>(mode, l, m, n1h, n1l, uvw, v, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, delay_far, partial, P, R, F, rows_per_chunk, nchunks, st); break;
+        case 4: adjoint_mode<4>(mode, l, m, n1h, n1l, uvw, v, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, delay_far, partial, P, R, F, rows_per_chunk, nchunks, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
     const int err = (int)cudaGetLastError();
@@ -653,16 +744,16 @@ extern "C" int dft_adjoint_launch(const float* l, const float* m,
 
 // l, m, n1h, n1l: (S,) float32 source directions; uvw: (R, 3) float32.
 // image: (S, F, C) complex64 when imag != 0, else (S, F, C) float32 (a
-// real sky: the imaginary half of the product is skipped). Tables, groups
-// and (chi, clo) as for the adjoint. out: (R, F, C) complex64.
+// real sky: the imaginary half of the product is skipped). Tables, groups,
+// delay bounds and (chi, clo) as for the adjoint. out: (R, F, C) complex64.
 extern "C" int dft_forward_launch(const float* l, const float* m,
                                   const float* n1h, const float* n1l,
                                   const float* uvw, const void* image, int imag,
                                   const void* ftab, const float* rtab,
                                   const void* gtab, int cg, int ngroups,
                                   int gpb, int mode, float chi, float clo,
-                                  float delay_small, void* out, int S, int R,
-                                  int F, int C, void* stream) {
+                                  float delay_small, float delay_far, void* out,
+                                  int S, int R, int F, int C, void* stream) {
     if (R <= 0 || F <= 0) return (int)cudaSuccess;
     if (!valid_groups(mode, cg, ngroups, gpb, F, C)) return (int)cudaErrorInvalidValue;
     const float* im = static_cast<const float*>(image);
@@ -671,9 +762,9 @@ extern "C" int dft_forward_launch(const float* l, const float* m,
     float2* o = static_cast<float2*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (C) {
-        case 1: forward_mode<1>(mode, imag != 0, l, m, n1h, n1l, uvw, im, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, o, S, R, F, st); break;
-        case 2: forward_mode<2>(mode, imag != 0, l, m, n1h, n1l, uvw, im, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, o, S, R, F, st); break;
-        case 4: forward_mode<4>(mode, imag != 0, l, m, n1h, n1l, uvw, im, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, o, S, R, F, st); break;
+        case 1: forward_mode<1>(mode, imag != 0, l, m, n1h, n1l, uvw, im, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, delay_far, o, S, R, F, st); break;
+        case 2: forward_mode<2>(mode, imag != 0, l, m, n1h, n1l, uvw, im, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, delay_far, o, S, R, F, st); break;
+        case 4: forward_mode<4>(mode, imag != 0, l, m, n1h, n1l, uvw, im, ft, rtab, gt, cg, ngroups, gpb, chi, clo, delay_small, delay_far, o, S, R, F, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

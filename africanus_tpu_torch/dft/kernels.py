@@ -17,7 +17,10 @@ tensors. Routes, chosen from the working dtype and the device:
   wrappers run their plain PyTorch versions. Their host planning (the
   phase mode, the channel tables, n−1) is :func:`dft_plan`'s; a caller
   whose directions and frequencies are fixed makes the plan once and
-  passes it as ``plan``. The predict route's plan depends on the
+  passes it as ``plan``. A plan's delay bound only chooses its phase
+  mode: a call on longer baselines than the plan was made for gives the
+  same map (its pairs beyond the bound take the direct phase), at the
+  direct phase's cost. The predict route's plan depends on the
   frequencies alone: :func:`~africanus_tpu_torch.ops.cuda_predict.
   plan_for` keeps it, keyed on the caller's frequencies.
 
@@ -57,7 +60,9 @@ def dft_plan(uvw, lm, frequency, ncorr, convention: str = "fourier",
     ``adjoint``: the adjoint kernel and the flipped convention) for these
     ``lm``, ``frequency`` (read on the host) and ``ncorr`` correlations.
     ``delay_max`` is measured from ``uvw`` and ``lm`` when None (one sync
-    on the card)."""
+    on the card). It only chooses the phase mode: the plan serves any
+    uvw, and a pair whose delay exceeds the bound takes the direct phase
+    in the kernels, so a plan made on other rows gives the same map."""
     lm32 = lm.to(torch.float32).contiguous()
     if delay_max is None:
         uvw32 = torch.as_tensor(uvw, device=lm.device).to(torch.float32)
@@ -69,7 +74,9 @@ def dft_plan(uvw, lm, frequency, ncorr, convention: str = "fourier",
 
 def _planned(plan, uvw, lm, frequency, ncorr, convention, adjoint,
              delay_max):
-    """``plan``, checked against the call's convention, or a new one."""
+    """``plan``, checked against the call's convention, or a new one. A
+    given plan is taken as it is, with no measurement of the call's
+    delays (that would wait for the card): its bound is a hint."""
     if plan is None:
         return dft_plan(uvw, lm, frequency, ncorr, convention, adjoint,
                         delay_max)
@@ -90,11 +97,13 @@ def im_to_vis(image, uvw, lm, frequency, convention: str = "fourier",
     dtype : complex output dtype (default: complex64, complex128 when an
         input is 64-bit)
     real_dtype : working real dtype (default: that of ``dtype``)
-    delay_max : bound on |geometric delay| (s) for the fused kernels'
-        nearly-uniform-grid mode; measured from the inputs when None
+    delay_max : the |geometric delay| (s) the fused kernels' phase mode
+        is chosen for; measured from the inputs when None. A hint: pairs
+        beyond it take the direct phase, so the map does not depend on it
     plan : :func:`dft_plan` of these ``lm``, ``frequency`` and
         convention, made once where they are fixed (the < 128-channel
-        float32 route then plans nothing; ``delay_max`` is the plan's)
+        float32 route then plans nothing; ``delay_max`` is the plan's),
+        for any ``uvw``
 
     Returns
     -------
@@ -124,10 +133,11 @@ def im_to_vis(image, uvw, lm, frequency, convention: str = "fourier",
             b = image.to(torch.complex64).contiguous()
             if device.type == "cuda":
                 # the plan is kept, keyed on the caller's frequencies, and
-                # its table holds their float32 values on the card: no
-                # copy from the host, which would wait for the card
+                # holds their float32 values on the card: no copy from
+                # the host, which would wait for the card (predict_kb
+                # takes the plan's own freq_dev unread)
                 kb_plan = plan_for(freq_raw, device)
-                freq = kb_plan.ftab_dev[:, 0].contiguous()
+                freq = kb_plan.freq_dev
             else:
                 kb_plan, freq = None, frequency.to(device, torch.float32).contiguous()
             vis = predict_kb(phase_dot_cycles(lm32, uvw32, convention),

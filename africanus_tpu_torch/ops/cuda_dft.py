@@ -39,6 +39,18 @@ with the JAX package's mode thresholds:
     ``cuda_predict.PredictPlan`` chooses it), else the 6th-order
     small-angle polynomial.
 
+The plan's ``delay_max`` only chooses the mode. It is a hint, not a
+promise that the caller must keep: in the ``exact`` and ``residual``
+modes a (pixel or source, row) pair whose |delay| exceeds it (by more
+than the float32 slack of its measurement, ``delay_far``) takes the
+``direct`` phase at every channel of its group, so a plan made on other,
+shorter baselines still gives the map. The kernels decide it by warp
+vote, and only in tiles of rows or sources where a bound on the delays
+says a pair may be far (where one is, a near pair in a far pair's warp
+takes the direct phase too, and the ``residual`` mode's near pairs the
+polynomial); the plain versions decide it pair by pair. The two differ
+in rounding only.
+
 A pair's delay and step phasor are computed once for all the channel
 groups of a kernel block (``csrc/dft.cu``'s header says how; at config 5
 one group holds the band).
@@ -88,6 +100,12 @@ _SOURCES = ("dft.cu",)
 # gives none
 _X_MAX = 0.35
 DELAY_MAX = 1e-4
+# a pair takes the direct phase beyond delay_max·(1 + _FAR_SLACK): the
+# plan's bound is measured in float32 matmuls (measured_delay_max), a few
+# ulp from phase_dot_cycles' delays, and a pair that far past the bound
+# keeps the mode's accuracy (1e-6 rad of dropped residual, or the
+# polynomial's range of 0.35 rad, grow by the same 1e-4)
+_FAR_SLACK = 1e-4
 _TWO_PI = 2.0 * np.pi
 
 # the correlation counts csrc/dft.cu is instantiated for
@@ -131,9 +149,9 @@ def _bind(lib):
         # c_void_p for every pointer and the stream: ctypes would pass a
         # bare Python int as a 32-bit int and cut the address
         fwd.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3 + [i32] * 4
-                        + [f32] * 3 + [ptr] + [i32] * 4 + [ptr])
+                        + [f32] * 4 + [ptr] + [i32] * 4 + [ptr])
         fwd.restype = ctypes.c_int
-        adj.argtypes = ([ptr] * 9 + [i32] * 4 + [f32] * 3 + [ptr] * 2
+        adj.argtypes = ([ptr] * 9 + [i32] * 4 + [f32] * 4 + [ptr] * 2
                         + [i32] * 6 + [ptr])
         adj.restype = ctypes.c_int
     return fwd, adj
@@ -293,13 +311,17 @@ class DftPlan(nn.Module):
     ncorr : correlations of the values (the kernels take 1, 2 or 4 at a
         time; for another count ``parts`` holds a plan per group)
     convention : the sign of the phase, as for ``phase_dot_cycles``
-    delay_max : bound on |delay| (s) for the residual-mode engagement
+    delay_max : the |delay| (s) the mode is chosen for. A hint: a pair
+        beyond it takes the direct phase (the map stays exact), so a bound
+        made on shorter baselines than a call's costs time, not accuracy
 
     Attributes: ``mode`` and ``cg``, ``ngroups`` (channels a group and
     groups, as the kernels take them: :func:`chan_group_tables` at
     cg·C ≤ 32 and cg ≤ 16; in the ``direct`` mode ``cg`` = min(16 or 8,
     chan) channels a group, the last one ragged), ``delay_max``,
     ``delay_small`` (the bound on |delay| of a first-order rotation),
+    ``delay_far`` (float32: the |delay| beyond which a pair takes the
+    direct phase, ``delay_max`` and its measurement's slack),
     ``sign`` (the two-float sign/c) and the numpy tables ``ftab``
     ((chan, 4): each channel's frequency as two-float [ν, ν_hh, ν_hl,
     ν_lo]), ``rtab`` ((chan,): 2π·δ_f in the ``residual`` mode, else 0)
@@ -352,6 +374,7 @@ class DftPlan(nn.Module):
         rmax = float(np.abs(self.rtab).max(initial=0.0))
         self.delay_small = (min(X_SMALL / rmax, self.delay_max) if rmax
                             else self.delay_max)
+        self.delay_far = float(np.float32(self.delay_max * (1.0 + _FAR_SLACK)))
         lm = lm.contiguous()
         n1h, n1l = n_minus_one_df(lm[:, 0], lm[:, 1])
         for name, x in (("lm", lm), ("l", lm[:, 0]), ("m", lm[:, 1]),
@@ -405,7 +428,9 @@ def _channel_phasors(dhi, dlo, plan, g):
     ``csrc/dft.cu`` computes it — in the ``exact`` and ``residual`` modes
     the phasor at the group's middle channel, the recurrence up by the
     step and down by its conjugate, and the ``residual`` rotation to
-    first order where |dhi| ≤ ``delay_small``, else by the polynomial."""
+    first order where |dhi| ≤ ``delay_small``, else by the polynomial;
+    and, pair by pair, the direct phase where |dhi| > ``delay_far`` (the
+    kernels decide it by warp)."""
     cg, f0 = plan.cg, g * plan.cg
     dhh, dhl = split(dhi)
     if plan.mode == "direct":
@@ -413,16 +438,21 @@ def _channel_phasors(dhi, dlo, plan, g):
             yield (f, *_phasor(dhi, dlo, dhh, dhl, plan.ftab[f]))
         return
     small = dhi.abs() <= plan.delay_small
+    far = dhi.abs() > plan.delay_far
+    far = far if bool(far.any()) else None  # where none is, nothing changes
 
     def rotated(f, kre, kim):
-        if plan.mode == "exact":
-            return f, kre, kim
-        x = dhi * float(plan.rtab[f])
-        x2 = x * x
-        c = 1.0 - x2 * (0.5 - x2 * ((1.0 / 24.0) - x2 * (1.0 / 720.0)))
-        s = x * (1.0 - x2 * ((1.0 / 6.0) - x2 * (1.0 / 120.0)))
-        c, s = torch.where(small, 1.0, c), torch.where(small, x, s)
-        return f, kre * c - kim * s, kim * c + kre * s
+        if plan.mode == "residual":
+            x = dhi * float(plan.rtab[f])
+            x2 = x * x
+            c = 1.0 - x2 * (0.5 - x2 * ((1.0 / 24.0) - x2 * (1.0 / 720.0)))
+            s = x * (1.0 - x2 * ((1.0 / 6.0) - x2 * (1.0 / 120.0)))
+            c, s = torch.where(small, 1.0, c), torch.where(small, x, s)
+            kre, kim = kre * c - kim * s, kim * c + kre * s
+        if far is not None:
+            dre, dim = _phasor(dhi, dlo, dhh, dhl, plan.ftab[f])
+            kre, kim = torch.where(far, dre, kre), torch.where(far, dim, kim)
+        return f, kre, kim
 
     mid = cg // 2
     bre, bim = _phasor(dhi, dlo, dhh, dhl, plan.gtab[g, 0])
@@ -489,8 +519,8 @@ def dft_forward(plan, uvw, image):
     _launch(fwd, "dft_forward", plan, plan.l.data_ptr(), plan.m.data_ptr(),
             plan.n1h.data_ptr(), plan.n1l.data_ptr(), uvw.data_ptr(),
             image.data_ptr(), int(image.is_complex()), *_tables(plan),
-            *plan.sign, plan.delay_small, out.data_ptr(), nsrc, nrow, nchan,
-            ncorr)
+            *plan.sign, plan.delay_small, plan.delay_far, out.data_ptr(), nsrc,
+            nrow, nchan, ncorr)
     dft_forward.launches += 1
     return out
 
@@ -585,7 +615,7 @@ def dft_adjoint(plan, uvw, vis):
     _launch(adj, "dft_adjoint", plan, plan.l.data_ptr(), plan.m.data_ptr(),
             plan.n1h.data_ptr(), plan.n1l.data_ptr(), uvw.data_ptr(),
             vis.data_ptr(), *_tables(plan), *plan.sign, plan.delay_small,
-            partial.data_ptr(), out.data_ptr(), npix, nrow, nchan, ncorr,
+            plan.delay_far, partial.data_ptr(), out.data_ptr(), npix, nrow, nchan, ncorr,
             rows, nchunks)
     dft_adjoint.launches += 1
     return out

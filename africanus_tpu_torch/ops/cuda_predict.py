@@ -119,7 +119,9 @@ class PredictPlan(nn.Module):
     ``residual`` mode, else 0) and ``gtab`` ((ngroups, 2, 4): each group's
     base and the grid's step, two-float, in the ``exact`` and
     ``residual`` modes). Buffers, moved by ``.to()``: ``ftab_dev``,
-    ``rtab_dev``, ``gtab_dev``.
+    ``rtab_dev``, ``gtab_dev`` and ``freq_dev`` (the frequencies' float32
+    values, contiguous: the ``freq`` operand that :func:`predict_kb`
+    takes with this plan unread).
     """
 
     def __init__(self, frequency, delay_max=None, device=None):
@@ -159,6 +161,11 @@ class PredictPlan(nn.Module):
             self.register_buffer(f"{name}_dev",
                                  cuda_dft._to_device(getattr(self, name), device),
                                  persistent=False)
+        self.register_buffer("freq_dev", cuda_dft._to_device(
+            np.ascontiguousarray(self.ftab[:, 0]), device), persistent=False)
+        # the plan's frequencies are float32 values (no low words), so
+        # that freq_dev is all of them
+        self.float32_values = not self.ftab[:, 3].any()
 
 
 # (id of a frequency tensor on a card, device) -> (weak reference to it,
@@ -251,6 +258,25 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _check_plan(plan, freq):
+    """Raise ValueError unless ``plan``, given to :func:`predict_kb` with
+    ``freq``, is the plan of ``freq``'s float32 values on ``freq``'s
+    device. ``freq`` is taken unread when it is the plan's own
+    ``freq_dev``; otherwise it is planned by :func:`plan_for`, which
+    reads a card tensor once (when first seen or changed) and host
+    values never, and the two plans' frequency rows must be equal."""
+    if plan.nchan != freq.shape[0] or plan.ftab_dev.device != freq.device:
+        raise ValueError(f"the plan is of {plan.nchan} channels on "
+                         f"{plan.ftab_dev.device}, the operands of "
+                         f"{freq.shape[0]} on {freq.device}")
+    if plan.float32_values and freq.data_ptr() == plan.freq_dev.data_ptr():
+        return
+    keyed = plan_for(freq)
+    if keyed is not plan and not np.array_equal(keyed.ftab, plan.ftab):
+        raise ValueError("the plan is of other frequencies than freq: the "
+                         "card would read the plan's and the CPU freq's")
+
+
 def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
     """Fused K[×env]×B predict.
 
@@ -267,10 +293,15 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
         (envelope = exp(−((u1·sf)² + (v1·sf)²))); None for point sources
     freq : (chan,) float32; scaled_freq : (chan,) float32 (gauss-scaled)
     b : (src, chan, corr) complex64 brightness
-    plan : the :class:`PredictPlan` of ``freq``'s values on the operands'
-        card, for the compensated phase; by default :func:`plan_for`
-        ``(freq)``, which reads ``freq`` on the host the first time it
-        sees that tensor
+    plan : the :class:`PredictPlan` of ``freq``'s float32 values on the
+        operands' device, for the compensated phase; by default
+        :func:`plan_for` ``(freq)``, which reads ``freq`` on the host the
+        first time it sees that tensor. A given plan is checked, on the
+        card and on the CPU alike, so that one call gives one map: it is
+        taken unread with its own ``freq_dev`` as ``freq``; else ``freq``
+        is planned by :func:`plan_for` (a tensor on the card read once,
+        host values never), and a plan of other frequencies, channels or
+        device raises ValueError
 
     Every operand is contiguous and on one device. CUDA tensors launch
     ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations);
@@ -281,6 +312,8 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
     (row, chan, corr) complex64 visibilities.
     """
     hi, lo, u1, v1 = _unpack(phase_dot, u1, v1, freq, scaled_freq, b)
+    if plan is not None:
+        _check_plan(plan, freq)
     if hi.device.type == "cpu":
         return predict_kb_reference(phase_dot, u1, v1, freq, scaled_freq, b)
     if hi.device.type != "cuda":
@@ -305,10 +338,6 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
         else:
             if plan is None:
                 plan = plan_for(freq)
-            elif plan.nchan != nchan or plan.ftab_dev.device != hi.device:
-                raise ValueError(f"the plan is of {plan.nchan} channels on "
-                                 f"{plan.ftab_dev.device}, the operands of "
-                                 f"{nchan} on {hi.device}")
             rc = comp(hi.data_ptr(), lo.data_ptr(), _ptr(u1), _ptr(v1),
                       scaled_freq.data_ptr(), b.data_ptr(),
                       plan.ftab_dev.data_ptr(), plan.rtab_dev.data_ptr(),

@@ -278,6 +278,15 @@ PREVIOUS_MS = {"degrid_2d": "0.2176-0.2206 ms", "grid_table": "0.2860-0.2864 ms"
 # delay bound: the first tile of sources, and the second tile beside a
 # first on the recurrence
 FAR_PAIRS = ((6, (0, 1)), (16, (8, 9)))
+# phase 4: the DFT kernels' pairs beyond their plan's delay bound, made at
+# the measured bound / FAR_DIV; (dft_problem's grid, channels, the plan's
+# mode there): an f32 linspace whose residual the plan drops, a jittered
+# grid on the rotation, a prime channel count; SHORT scales the near
+# pairs' uvw or lm
+FAR_DIV = 1000
+DFT_FAR_CASES = (("residual", 16, "exact"), ("jittered", 16, "residual"),
+                 ("direct", 17, "direct"))
+SHORT = 1e-4
 # phases 10 and 16: square, odd, one-tile and narrower-than-the-window grids
 WGRID_GRIDS = ((64, 64, 1007), (70, 45, 333), (12, 10, 50), (5, 7, 40))
 # the PP gridder's conv_nn_scatter route: ~200 samples a cell
@@ -472,7 +481,9 @@ def dft_problem(rng, S, P, R, F, C, grid, device):
     uvw (R, 3), frequencies (F,), image (S, F, C) complex64, vis (R, F, C)
     complex64). ``grid`` picks frequencies that engage that phase mode:
     an f64 linspace ("exact"), an f32 linspace ("residual") or a
-    non-uniform grid ("direct")."""
+    non-uniform grid ("direct"); or an f32 linspace moved by up to 1 MHz
+    a channel ("jittered": ``residual`` at delay bounds under ~5e-8 s,
+    ``direct`` above)."""
     import torch
 
     f32 = np.float32
@@ -480,6 +491,9 @@ def dft_problem(rng, S, P, R, F, C, grid, device):
         freq = np.linspace(0.856e9, 1.712e9, F)
     elif grid == "residual":
         freq = np.linspace(0.856e9, 1.712e9, F).astype(f32)
+    elif grid == "jittered":
+        freq = (np.linspace(0.856e9, 1.712e9, F)
+                + rng.uniform(-1e6, 1e6, F)).astype(f32)
     else:
         freq = (0.8e9 + np.sort(rng.uniform(0, 1e9, F))).astype(f32)
 
@@ -494,6 +508,52 @@ def dft_problem(rng, S, P, R, F, C, grid, device):
             t(rng.uniform(-0.01, 0.01, (P, 2)).astype(f32)),
             t(rng.uniform(-4000, 4000, (R, 3)).astype(f32)),
             t(freq), t(cplx((S, F, C))), t(cplx((R, F, C))))
+
+
+def dft_far_problem(rng, S, P, R, F, C, grid, device):
+    """:func:`dft_problem`'s operands (also used by
+    tests/test_torch_cuda.py) with pairs near and beyond a delay bound of
+    the measured one / FAR_DIV (:func:`far_plan`), in warps of 32 lanes
+    (the forward's rows, the adjoint's pixels; R and P multiples of 32):
+    warp w's rows and pixels are all short (uvw or lm times SHORT) when
+    w % 3 == 0, every other lane when w % 3 == 1 and none when w % 3 ==
+    2, and every third source is short. A pair with a short side is near;
+    most of the others are far."""
+    import torch
+
+    lm_s, lm_p, uvw, freq, img, vis = dft_problem(rng, S, P, R, F, C, grid, "cpu")
+
+    def short(n):
+        w, lane = np.arange(n) // 32, np.arange(n) % 32
+        return torch.as_tensor((w % 3 == 0) | ((w % 3 == 1) & (lane % 2 == 0)))
+
+    uvw[short(R)] *= SHORT
+    lm_p[short(P)] *= SHORT
+    lm_s[::3] *= SHORT
+    return tuple(x.to(device) for x in (lm_s, lm_p, uvw, freq, img, vis))
+
+
+def far_plan(kind, lm, uvw, freq, C, convention):
+    """A DftPlan whose delay bound is the measured one / FAR_DIV."""
+    from africanus_tpu_torch.ops import cuda_dft as cd
+
+    return cd.DftPlan(kind, lm, freq, C, convention,
+                      cd.measured_delay_max(lm, uvw) / FAR_DIV)
+
+
+def far_warps(plan, uvw):
+    """(pairs beyond ``plan``'s bound, then the kernel's warp votes that
+    are all far, mixed and all near) on these rows: a warp is 32 rows at
+    a source (forward) or 32 pixels at a row (adjoint)."""
+    from africanus_tpu_torch.rime.phase import phase_dot_cycles
+
+    hi, _ = phase_dot_cycles(plan.lm, uvw, plan.convention)  # (direction, row)
+    far = hi.abs() > plan.delay_far
+    lanes = far.T if plan.kind == "forward" else far
+    warps = lanes[:lanes.shape[0] // 32 * 32].reshape(-1, 32, lanes.shape[1])
+    some, every = warps.any(dim=1), warps.all(dim=1)
+    return (int(far.sum()), int(every.sum()), int((some & ~every).sum()),
+            int((~some).sum()))
 
 
 def wgrid_problem(rng, n, nu, nv, nplanes, support, dtype, device, edges=False):
@@ -762,8 +822,12 @@ def phase_kernel_checks(device):
 
 
 def dft_kernel_checks(device):
-    """Phase 4: both DFT kernels against their plain versions."""
+    """Phase 4: both DFT kernels against their plain versions, and with
+    pairs beyond their plan's delay bound against float64 too."""
     import torch
+    from africanus_tpu_torch.calibration.selfcal import (
+        im_to_vis_oracle_f64, vis_to_im_oracle_f64,
+    )
     from africanus_tpu_torch.dft import im_to_vis
     from africanus_tpu_torch.ops import cuda_dft as cd
     from africanus_tpu_torch.ops.cuda_predict import predict_kb, predict_kb_reference
@@ -817,6 +881,46 @@ def dft_kernel_checks(device):
     check(modes == {"exact", "residual", "direct"}, f"modes run: {modes}")
     check({(16, 1), (16, 2), (16, 4), (8, 8)} <= groups, f"groups run: {groups}")
 
+    # pairs beyond the plan's delay bound (FAR_DIV below the measured
+    # one): in the exact and residual modes a warp with a far pair takes
+    # the direct phase; warps all far, mixed and all near, in every mode
+    # at C 1/2/4, against the plain version, float64, and a rerun
+    votes = np.zeros(4, np.int64)
+    far_err = {}
+    for grid, F, mode in DFT_FAR_CASES:
+        for C in (1, 2, 4):
+            for conv in ("fourier", "casa"):
+                lm_s, lm_p, uvw, freq, img, vis = dft_far_problem(
+                    rng, 24, 192, 384, F, C, grid, device)
+                sign = 1.0 if conv == "fourier" else -1.0
+                uvw64, f64 = uvw.double().cpu().numpy(), np.asarray(freq.cpu(), np.float64)
+                fwd = far_plan("forward", lm_s, uvw, freq, C, conv)
+                adj = far_plan("adjoint", lm_p, uvw, freq, C, conv)
+                check(fwd.mode == adj.mode == mode,
+                      f"far pairs {grid}/{F}: modes {fwd.mode}, {adj.mode}, not {mode}")
+                runs = []
+                for sky, image in (("complex", img), ("real", img.real.contiguous())):
+                    runs.append((f"forward/{sky}", fwd, cd.dft_forward,
+                                 cd.dft_forward_reference, image,
+                                 im_to_vis_oracle_f64(image.cpu().numpy(),
+                                                      sign * uvw64,
+                                                      lm_s.cpu().numpy(), f64)))
+                runs.append(("adjoint", adj, cd.dft_adjoint, cd.dft_adjoint_reference,
+                             vis, vis_to_im_oracle_f64(vis.cpu().numpy(), -sign * uvw64,
+                                                       lm_p.cpu().numpy(), f64)))
+                for key, plan, fn, plain, values, oracle in runs:
+                    w = np.array(far_warps(plan, uvw))
+                    check(w[0] > 0 and (w[1:] > 0).all(),
+                          f"far pairs {key}: (far, all far, mixed, near) {w}")
+                    votes += w
+                    got = fn(plan, uvw, values)
+                    compare(f"far {key}", got, plain(plan, uvw, values))
+                    check(torch.equal(got, fn(plan, uvw, values)),
+                          f"far pairs {key}: rerun differs")
+                    e64 = rel_err(got.cpu().numpy(), oracle)
+                    far_err[key] = max(far_err.get(key, 0.0), e64)
+                    check(e64 <= DFT_BOUND, f"far pairs {key} vs f64: {e64:.3e}")
+
     # three correlations: each plan holds a sub-plan per group the kernels
     # take (2 + 1), launched on its own columns; predict_kb splits the same
     lm_s, lm_p, uvw, freq, img, vis = dft_problem(rng, 37, 300, 1000, 12, 3,
@@ -865,7 +969,12 @@ def dft_kernel_checks(device):
           f"{sorted(groups)}; reruns bitwise; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f"; predict_kb C 3 (2 + 1) {pk3:.2e}; deterministic; im_to_vis 256 "
-          f"chan via predict_kb vs CPU {wide:.2e}",
+          f"chan via predict_kb vs CPU {wide:.2e}; far pairs (plans at the "
+          f"measured delay bound / {FAR_DIV}, modes "
+          f"{sorted(m for _, _, m in DFT_FAR_CASES)}, C 1/2/4, both conventions, "
+          f"S=24 P=192 R=384): {votes[0]} pairs beyond the bound, warp votes "
+          f"{votes[1]} all far, {votes[2]} mixed, {votes[3]} all near; vs f64 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in far_err.items()),
           flush=True)
 
 
@@ -1474,14 +1583,26 @@ def _zero_beam_counts():
     cb.beam_blend_cell.launches = 0
 
 
+def _to_f64(args):
+    """Floating tensors of ``args`` in float64 (complex128), the rest as
+    they are."""
+    import torch
+
+    return tuple(x.to(torch.complex128) if hasattr(x, "is_complex") and x.is_complex()
+                 else x.double() if hasattr(x, "is_floating_point") and x.is_floating_point()
+                 else x for x in args)
+
+
 def beam_kernel_checks(device):
-    """Phase 13: the three beam kernels against their plain versions."""
+    """Phase 13: the three beam kernels against their plain versions, and
+    the float32 blends against a float64 oracle (the plain version on the
+    same operands in float64)."""
     import torch
     from africanus_tpu_torch.ops import cuda_beam as cb
     from africanus_tpu_torch.rime.feeds import feed_rotation
 
     rng = np.random.default_rng(SEED + 3)
-    worst = {}
+    worst, f64_err = {}, {}
     cases = 0
 
     def compare(key, fn, reference, args, tol, launches=1):
@@ -1524,12 +1645,28 @@ def beam_kernel_checks(device):
                     feeds += [feed_rotation(p["pa"], ft).contiguous()
                               for ft in ("linear", "circular")]
                 for feed in feeds:
-                    compare(f"blend/{prec}", cb.beam_blend, cb.beam_blend_reference,
-                            (p["raw"], p["gc0"], p["wlo"], feed), tol, k)
-                    compare(f"blend_cell/{prec}", cb.beam_blend_cell,
-                            cb.beam_blend_cell_reference,
-                            (p["bt"], p["lda"], p["mda"], p["gc0"], p["wlo"], feed),
-                            tol, k)
+                    blends = (("blend", cb.beam_blend, cb.beam_blend_reference,
+                               (p["raw"], p["gc0"], p["wlo"], feed)),
+                              ("blend_cell", cb.beam_blend_cell,
+                               cb.beam_blend_cell_reference,
+                               (p["bt"], p["lda"], p["mda"], p["gc0"], p["wlo"],
+                                feed)))
+                    for key, fn, reference, args in blends:
+                        compare(f"{key}/{prec}", fn, reference, args, tol, k)
+                        if dtype != torch.float32:
+                            continue
+                        # the uncontracted blends (F4) and their plain
+                        # versions against float64 on the same operands
+                        want = reference(*_to_f64(args))
+                        for who, got in (("kernel", fn(*args)), ("plain", reference(*args))):
+                            err = float((got.to(want.dtype) - want).abs().max()
+                                        / want.abs().max())
+                            f64_err[f"{key} {who}"] = max(
+                                f64_err.get(f"{key} {who}", 0.0), err)
+                        # a reading, not a bar: the float32 plain version
+                        # is itself ~2e-5 of max away near a small amplitude
+                        check(np.isfinite(f64_err[f"{key} kernel"]),
+                              f"{key}/f32 vs f64: not finite")
                 cases += 1
 
         # corners: integer coordinates, one slab per row, exact
@@ -1575,7 +1712,9 @@ def beam_kernel_checks(device):
           "linear and circular feeds, out-of-cube frequencies; rel to max|out|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + "; corners exact (also on the cell-corner layout); deterministic "
-          "(512 x 4096, 129² cube; interp on its three layouts)", flush=True)
+          "(512 x 4096, 129² cube; interp on its three layouts); f32 blends vs "
+          "a float64 oracle on the same operands (F4): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in f64_err.items()), flush=True)
 
 
 def interp_bound(ops, out):

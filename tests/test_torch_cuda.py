@@ -12,7 +12,9 @@ for the plain phase (the bounds of tests/test_pallas_predict.py; the
 kernel and the plain version differ in cos/sin/exp rounding, in the
 kernel's phasor recurrence along a channel group against the plain
 version's phase per channel, and in the order of the f32 source sum). The DFT kernels 3e-6·max|out|, the bound
-of tests/test_dft.py:322,363, for the same reasons. The selfcal step
+of tests/test_dft.py:322,363, for the same reasons; on plans made for
+shorter baselines than the call's (pairs beyond the plan's delay bound)
+also 3e-6·max against float64, reruns bitwise. The selfcal step
 takes the bounds and the two cases (converged, and a model that lacks a
 source) of tests/test_torch_selfcal.py. The wgrid kernels 1e-5·max|out| in
 float32 and 1e-12 in float64 (sums in another order than the plain
@@ -49,9 +51,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    FAR_PAIRS, beam_problem, dft_problem, grid2d_problem, kernel_problem, pp_nn_grid,
-    pp_nn_problem, shapelet_problem, spi_problem, table_problem, wgrid_problem,
-    zernike_problem,
+    DFT_FAR_CASES, FAR_PAIRS, beam_problem, dft_far_problem, dft_problem, far_plan,
+    far_warps, grid2d_problem, kernel_problem, pp_nn_grid, pp_nn_problem,
+    shapelet_problem, spi_problem, table_problem, wgrid_problem, zernike_problem,
 )
 
 from africanus_tpu_torch.averaging import bda, time_and_channel  # noqa: E402
@@ -59,7 +61,8 @@ from africanus_tpu_torch.averaging.time_and_channel_avg import (  # noqa: E402
     _segment_table, _to_device,
 )
 from africanus_tpu_torch.calibration.selfcal import (  # noqa: E402
-    from_numpy as selfcal_from_numpy, make_data, selfcal_inputs,
+    from_numpy as selfcal_from_numpy, im_to_vis_oracle_f64, make_data,
+    selfcal_inputs, vis_to_im_oracle_f64,
 )
 from africanus_tpu_torch.gridding import nifty  # noqa: E402
 from africanus_tpu_torch.gridding import perleypolyhedron as pp  # noqa: E402
@@ -163,6 +166,88 @@ def test_predict_kernel_pairs_beyond_the_delay_bound(device, S, far, C):
     assert not beyond[near].any()
     got, want = cp.predict_kb(*ops), cp.predict_kb_reference(*ops)
     assert (got - want).abs().max() <= 2e-6 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,F,mode", DFT_FAR_CASES)
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("convention", ["fourier", "casa"])
+def test_dft_kernels_pairs_beyond_the_delay_bound(device, grid, F, mode, C, convention):
+    """Both DFT kernels on plans made at the measured delay bound / 1000:
+    in the exact and residual modes a warp with a pair beyond it takes the
+    direct phase. Warps all far, mixed and all near, against the plain
+    versions and float64, and a rerun bitwise."""
+    lm_s, lm_p, uvw, freq, img, vis = dft_far_problem(
+        np.random.default_rng(10 * F + C), 24, 192, 384, F, C, grid, device)
+    sign = 1.0 if convention == "fourier" else -1.0
+    uvw64, f64 = uvw.double().cpu().numpy(), np.asarray(freq.cpu(), np.float64)
+    for kind, lm, fn, plain, values, oracle in (
+            ("forward", lm_s, cd.dft_forward, cd.dft_forward_reference, img,
+             im_to_vis_oracle_f64(img.cpu().numpy(), sign * uvw64,
+                                  lm_s.cpu().numpy(), f64)),
+            ("adjoint", lm_p, cd.dft_adjoint, cd.dft_adjoint_reference, vis,
+             vis_to_im_oracle_f64(vis.cpu().numpy(), -sign * uvw64,
+                                  lm_p.cpu().numpy(), f64))):
+        plan = far_plan(kind, lm, uvw, freq, C, convention)
+        assert plan.mode == mode
+        far, *votes = far_warps(plan, uvw)
+        assert far > 0 and min(votes) > 0
+        got = fn(plan, uvw, values)
+        _assert_close(got, plain(plan, uvw, values))
+        assert torch.equal(got, fn(plan, uvw, values))
+        _assert_close(got.cpu(), torch.from_numpy(oracle))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 1000, 1e6])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_dft_plan_of_shorter_baselines_on_card(device, k, C):
+    """im_to_vis and vis_to_im on plans made on uvw / k (20 sources x 2000
+    rows x 16 channels of a float32 linspace, uvw sigma 3 km): float64 on
+    the same inputs within 3e-6 of max."""
+    from africanus_tpu_torch.dft import dft_plan, im_to_vis, vis_to_im
+
+    rng = np.random.default_rng(16)
+    freq = np.linspace(0.856e9, 1.712e9, 16).astype(np.float32)
+    lm = rng.uniform(-0.05, 0.05, (20, 2)).astype(np.float32)
+    uvw = rng.normal(0.0, 3000.0, (2000, 3)).astype(np.float32)
+    img = rng.normal(size=(20, 16, C)).astype(np.float32)
+    vis = (rng.normal(size=(2000, 16, C))
+           + 1j * rng.normal(size=(2000, 16, C))).astype(np.complex64)
+    t_lm, t_uvw = (torch.as_tensor(x, device=device) for x in (lm, uvw))
+    flags = torch.zeros(vis.shape, dtype=torch.bool, device=device)
+    for adjoint in (False, True):
+        plan = dft_plan(t_uvw / k, t_lm, freq, C, adjoint=adjoint)
+        if adjoint:
+            got = vis_to_im(torch.as_tensor(vis, device=device), t_uvw, t_lm,
+                            freq, flags, plan=plan)
+            want = vis_to_im_oracle_f64(vis, uvw, lm, freq)
+        else:
+            got = im_to_vis(torch.as_tensor(img, device=device), t_uvw, t_lm,
+                            freq, plan=plan)
+            want = im_to_vis_oracle_f64(img, uvw, lm, freq)
+        _assert_close(got.cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.cuda
+def test_predict_kernel_refuses_a_plan_of_other_frequencies(device):
+    """predict_kb with a plan of other frequencies raises on the card, as
+    on the CPU; the plan's own freq_dev is taken unread."""
+    ops = kernel_problem(np.random.default_rng(3), 4, 40, 64, 1, True, False, device)
+    other = cp.plan_for(ops[3].cpu().numpy() + np.float32(1e6), device)
+    with pytest.raises(ValueError, match="other frequencies"):
+        cp.predict_kb(*ops, plan=other)
+    plan = cp.plan_for(ops[3].cpu().numpy(), device)
+    own = (*ops[:3], plan.freq_dev, *ops[4:])
+    want = cp.predict_kb(*own, plan=plan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cp.predict_kb(*own, plan=plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    assert torch.equal(cp.predict_kb(*ops, plan=plan), want)  # the keyed tensor
 
 
 @pytest.mark.cuda

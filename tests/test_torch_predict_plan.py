@@ -7,7 +7,11 @@ The CUDA kernel runs only on the card (tests/test_torch_cuda.py,
 frequency; its mode follows the grid (an even float64 grid ``exact``, a
 float32 linspace ``residual``, an irregular grid, a large delay bound or
 a one-channel group ``direct``); :func:`plan_for` keeps one plan per
-host grid, keyed on its values; and a float32 numpy emulation of the kernel's
+host grid, keyed on its values; :func:`predict_kb` checks a plan it is
+given against ``freq`` (its own ``freq_dev``, the tensor it was keyed
+on and equal host values pass; other frequencies, channels or low words
+raise, so that the card and the CPU give one map); and a float32 numpy
+emulation of the kernel's
 recurrence — the two-float phasor at each group's base and step, the
 first-order rotation or the rotation polynomial, the envelope, the
 multiply-accumulate, in the kernel's order of operations — holds against complex128 at the
@@ -134,6 +138,53 @@ def test_port_plan_for_a_host_grid_asks_for_the_card():
         pytest.skip("there is a card")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cp.plan_for(_linspace(48, F32))
+
+
+def _kb_operands(freq):
+    """predict_kb's compensated operands (no envelope) on ``freq``."""
+    rng = np.random.default_rng(3)
+    lm = torch.from_numpy(rng.uniform(-0.02, 0.02, (4, 2)).astype(F32))
+    uvw = torch.from_numpy(rng.uniform(-4000, 4000, (40, 3)).astype(F32))
+    b = (rng.normal(size=(4, freq.shape[0], 2))
+         + 1j * rng.normal(size=(4, freq.shape[0], 2))).astype(np.complex64)
+    return (phase_dot_cycles(lm, uvw), None, None, freq, torch.zeros_like(freq),
+            torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("given", ["freq_dev", "keyed tensor", "equal host values"])
+def test_port_predict_kb_takes_the_plan_of_its_frequencies(given):
+    grid = _linspace(96, F32)
+    if given == "freq_dev":  # as im_to_vis passes it
+        plan = cp.plan_for(grid, "cpu")
+        freq = plan.freq_dev
+    elif given == "keyed tensor":
+        freq = torch.from_numpy(grid.copy())
+        plan = cp.plan_for(freq)
+    else:  # a plan of its own, not the cached one
+        plan = cp.PredictPlan(grid, device="cpu")
+        freq = torch.from_numpy(grid.copy())
+        assert cp.plan_for(freq) is not plan
+    ops = _kb_operands(freq)
+    assert torch.equal(cp.predict_kb(*ops, plan=plan), cp.predict_kb_reference(*ops))
+
+
+@pytest.mark.parametrize("other", ["other frequencies", "other channels", "low words"])
+def test_port_predict_kb_refuses_a_plan_of_other_frequencies(other):
+    """A plan whose frequencies are not freq's float32 values raises on
+    the CPU, as on the card (tests/test_torch_cuda.py): the card's kernel
+    would read the plan's, the plain version freq."""
+    freq = torch.from_numpy(_linspace(96, F32))
+    if other == "other frequencies":
+        plan, match = cp.PredictPlan(_linspace(96, F32) + F32(1e6), device="cpu"), "other"
+    elif other == "other channels":
+        plan, match = cp.PredictPlan(_linspace(97, F32), device="cpu"), "97 channels"
+    else:  # a float64 grid whose float32 values are freq's, given its own freq_dev
+        plan, match = cp.PredictPlan(_linspace(96, np.float64), device="cpu"), "other"
+        assert torch.equal(plan.freq_dev, freq) and not plan.float32_values
+        freq = plan.freq_dev
+    ops = _kb_operands(freq)
+    with pytest.raises(ValueError, match=match):
+        cp.predict_kb(*ops, plan=plan)
 
 
 def _phasor(hi, hh, hl, lo, f):

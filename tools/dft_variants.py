@@ -14,7 +14,12 @@ phase 29's sharded vis_to_im takes it). The variants are other launch bounds,
 tiles and row chunks (a host setting of ops/cuda_dft.py, beside the
 source's), Dekker's split-and-multiply for each product error (the
 operands split per pair: an upper bound on what it costs beside the FMA),
-the rotation polynomial for every pair, and stages switched off, which
+the rotation polynomial for every pair, the kernels without the far-pair
+vote (the direct phase for pairs beyond the plan's delay bound), with
+it in every tile of rows or sources (not only where a pair may be far;
+there the residual mode's near pairs take the polynomial), and in one
+loop for every pair with both votes (what the vote in the pair loop
+costs where no pair is far, as at config 5), and stages switched off, which
 no longer compute the map: their errors against the plain
 version say so. A variant whose text does not stand once in the source
 is not built: variant_source raises. Each variant's registers and spills
@@ -44,11 +49,13 @@ DEKKER = ("    const float ca = __fmul_rn(a, 4097.0f), cb = __fmul_rn(b, 4097.0f
           "    e = __fadd_rn(e, __fmul_rn(ah, bl));\n"
           "    e = __fadd_rn(e, __fmul_rn(al, bh));\n"
           "    return __fadd_rn(e, __fmul_rn(al, bl));\n")
-SMALL = "    else if (__all_sync(FULL_MASK, fabsf(hi) <= delay_small))\n"
+SMALL = "    else if (!FAR && __all_sync(FULL_MASK, fabsf(hi) <= delay_small))\n"
+FAR_ADJ = "            if (__any_sync(FULL_MASK, far_rows))\n"
+FAR_FWD = "            if (__any_sync(FULL_MASK, far_sources))\n"
 WALK_SMALL = "        walk<CG, ROT_SMALL>(z, st, hi, rot, body);\n"
 SINCOS = "    sincospif(2.0f * frac, &z.y, &z.x);  // 2*frac is exact\n"
-ADJ_LOOP = "        for (int lr = 0; lr < nr; ++lr) {\n"
-FWD_LOOP = "        for (int ls = slice; ls < ns; ls += nslice) {\n"
+ADJ_UNROLL = "#pragma unroll ((C == 1 && !decltype(far)::value) ? 2 : 1)\n"
+FWD_LOOP = "            for (int ls = slice; ls < ns; ls += nslice) {\n"
 DELAY_ADJ = "        delay(d, s_row[lr], chi, clo, hi, lo);\n"
 DELAY_FWD = "        delay(tile.dir[ls], q, chi, clo, hi, lo);\n"
 # variant name -> (substitutions of the source, settings of ops/cuda_dft.py)
@@ -59,7 +66,8 @@ VARIANTS = {
     "adjoint at 7 blocks an SM": ([(ADJ_CAP, ADJ_CAP.replace("6", "7"))], {}),
     "adjoint at 8 blocks an SM": ([(ADJ_CAP, ADJ_CAP.replace("6", "8"))], {}),
     "adjoint rows of 64 a pass": ([(ADJ_ROWS, ADJ_ROWS.replace("32", "64"))], {}),
-    "adjoint rows two at a time": ([(ADJ_LOOP, "#pragma unroll 2\n" + ADJ_LOOP)], {}),
+    "adjoint rows one at a time": ([(ADJ_UNROLL, "#pragma unroll 1\n")], {}),
+    "adjoint rows two at a time": ([(ADJ_UNROLL, "#pragma unroll 2\n")], {}),
     "adjoint chunks for 2048 blocks": ([], {"_TARGET_BLOCKS": 2048}),
     "adjoint chunks for 8192 blocks": ([], {"_TARGET_BLOCKS": 8192}),
     "forward at 3 blocks an SM": ([(FWD_CAP, FWD_CAP.replace("4", "3"))], {}),
@@ -69,6 +77,13 @@ VARIANTS = {
     "forward sources two at a time": ([(FWD_LOOP, "#pragma unroll 2\n" + FWD_LOOP)], {}),
     "product errors by Dekker's split": ([(PROD_ERR, DEKKER)], {}),
     "the rotation polynomial for every pair": ([(SMALL, "    else if (false)\n")], {}),
+    "no far vote": ([(FAR_ADJ, "            if (false)\n"),
+                     (FAR_FWD, "            if (false)\n")], {}),
+    "the far vote in every tile": ([(FAR_ADJ, "            if (true)\n"),
+                                    (FAR_FWD, "            if (true)\n")], {}),
+    "one loop, the far vote a pair": ([
+        (FAR_ADJ, "            if (true)\n"), (FAR_FWD, "            if (true)\n"),
+        (SMALL, "    else if (__all_sync(FULL_MASK, fabsf(hi) <= delay_small))\n")], {}),
     "no channel walk (not the map)": ([(WALK_SMALL, "        body(0, z);\n")], {}),
     "no sincospif (not the map)": ([(SINCOS, "    z = make_float2(frac, 1.0f - frac);\n")], {}),
     "no delay chain (not the map)": ([
