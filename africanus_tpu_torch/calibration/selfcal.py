@@ -28,6 +28,8 @@ the bench's accuracy check of a solve.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 from torch import nn
@@ -39,6 +41,7 @@ from africanus_tpu_torch.calibration.utils import corrupt_vis
 from africanus_tpu_torch.constants import c as lightspeed
 from africanus_tpu_torch.deconv.hogbom import hogbom_clean
 from africanus_tpu_torch.dft import dft_plan, im_to_vis, vis_to_im
+from africanus_tpu_torch.utils.profiling import span
 
 __all__ = ["SelfcalStep", "selfcal_inputs", "make_data", "from_numpy",
            "grid_lm", "im_to_vis_oracle_f64", "vis_to_im_oracle_f64",
@@ -67,7 +70,13 @@ class SelfcalStep(nn.Module):
     corr) complex64, the npx² ``grid_lm`` and the delta ``psf``.
     Submodules: ``forward_plan`` and ``adjoint_plan``, the DFT plans of
     the re-predict and of the residual image.
+
+    ``SelfcalStep.plan_seconds`` counts the host seconds that the set-up
+    of every step made spends on those plans; :meth:`forward` runs its
+    stages in profiler spans (:mod:`africanus_tpu_torch.utils.profiling`).
     """
+
+    plan_seconds = 0.0
 
     def __init__(self, time_bin_indices, time_bin_counts, antenna1, antenna2,
                  uvw, lm, frequency, image, model, flag, weight, jones0,
@@ -95,6 +104,7 @@ class SelfcalStep(nn.Module):
         # host planning, once: the gather table of the normal equations
         # and the two DFTs' plans, so that a step reads nothing back from
         # the card and sends nothing up to it
+        t0 = time.perf_counter()
         sel, valid = ant_gather_table(time_bin_indices, time_bin_counts,
                                       antenna1, antenna2, self.jones0.shape[0],
                                       self.jones0.shape[1])
@@ -105,6 +115,7 @@ class SelfcalStep(nn.Module):
                                      self.image.shape[2])
         self.adjoint_plan = dft_plan(self.uvw, self.grid_lm, freq, 1,
                                      adjoint=True)
+        SelfcalStep.plan_seconds += time.perf_counter() - t0
 
     def forward(self, data):
         """One step on ``data``, the (row, chan, corr) complex64 observed
@@ -117,21 +128,27 @@ class SelfcalStep(nn.Module):
         """
         meta = (self.time_bin_indices, self.time_bin_counts, self.antenna1,
                 self.antenna2)
-        gains, jhj, jhr, _ = gauss_newton(
-            *meta, self.jones0, data, self.flag, self.model, self.weight,
-            tol=0.0, maxiter=self.gn_iters,
-            table=(self.gather_sel, self.gather_valid))
-        resid = data - corrupt_vis(*meta, gains, self.model)
-        im = vis_to_im(resid.sum(dim=-1, keepdim=True), self.uvw,
-                       self.grid_lm, self.frequency, self.flag[..., :1],
-                       plan=self.adjoint_plan)
-        nvis = data.shape[0] * data.shape[1]
-        dirty = im.sum(dim=(1, 2)).reshape(self.npx, self.npx) / nvis
-        clean, residual_image = hogbom_clean(dirty, self.psf, gamma=_GAMMA,
-                                             threshold=_THRESHOLD,
-                                             niter=_CLEAN_NITER)
-        re_model = im_to_vis(self.image, self.uvw, self.lm, self.frequency,
-                             plan=self.forward_plan)
+        with span("selfcal.call"):
+            with span("selfcal.solve"):
+                gains, jhj, jhr, _ = gauss_newton(
+                    *meta, self.jones0, data, self.flag, self.model,
+                    self.weight, tol=0.0, maxiter=self.gn_iters,
+                    table=(self.gather_sel, self.gather_valid))
+            with span("selfcal.residual"):
+                resid = data - corrupt_vis(*meta, gains, self.model)
+            with span("selfcal.image"):
+                im = vis_to_im(resid.sum(dim=-1, keepdim=True), self.uvw,
+                               self.grid_lm, self.frequency,
+                               self.flag[..., :1], plan=self.adjoint_plan)
+                nvis = data.shape[0] * data.shape[1]
+                dirty = im.sum(dim=(1, 2)).reshape(self.npx, self.npx) / nvis
+            with span("selfcal.clean"):
+                clean, residual_image = hogbom_clean(
+                    dirty, self.psf, gamma=_GAMMA, threshold=_THRESHOLD,
+                    niter=_CLEAN_NITER)
+            with span("selfcal.predict"):
+                re_model = im_to_vis(self.image, self.uvw, self.lm,
+                                     self.frequency, plan=self.forward_plan)
         return gains, jhj, jhr, dirty, clean, residual_image, re_model
 
 

@@ -7,6 +7,9 @@ becomes ``niter + 1`` masked iterations on the device: each one picks
 the peak (argmax of the residual, first index on ties) and subtracts
 the PSF window, multiplied by a running flag that drops to 0 once the
 peak falls to the threshold. The loop never waits for the device.
+``hogbom_clean.taken`` (a ``DeviceCount`` of
+:mod:`africanus_tpu_torch.utils.profiling`) counts, of the iterations
+run while a profiler records, those that took a component.
 
 ``fit_2d_gaussian`` and ``restore`` keep the reference's scipy host path
 (a 7-parameter curve_fit on a small image, an FFT convolution).
@@ -18,6 +21,8 @@ import logging
 
 import numpy as np
 import torch
+
+from africanus_tpu_torch.utils.profiling import DeviceCount
 
 __all__ = ["hogbom_clean", "find_peak", "fit_2d_gaussian", "restore"]
 
@@ -73,6 +78,7 @@ def hogbom_clean(dirty, psf, gamma=0.1, threshold="default", niter="default"):
     running = torch.ones((), dtype=torch.bool, device=dirty.device)
     for _ in range(niter + 1):
         running = running & (intensity.abs() > thresh)
+        hogbom_clean.taken.keep(running)
         step = torch.where(running, gamma * intensity,
                            torch.zeros_like(intensity))
         p, q = flat // npix, flat % npix
@@ -83,6 +89,9 @@ def hogbom_clean(dirty, psf, gamma=0.1, threshold="default", niter="default"):
         flat = torch.argmax(residual)
         intensity = torch.take(residual, flat)
     return clean, residual
+
+
+hogbom_clean.taken = DeviceCount()
 
 
 def _gauss2d(coords, amplitude, xo, yo, sigma_x, sigma_y, theta, offset):

@@ -9,9 +9,12 @@ the CUDA kernel on the card) → :func:`predict_vis` with diagonal 4-corr
 DIE gains.
 
 :class:`FlagshipPredict` holds the sky model as buffers and predicts one
-row chunk per call; :func:`flagship_inputs` makes the same seeded numpy
-inputs as ``__graft_entry__._flagship``; :func:`from_numpy` turns such an
-input tuple into the module and its tensors; :func:`predict_oracle_f64`
+row chunk per call, its stages in the profiler spans ``flagship.sky``,
+``flagship.contract`` and ``flagship.gains`` under ``flagship.call``
+(:mod:`africanus_tpu_torch.utils.profiling`); :func:`flagship_inputs`
+makes the same seeded numpy inputs as ``__graft_entry__._flagship``;
+:func:`from_numpy` turns such an input tuple into the module and its
+tensors; :func:`predict_oracle_f64`
 is the float64 numpy oracle of the same chain (the formula of the JAX
 package's ``bench.py`` config 2).
 """
@@ -31,6 +34,7 @@ from africanus_tpu_torch.model.spectral.spec_model import spectral_model
 from africanus_tpu_torch.ops.cuda_predict import predict_kb
 from africanus_tpu_torch.rime.phase import phase_dot_cycles
 from africanus_tpu_torch.rime.predict import predict_vis
+from africanus_tpu_torch.utils.profiling import span
 
 __all__ = ["FlagshipPredict", "flagship_inputs", "from_numpy",
            "predict_oracle_f64"]
@@ -84,10 +88,16 @@ class FlagshipPredict(nn.Module):
         -------
         (row, chan, 4) complex64 visibilities (XX, XY, YX, YY).
         """
-        coh = predict_kb(*self.kernel_operands(uvw, frequency))
-        gains = torch.polar(torch.ones_like(gain_phase), gain_phase)
-        return predict_vis(time_index, antenna1, antenna2,
-                           die1_jones=gains, base_vis=coh, die2_jones=gains)
+        with span("flagship.call"):
+            with span("flagship.sky"):
+                operands = self.kernel_operands(uvw, frequency)
+            with span("flagship.contract"):
+                coh = predict_kb(*operands)
+            with span("flagship.gains"):
+                gains = torch.polar(torch.ones_like(gain_phase), gain_phase)
+                return predict_vis(time_index, antenna1, antenna2,
+                                   die1_jones=gains, base_vis=coh,
+                                   die2_jones=gains)
 
 
 def flagship_inputs(nsrc, ntime, nant, nchan, seed):

@@ -17,6 +17,35 @@ dask ``EstimatingProgressBar``).
   ``FP32_RATE`` float32 instructions a second, i.e. ``FP32_PEAK_FLOPS``
   as fused multiply-adds); ``TF32_PEAK_FLOPS`` is the tensor cores' dense
   TF32 rate, for work that runs there.
+- :func:`span` names a stage of the program in a ``torch.profiler``
+  trace, on the trace's own clock; while no profiler records it is a
+  shared no-op. :class:`DeviceCount` counts device flags without a
+  kernel or a sync while a profiler records.
+
+What a trace of the two entries holds (:func:`trace`, or any
+``torch.profiler.profile``). Spans, each ``*.call`` the request and the
+parent of its stages, every kernel of a call launched inside exactly one
+stage:
+
+- ``FlagshipPredict.forward``: ``flagship.call`` around ``flagship.sky``
+  (``kernel_operands``: spectra, brightness, delays, envelope
+  coordinates), ``flagship.contract`` (``predict_kb``) and
+  ``flagship.gains`` (``torch.polar`` of the gain phases and
+  ``predict_vis``);
+- ``SelfcalStep.forward``: ``selfcal.call`` around ``selfcal.solve``
+  (``gauss_newton``), ``selfcal.residual`` (``corrupt_vis`` and the
+  subtraction), ``selfcal.image`` (``vis_to_im``, the sums and the
+  division), ``selfcal.clean`` (``hogbom_clean``) and
+  ``selfcal.predict`` (``im_to_vis``).
+
+Counters, attributes of what does the work, as each kernel wrapper's
+``.launches``:
+
+- ``hogbom_clean.taken``: a :class:`DeviceCount` of CLEAN's iterations
+  run while a profiler records, and of those that took a component:
+  ``hogbom_clean.taken.read()``;
+- ``SelfcalStep.plan_seconds``: host seconds spent planning in the set-up
+  of every ``SelfcalStep`` made (the gather table and the two DFT plans).
 """
 
 from __future__ import annotations
@@ -28,9 +57,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "measure", "Roofline", "roofline", "HBM_RATE",
-           "FP32_RATE", "FP32_PEAK_FLOPS", "TF32_PEAK_FLOPS"]
+__all__ = ["trace", "span", "DeviceCount", "measure", "Roofline",
+           "roofline", "HBM_RATE", "FP32_RATE", "FP32_PEAK_FLOPS",
+           "TF32_PEAK_FLOPS"]
 
 # one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes a second, float32
 # instructions a second outside the tensor cores (132 SMs x 128 lanes x
@@ -55,6 +86,53 @@ def trace(log_dir):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager naming the block ``name`` in a profiler trace.
+
+    While a ``torch.profiler`` records, a ``record_function`` span: it
+    lands in the same Chrome trace as the kernels the block launches,
+    with the same clock, and nested spans take the enclosing one as
+    their parent. Otherwise one shared no-op: a flag read, with no
+    allocation, no kernel and no sync."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+class DeviceCount:
+    """A count of 0-d boolean device tensors (flags) that adds no kernel
+    and no sync to the code it counts while a profiler records: then
+    :meth:`keep` holds a reference to each flag the code already made.
+    They are held no longer than the recording: the first :meth:`keep`
+    after it (or :meth:`read`) sums them on their device, with no sync,
+    and lets them go. :meth:`read` reads those sums when it is called."""
+
+    def __init__(self):
+        self._flags, self._sums, self.kept = [], {}, 0
+
+    def keep(self, flag):
+        if _autograd_profiler._is_profiler_enabled:
+            self._flags.append(flag)
+        elif self._flags:
+            self._fold()
+
+    def _fold(self):
+        for device in {f.device for f in self._flags}:
+            part = torch.stack([f for f in self._flags
+                                if f.device == device]).sum()
+            self._sums[device] = self._sums.get(device, 0) + part
+        self.kept += len(self._flags)
+        self._flags = []
+
+    def read(self):
+        """(flags that were true, flags kept) since the count was made."""
+        self._fold()
+        return sum(int(n) for n in self._sums.values()), self.kept
 
 
 def _cuda_device(args):
