@@ -3,13 +3,17 @@
 Port of ``africanus_tpu/deconv/hogbom/clean.py`` (reference
 ``africanus/deconv/hogbom/clean.py``: hogbom_clean:122, find_peak:74,
 fit_2d_gaussian:40, restore:202). The JAX package's ``lax.while_loop``
-becomes ``niter + 1`` masked iterations on the device: each one picks
-the peak (argmax of the residual, first index on ties) and subtracts
-the PSF window, multiplied by a running flag that drops to 0 once the
-peak falls to the threshold. The loop never waits for the device.
-``hogbom_clean.taken`` (a ``DeviceCount`` of
-:mod:`africanus_tpu_torch.utils.profiling`) counts, of the iterations
-run while a profiler records, those that took a component.
+becomes, on the card, one launch of a hand-written kernel that runs
+every iteration on the device
+(:func:`africanus_tpu_torch.ops.cuda_hogbom.hogbom`); CPU tensors take
+:func:`hogbom_clean_reference`, the plain version: ``niter + 1`` masked
+iterations, each picking the peak (argmax of the residual, first index
+on ties) and subtracting the PSF window, multiplied by a running flag
+that drops to 0 once the peak falls to the threshold. The two give the
+same images and flags, value for value. ``hogbom_clean.taken`` (a
+``DeviceCount`` of :mod:`africanus_tpu_torch.utils.profiling`) counts,
+of the iterations run while a profiler records, those that took a
+component.
 
 ``fit_2d_gaussian`` and ``restore`` keep the reference's scipy host path
 (a 7-parameter curve_fit on a small image, an FFT convolution).
@@ -22,9 +26,11 @@ import logging
 import numpy as np
 import torch
 
+from africanus_tpu_torch.ops import cuda_hogbom
 from africanus_tpu_torch.utils.profiling import DeviceCount
 
-__all__ = ["hogbom_clean", "find_peak", "fit_2d_gaussian", "restore"]
+__all__ = ["hogbom_clean", "hogbom_clean_reference", "find_peak",
+           "fit_2d_gaussian", "restore"]
 
 log = logging.getLogger(__name__)
 
@@ -52,6 +58,9 @@ def hogbom_clean(dirty, psf, gamma=0.1, threshold="default", niter="default"):
     niter : iteration bound or "default" (3·npix); like the reference,
         up to ``niter + 1`` components are taken
 
+    CUDA tensors launch :func:`~africanus_tpu_torch.ops.cuda_hogbom.hogbom`
+    once; CPU tensors take :func:`hogbom_clean_reference`.
+
     Returns
     -------
     (clean image, residual image)
@@ -65,7 +74,21 @@ def hogbom_clean(dirty, psf, gamma=0.1, threshold="default", niter="default"):
     if niter == "default":
         niter = 3 * npix
     frac = 0.2 if threshold == "default" else float(threshold)
+    if dirty.device.type == "cuda":
+        clean, residual, running = cuda_hogbom.hogbom(dirty, psf, gamma, frac, niter)
+    else:
+        clean, residual, running = hogbom_clean_reference(dirty, psf, gamma, frac,
+                                                          niter)
+    hogbom_clean.taken.keep(running)
+    return clean, residual
 
+
+def hogbom_clean_reference(dirty, psf, gamma, frac, niter):
+    """The plain version of :func:`hogbom_clean`'s kernel: ``niter + 1``
+    masked iterations of torch ops, ``frac`` the threshold as a fraction
+    of the first peak. Returns (clean image, residual image, the
+    (niter + 1,) bool running flags)."""
+    npix = dirty.shape[0]
     # torch.take, not x.reshape(-1)[flat]: indexing with a 0-d tensor
     # reads the index back to the host
     flat = torch.argmax(dirty)
@@ -76,9 +99,10 @@ def hogbom_clean(dirty, psf, gamma=0.1, threshold="default", niter="default"):
     clean = torch.zeros_like(dirty)
     span = torch.arange(npix, device=dirty.device)
     running = torch.ones((), dtype=torch.bool, device=dirty.device)
+    flags = []
     for _ in range(niter + 1):
         running = running & (intensity.abs() > thresh)
-        hogbom_clean.taken.keep(running)
+        flags.append(running)
         step = torch.where(running, gamma * intensity,
                            torch.zeros_like(intensity))
         p, q = flat // npix, flat % npix
@@ -88,7 +112,9 @@ def hogbom_clean(dirty, psf, gamma=0.1, threshold="default", niter="default"):
         residual = residual - step * window
         flat = torch.argmax(residual)
         intensity = torch.take(residual, flat)
-    return clean, residual
+    flags = (torch.stack(flags) if flags
+             else torch.zeros(0, dtype=torch.bool, device=dirty.device))
+    return clean, residual, flags
 
 
 hogbom_clean.taken = DeviceCount()

@@ -15,6 +15,7 @@ from africanus_tpu_torch.ops.cuda_beam import beam_blend, beam_blend_cell, beam_
 from africanus_tpu_torch.ops.cuda_dft import dft_adjoint, dft_forward
 from africanus_tpu_torch.ops.cuda_grid2d import degrid_2d, grid_2d
 from africanus_tpu_torch.ops.cuda_gridtab import degrid_table, grid_table
+from africanus_tpu_torch.ops.cuda_hogbom import hogbom
 from africanus_tpu_torch.ops.cuda_predict import predict_kb
 from africanus_tpu_torch.ops.cuda_wgrid import degrid_wstack, grid_wstack
 
@@ -22,7 +23,7 @@ __all__ = ["WRAPPERS", "counts", "since", "describe", "device_name", "sync"]
 
 WRAPPERS = (predict_kb, dft_forward, dft_adjoint, grid_wstack, degrid_wstack,
             grid_2d, degrid_2d, grid_table, degrid_table, beam_interp,
-            beam_blend, beam_blend_cell)
+            beam_blend, beam_blend_cell, hogbom)
 
 
 def counts():

@@ -42,7 +42,8 @@ Counters, attributes of what does the work, as each kernel wrapper's
 ``.launches``:
 
 - ``hogbom_clean.taken``: a :class:`DeviceCount` of CLEAN's iterations
-  run while a profiler records, and of those that took a component:
+  run while a profiler records (one (niter + 1,) tensor of running flags
+  a call), and of those that took a component:
   ``hogbom_clean.taken.read()``;
 - ``SelfcalStep.plan_seconds``: host seconds spent planning in the set-up
   of every ``SelfcalStep`` made (the gather table and the two DFT plans).
@@ -105,9 +106,10 @@ def span(name):
 
 
 class DeviceCount:
-    """A count of 0-d boolean device tensors (flags) that adds no kernel
-    and no sync to the code it counts while a profiler records: then
-    :meth:`keep` holds a reference to each flag the code already made.
+    """A count of boolean device flags, each a 0-d tensor or every element
+    of a 1-D one, that adds no kernel and no sync to the code it counts
+    while a profiler records: then :meth:`keep` holds a reference to each
+    flag tensor the code already made.
     They are held no longer than the recording: the first :meth:`keep`
     after it (or :meth:`read`) sums them on their device, with no sync,
     and lets them go. :meth:`read` reads those sums when it is called."""
@@ -123,10 +125,10 @@ class DeviceCount:
 
     def _fold(self):
         for device in {f.device for f in self._flags}:
-            part = torch.stack([f for f in self._flags
-                                if f.device == device]).sum()
+            part = torch.cat([f.reshape(-1) for f in self._flags
+                              if f.device == device]).sum()
             self._sums[device] = self._sums.get(device, 0) + part
-        self.kept += len(self._flags)
+        self.kept += sum(f.numel() for f in self._flags)
         self._flags = []
 
     def read(self):

@@ -15,7 +15,8 @@ twenty-nine phases that each print one line (some several):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles csrc/predict_kb.cu, csrc/dft.cu, csrc/wgrid.cu,
-   csrc/beam.cu, csrc/grid2d.cu and csrc/gridtab.cu with nvcc, and the
+   csrc/beam.cu, csrc/grid2d.cu, csrc/gridtab.cu and csrc/hogbom.cu with
+   nvcc, and the
    averaging mappers' native/mappers.cpp with g++, into build/ (first
    use), all at once;
 3. predict kernel vs plain: predict_kb against its plain PyTorch version
@@ -42,7 +43,7 @@ twenty-nine phases that each print one line (some several):
 7. the selfcal step (bench.py config 5): SelfcalStep at 197 antennas
    (19306 baselines), 2 times (38612 rows), 16 channels, 2
    correlations, 20 sources, 10 Gauss-Newton iterations, a 64² residual
-   image, counting the DFT kernels' launches;
+   image, counting the DFT kernels' and CLEAN's launches;
 8. selfcal checks: a 40-iteration solve against the true gains, and
    vis_to_im (64 pixels) and im_to_vis (256 rows) of the slice against
    float64 oracles;
@@ -51,7 +52,9 @@ twenty-nine phases that each print one line (some several):
    and replayed, so that no host work is timed), of vis_to_im and
    im_to_vis as the step calls them, of the solve, of CLEAN and of the
    whole step (and the step's host-clock median: it is host-bound), one
-   run of each plain version, and the step's rate in Mvis-iter/s;
+   run of each plain version, and the step's rate in Mvis-iter/s; CLEAN's
+   kernel equal to the plain loop on the step's dirty image and PSF, and
+   timed alone as the DFT kernels are;
 10. wgrid kernels vs plain: grid_wstack and degrid_wstack against their
    plain versions on the card (supports 4/6/8/10 × 1 plane, a stack and a
    deep stack whose planes the degrid kernel stages in blocks × float32
@@ -1096,8 +1099,8 @@ def flagship(device, card):
 
 
 def selfcal(device, card):
-    """Phases 7-9: one config-5 selfcal step. Returns the dft_forward and
-    dft_adjoint entries of the kernels line."""
+    """Phases 7-9: one config-5 selfcal step. Returns the dft_forward,
+    dft_adjoint and hogbom entries of the kernels line."""
     import torch
     from africanus_tpu_torch.calibration.phase_only import gauss_newton
     from africanus_tpu_torch.calibration.selfcal import (
@@ -1106,8 +1109,10 @@ def selfcal(device, card):
     )
     from africanus_tpu_torch.calibration.utils import corrupt_vis
     from africanus_tpu_torch.deconv.hogbom import hogbom_clean
+    from africanus_tpu_torch.deconv.hogbom.clean import hogbom_clean_reference
     from africanus_tpu_torch.dft import im_to_vis, vis_to_im
     from africanus_tpu_torch.ops import cuda_dft as cd
+    from africanus_tpu_torch.ops import cuda_hogbom as ch
     from africanus_tpu_torch.ops.cuda_predict import predict_kb
 
     t0 = time.perf_counter()
@@ -1122,14 +1127,17 @@ def selfcal(device, card):
 
     # 7. the step, once, through the kernels
     cd.dft_forward.launches = cd.dft_adjoint.launches = predict_kb.launches = 0
+    ch.hogbom.launches = 0
     t0 = time.perf_counter()
     outs = step(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"dft_forward": cd.dft_forward.launches,
                 "dft_adjoint": cd.dft_adjoint.launches,
-                "predict_kb": predict_kb.launches}
-    check(launches == {"dft_forward": 1, "dft_adjoint": 1, "predict_kb": 0},
+                "predict_kb": predict_kb.launches,
+                "hogbom": ch.hogbom.launches}
+    check(launches == {"dft_forward": 1, "dft_adjoint": 1, "predict_kb": 0,
+                       "hogbom": 1},
           f"selfcal step launches {launches}")
     gains, jhj, jhr, dirty, clean, residual_image, re_model = outs
     shapes = [tuple(x.shape) for x in outs]
@@ -1215,6 +1223,17 @@ def selfcal(device, card):
         tol=0.0, maxiter=SELFCAL_GN_ITERS, table=table))
     clean_ms, _ = cuda_median_ms(lambda: hogbom_clean(
         dirty, step.psf, gamma=0.1, threshold=0.2, niter=50))
+    # CLEAN's kernel against the plain loop on the step's own dirty image
+    # and PSF: the same operations in the same rounding, so equal
+    cgot = ch.hogbom(dirty, step.psf, 0.1, 0.2, 50)
+    cwant, clean_plain_ms = cuda_once_ms(
+        lambda: hogbom_clean_reference(dirty, step.psf, 0.1, 0.2, 50))
+    for name, g, w in zip(("clean", "residual", "flags"), cgot, cwant):
+        check(torch.equal(g, w), f"hogbom kernel vs plain at the step shape: {name}")
+    clean_abs = max(float((g - w).abs().max()) for g, w in zip(cgot[:2], cwant[:2]))
+    clean_kernel_ms = kernel_median_ms(
+        lambda: ch.hogbom(dirty, step.psf, 0.1, 0.2, 50))
+    ctas, rows, _, _ = ch.layout(npx, dirty.element_size())
     step_ms, step_runs = cuda_median_ms(lambda: step(data))
     step_host_ms = host_median_ms(lambda: step(data))
     nvis = nrow * nchan
@@ -1223,7 +1242,9 @@ def selfcal(device, card):
           f"(runs {', '.join(f'{t:.3f}' for t in step_runs)}) = {rate:.1f} "
           f"Mvis-iter/s (bench.py:1254's rate), host clock "
           f"{step_host_ms:.3f} ms; GN solve ({SELFCAL_GN_ITERS} it) "
-          f"{gn_ms:.3f} ms; CLEAN {clean_ms:.3f} ms; dft_adjoint kernel "
+          f"{gn_ms:.3f} ms; CLEAN {clean_ms:.3f} ms (kernel {clean_kernel_ms:.4f} "
+          f"ms per launch, {ctas} block(s) of {rows} rows, {int(cgot[2].sum())} of 51 "
+          f"iterations taken; plain loop {clean_plain_ms:.2f} ms, equal); dft_adjoint kernel "
           f"{adj_ms:.3f} ms per launch (CUDA graph of {BURST}), vis_to_im as the "
           f"step calls it {adj_call_ms:.3f} ms, plain {adj_plain_ms:.1f} ms "
           f"(residual image, {npx * npx} px x {nrow} rows x {nchan} chan); "
@@ -1258,6 +1279,11 @@ def selfcal(device, card):
          **bound(nbytes(adj_plan, step.uvw, resid) + npx * npx * nchan * 4,
                  npx * npx * nrow * nchan * dft_adj_instr(adj.ncorr)),
          "library_ms": None},
+        {"name": "hogbom", "route": "cuda",
+         "source": "africanus_tpu_torch/csrc/hogbom.cu", "replaces": None,
+         "launches": launches["hogbom"], "max_abs_err": clean_abs,
+         "ms": clean_kernel_ms, "plain_ms": clean_plain_ms,
+         **bound(nbytes(dirty, step.psf, cgot), 0), "library_ms": None},
     ]
 
 
@@ -3358,8 +3384,8 @@ def store_examples(device, card):
         check(float(run.clean.max()) > 0, "selfcal store: CLEAN found no component")
         check(chunk_digest(store.read_pair("CORRECTED_DATA")) == run.corrected_digest,
               "selfcal store: CORRECTED_DATA re-read differs")
-        check(launches.get("predict_kb") == 1 and launches.get("grid_wstack") == 2,
-              f"selfcal store launches {launches}")
+        check(launches.get("predict_kb") == 1 and launches.get("grid_wstack") == 2
+              and launches.get("hogbom") == 1, f"selfcal store launches {launches}")
         stages = dict(fabricate=fabricate, **run.stage_seconds)
         uvw = store.read("UVW").astype(np.float32)
         freq = np.asarray(store.subtables["SPECTRAL_WINDOW"]["CHAN_FREQ"], np.float32)
@@ -3650,7 +3676,8 @@ def other_examples(device, card):
     peak = np.unravel_index(int(torch.argmax(run.clean)), tuple(run.clean.shape))
     check(peak == (selfcal.NPIX // 2, selfcal.NPIX // 2) and run.iterations < 60,
           f"selfcal CLEAN peak {peak}, {run.iterations} iterations")
-    check(n.get("dft_forward") == 1 and n.get("grid_wstack") == 2, f"selfcal {n}")
+    check(n.get("dft_forward") == 1 and n.get("grid_wstack") == 2
+          and n.get("hogbom") == 1, f"selfcal {n}")
     report("selfcal", sec, n, f"{run.iterations} GN iterations, CLEAN peak at centre")
 
     (vis, fixed, k), sec, n = on_card("apply_gains", lambda: apply_gains.apply_and_undo(
@@ -4253,6 +4280,7 @@ def main():
     from africanus_tpu_torch.ops.cuda_dft import build_dft
     from africanus_tpu_torch.ops.cuda_grid2d import build_grid2d
     from africanus_tpu_torch.ops.cuda_gridtab import build_gridtab
+    from africanus_tpu_torch.ops.cuda_hogbom import build_hogbom
     from africanus_tpu_torch.ops.cuda_predict import build_predict_kb
     from africanus_tpu_torch.ops.cuda_wgrid import build_wgrid
 
@@ -4280,14 +4308,15 @@ def main():
               f"{native.load_error()}")
         return native.library_path(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         mappers = pool.submit(build_native)
         builds = [f.result() for f in [pool.submit(build_predict_kb),
                                        pool.submit(build_dft),
                                        pool.submit(build_wgrid),
                                        pool.submit(build_beam),
                                        pool.submit(build_grid2d),
-                                       pool.submit(build_gridtab)]]
+                                       pool.submit(build_gridtab),
+                                       pool.submit(build_hogbom)]]
         lib, seconds = mappers.result()
     print(f"[2/{PHASES}] built {os.path.relpath(lib)} (g++) in {seconds:.1f} s",
           flush=True)

@@ -38,7 +38,9 @@ float64 1e-12; the store pipeline's MODEL_DATA 2e-6·max against the
 CPU's, one predict_kb launch a chunk; zernike_dde and the shapelets in
 float32 1e-5·max and in float64 1e-12 against the CPU in float64; the
 SPI fit in float64 1e-6 (α absolute, I₀ relative) and in float32 1e-4
-against the CPU in float64; stream_rows on the card as on the CPU.
+against the CPU in float64; stream_rows on the card as on the CPU. The CLEAN kernel
+equals the plain loop run on the card (torch.equal on both images and the
+running flags: the same operations in the same rounding).
 """
 
 import os
@@ -64,6 +66,8 @@ from africanus_tpu_torch.calibration.selfcal import (  # noqa: E402
     from_numpy as selfcal_from_numpy, im_to_vis_oracle_f64, make_data,
     selfcal_inputs, vis_to_im_oracle_f64,
 )
+from africanus_tpu_torch.deconv.hogbom import hogbom_clean  # noqa: E402
+from africanus_tpu_torch.deconv.hogbom.clean import hogbom_clean_reference  # noqa: E402
 from africanus_tpu_torch.gridding import nifty  # noqa: E402
 from africanus_tpu_torch.gridding import perleypolyhedron as pp  # noqa: E402
 from africanus_tpu_torch.gridding.wgridder import dirty, model  # noqa: E402
@@ -74,6 +78,7 @@ from africanus_tpu_torch.ops import cuda_beam as cb  # noqa: E402
 from africanus_tpu_torch.ops import cuda_dft as cd  # noqa: E402
 from africanus_tpu_torch.ops import cuda_grid2d as g2  # noqa: E402
 from africanus_tpu_torch.ops import cuda_gridtab as gt  # noqa: E402
+from africanus_tpu_torch.ops import cuda_hogbom as ch  # noqa: E402
 from africanus_tpu_torch.ops import cuda_predict as cp  # noqa: E402
 from africanus_tpu_torch.ops import cuda_wgrid as cw  # noqa: E402
 from africanus_tpu_torch.rime.beam_chain import (  # noqa: E402
@@ -422,10 +427,10 @@ def test_selfcal_on_card_matches_cpu(device, unmodelled):
     step_cpu, data_cpu = _selfcal("cpu", unmodelled)
     step_gpu, data_gpu = _selfcal(device, unmodelled)
     want = step_cpu(data_cpu)
-    before = (cd.dft_forward.launches, cd.dft_adjoint.launches)
+    before = (cd.dft_forward.launches, cd.dft_adjoint.launches, ch.hogbom.launches)
     got = [x.cpu() for x in step_gpu(data_gpu)]
-    assert (cd.dft_forward.launches, cd.dft_adjoint.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (cd.dft_forward.launches, cd.dft_adjoint.launches,
+            ch.hogbom.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     gains, jhj, jhr, dirty, clean, res, re_model = got
     assert _max_err(gains, want[0]) <= 1e-5
     scale_jhj = float(want[1].abs().max())
@@ -461,6 +466,111 @@ def test_selfcal_step_does_not_sync(device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _clean_problem(npix, psf_kind, seed):
+    """A dirty image of five sources on noise and its (2npix)² PSF, a
+    delta or a gaussian peaking at (npix − 1, npix − 1)."""
+    rng = np.random.default_rng(seed)
+    if psf_kind == "delta":
+        psf = np.zeros((2 * npix, 2 * npix))
+        psf[npix - 1, npix - 1] = 1.0
+    else:
+        x = np.arange(2 * npix) - (npix - 1)
+        psf = np.exp(-(x[:, None] ** 2 + x[None, :] ** 2) / (2 * 1.5 ** 2))
+    dirty = 0.05 * rng.standard_normal((npix, npix))
+    for _ in range(5):
+        p, q = rng.integers(0, npix, 2)
+        dirty += rng.uniform(0.5, 2.0) * psf[npix - 1 - p:2 * npix - 1 - p,
+                                             npix - 1 - q:2 * npix - 1 - q]
+    return dirty, psf
+
+
+def _clean_matches_plain(device, dirty, psf, dtype, gamma, frac, niter):
+    """The kernel, launched once, against the plain loop on the card:
+    clean image, residual and running flags equal value for value."""
+    d = torch.as_tensor(dirty, dtype=dtype, device=device)
+    p = torch.as_tensor(psf, dtype=dtype, device=device)
+    before = ch.hogbom.launches
+    got = ch.hogbom(d, p, gamma, frac, niter)
+    assert ch.hogbom.launches == before + 1
+    want = hogbom_clean_reference(d, p, gamma, frac, niter)
+    torch.cuda.synchronize()
+    assert tuple(got[2].shape) == (niter + 1,) and got[2].dtype == torch.bool
+    for name, g, w in zip(("clean", "residual", "flags"), got, want):
+        assert torch.equal(g, w), name
+    return got
+
+
+_CLEAN_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                                        ids=["float32", "float64"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["8", "64", "65", "256", "past-one-block",
+                                  "past-the-cluster"])
+@pytest.mark.parametrize("psf_kind", ["delta", "gaussian"])
+@_CLEAN_DTYPES
+def test_hogbom_kernel_matches_plain_loop(device, size, psf_kind, dtype):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if size == "past-one-block":
+        npix = next(n for n in range(1, 2000) if ch.layout(n, itemsize)[0] > 1)
+    elif size == "past-the-cluster":
+        npix = next(n for n in range(1, 2000) if not ch.layout(n, itemsize)[2])
+    else:
+        npix = int(size)
+    dirty, psf = _clean_problem(npix, psf_kind, seed=npix)
+    clean, _, flags = _clean_matches_plain(device, dirty, psf, dtype, 0.1, 0.2, 50)
+    assert bool(flags[0]) and bool((clean != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npix", [64, 256], ids=["one-block", "cluster"])
+@_CLEAN_DTYPES
+def test_hogbom_kernel_ties_take_the_lowest_index(device, npix, dtype):
+    """Equal peaks in different rows (at 256², in different blocks of the
+    cluster): the lowest flat index first, as torch.argmax."""
+    psf = np.zeros((2 * npix, 2 * npix))
+    psf[npix - 1, npix - 1] = 1.0
+    dirty = np.zeros((npix, npix))
+    peaks = [(npix - 1, 3), (npix // 2, 7), (npix // 2, 6), (3, npix - 5)]
+    for p, q in peaks:
+        dirty[p, q] = 5.0
+    clean, _, _ = _clean_matches_plain(device, dirty, psf, dtype, 0.5, 0.0, 20)
+    taken = torch.nonzero(clean.reshape(-1)).flatten().tolist()
+    assert taken == sorted(p * npix + q for p, q in peaks)
+
+
+@pytest.mark.cuda
+@_CLEAN_DTYPES
+def test_hogbom_kernel_signed_peak_exit_and_niter_zero(device, dtype):
+    """A negative pixel deeper than the brightest is never taken; a high
+    threshold stops the loop after a few components (the flags then end
+    false); niter 0 takes one component."""
+    dirty, psf = _clean_problem(48, "gaussian", seed=3)
+    dirty[5, 9] = -4 * np.abs(dirty).max()
+    clean, _, _ = _clean_matches_plain(device, dirty, psf, dtype, 0.5, 0.2, 30)
+    assert float(clean[5, 9]) == 0.0
+    _, _, flags = _clean_matches_plain(device, dirty, psf, dtype, 0.5, 0.6, 30)
+    ntaken = int(flags.sum())
+    assert 0 < ntaken < 31 and bool(flags[:ntaken].all())
+    clean, _, flags = _clean_matches_plain(device, dirty, psf, dtype, 0.1, 0.2, 0)
+    assert flags.tolist() == [True] and int((clean != 0).sum()) == 1
+
+
+@pytest.mark.cuda
+def test_hogbom_clean_on_card_launches_the_kernel_once(device):
+    """hogbom_clean on CUDA tensors: one launch a call, the plain loop's
+    images."""
+    dirty, psf = _clean_problem(64, "gaussian", seed=1)
+    d = torch.as_tensor(dirty, dtype=torch.float32, device=device)
+    p = torch.as_tensor(psf, dtype=torch.float32, device=device)
+    for _ in range(3):
+        before = ch.hogbom.launches
+        got = hogbom_clean(d, p, gamma=0.1, threshold=0.2, niter=50)
+        assert ch.hogbom.launches == before + 1
+    want = hogbom_clean_reference(d, p, 0.1, 0.2, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -1489,7 +1599,7 @@ def test_selfcal_example_on_card(device):
 
     obs = ex.observation(nant=8, ntime=4)
     run, n = _example_launches(lambda: ex.selfcal(obs, device))
-    assert n == {"dft_forward": 1, "grid_wstack": 2}
+    assert n == {"dft_forward": 1, "grid_wstack": 2, "hogbom": 1}
     peak = np.unravel_index(int(torch.argmax(run.clean)), tuple(run.clean.shape))
     assert peak == (ex.NPIX // 2, ex.NPIX // 2)
     _rel_close(run.dirty, ex.selfcal(obs, "cpu").dirty, 1e-4)
@@ -1518,7 +1628,7 @@ def test_selfcal_ms_store_example_on_card(device, tmp_path):
         store = MSStore(path)
         stores[str(dev)] = (n, store.read("MODEL_DATA"), store.read("CORRECTED_DATA"),
                             run.dirty.cpu())
-    assert stores[str(device)][0] == {"predict_kb": 1, "grid_wstack": 2}
+    assert stores[str(device)][0] == {"predict_kb": 1, "grid_wstack": 2, "hogbom": 1}
     for i, bound in ((1, 2e-6), (2, 1e-5)):
         _rel_close(torch.as_tensor(stores[str(device)][i]),
                    torch.as_tensor(stores["cpu"][i]), bound)

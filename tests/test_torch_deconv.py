@@ -21,6 +21,8 @@ from africanus_tpu.deconv.hogbom import restore as jax_restore
 from africanus_tpu_torch.deconv.hogbom import (
     find_peak, fit_2d_gaussian, hogbom_clean, restore,
 )
+from africanus_tpu_torch.deconv.hogbom.clean import hogbom_clean_reference
+from africanus_tpu_torch.ops import cuda_hogbom
 
 
 def _psf(npix, width=1.5):
@@ -126,3 +128,55 @@ def test_restore_and_fit(rng):
         assert np.abs(g.numpy() - w).max() <= 1e-12 * np.abs(w).max()
     beam = fit_2d_gaussian(torch.from_numpy(psf))
     assert beam.shape == psf.shape and float(beam.max()) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_hogbom_cpu_tensors_take_the_plain_loop(rng, dtype):
+    """CPU tensors take hogbom_clean_reference, launch nothing, and give
+    its images; its running flags are true for exactly the components a
+    run to the threshold takes. The kernel's wrapper refuses CPU tensors
+    rather than falling back."""
+    dirty, psf = (torch.from_numpy(x.astype(dtype)) for x in _sky(rng, 16))
+    before = cuda_hogbom.hogbom.launches
+    gc, gr = hogbom_clean(dirty, psf, 0.3, 0.4, 40)
+    rc, rr, flags = hogbom_clean_reference(dirty, psf, 0.3, 0.4, 40)
+    assert cuda_hogbom.hogbom.launches == before
+    assert torch.equal(gc, rc) and torch.equal(gr, rr)
+    assert flags.dtype == torch.bool and tuple(flags.shape) == (41,)
+    ntaken = int(flags.sum())
+    assert 0 < ntaken < 41 and bool(flags[:ntaken].all())
+    assert int((gc != 0).sum()) <= ntaken
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_hogbom.hogbom(dirty, psf, 0.3, 0.4, 40)
+
+
+def _layout_smem(npix, itemsize, ctas, rows, in_smem):
+    slots = 2 * ctas * (cuda_hogbom.THREADS // 32) * (itemsize + 4)
+    return slots + (rows * npix * itemsize if in_smem else 0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["float32", "float64"])
+def test_hogbom_kernel_layout_rule(itemsize):
+    """The kernel's blocks, a function of npix and the dtype alone: one
+    block while the residual fits its shared memory (npix <= 240 in
+    float32, <= 170 in float64), then a cluster of about BAND_PIXELS a
+    block, at most 16, every block holding a row, the bands in shared
+    memory while they fit it; the count never falls as npix grows. The
+    shared-memory bytes it gives are what the launch needs."""
+    last = 1
+    for npix in range(1, 1400):
+        ctas, rows, in_smem, smem = cuda_hogbom.layout(npix, itemsize)
+        assert 1 <= ctas <= cuda_hogbom.MAX_CTAS and ctas >= last
+        assert rows * ctas >= npix > rows * (ctas - 1)
+        assert smem == _layout_smem(npix, itemsize, ctas, rows, in_smem)
+        assert smem <= cuda_hogbom.SMEM_BYTES
+        one = _layout_smem(npix, itemsize, 1, npix, True) <= cuda_hogbom.SMEM_BYTES
+        assert (ctas == 1) == one and (ctas == 1) == (npix <= {4: 240, 8: 170}[itemsize])
+        if ctas > 1:
+            assert ctas == min(16, -(-npix * npix // cuda_hogbom.BAND_PIXELS))
+        assert in_smem or ctas == cuda_hogbom.MAX_CTAS
+        last = ctas
+    assert cuda_hogbom.layout(64, 4)[:3] == (1, 64, True)   # skamid.selfcal_px64
+    assert cuda_hogbom.layout(256, 4)[:3] == (8, 32, True)  # skamid.selfcal_px256
+    assert cuda_hogbom.layout(256, 8)[:3] == (8, 32, True)
+    assert not cuda_hogbom.layout(1000, itemsize)[2]        # past the cluster

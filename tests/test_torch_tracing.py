@@ -171,7 +171,8 @@ def test_device_count_holds_no_flag_after_the_recording():
     count = hogbom_clean.taken
     before = count.read()
     _profiled(lambda: hogbom_clean(*args, **kw), calls=2)
-    assert len(count._flags) == 2 * 51  # held while the trace is read
+    # held while the trace is read: one tensor of 51 running flags a call
+    assert [tuple(f.shape) for f in count._flags] == [(51,)] * 2
     hogbom_clean(*args, **kw)  # the first call after: flags summed, let go
     assert count._flags == []
     assert all(n.dim() == 0 for n in count._sums.values())
@@ -179,6 +180,22 @@ def test_device_count_holds_no_flag_after_the_recording():
     assert (true - before[0], kept - before[1]) == (2 * want, 2 * 51)
     hogbom_clean(*args, **kw)
     assert count._flags == [] and count.read() == (true, kept)
+
+
+def test_device_count_counts_1d_flag_tensors_beside_0d_flags():
+    """Every element of a 1-D flags tensor counts as a flag, beside 0-d
+    flags kept in the same recording; an empty tensor counts none."""
+    count = profiling.DeviceCount()
+    kept = [torch.tensor(True), torch.tensor([True, False, True, True]),
+            torch.tensor(False), torch.zeros(0, dtype=torch.bool),
+            torch.tensor([False, True])]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for f in kept:
+            count.keep(f)
+    assert len(count._flags) == len(kept)
+    count.keep(torch.tensor([True, True]))  # the first keep after: folded
+    assert count._flags == []
+    assert count.read() == (5, 8)
 
 
 def test_selfcal_step_counts_its_planning_seconds():
