@@ -13,6 +13,20 @@ accumulation over source blocks. Both are eager torch ops, so nothing
 contracts or reassociates the compensated chains. RimeFactory instances
 are cached per specification (the reference's Multiton).
 
+The source block is the caller's, or, where none is given and one grid
+of every source would not fit, chosen here: the largest block whose
+bytes — the output's accumulators and the block sum, and the block's
+chain as the specification's terms declare it (``Term.AXES``, ``KIND``,
+``sample_bytes``), linear in the block — fit in the free memory of the
+state's device, made even over the blocks. Nothing is evaluated to
+probe the memory, and the block, so the sum's last bits, follows the
+memory free at the call.
+
+A call runs in ``utils.profiling`` spans: ``fused.call`` around
+``fused.state`` and, per block, ``fused.sample`` and ``fused.sum``; the
+class's ``calls``, ``blocks`` and ``state_seconds`` count while a
+profiler records.
+
 The index state (unique times, antennas and feeds, their inverses) is
 built on the host from numpy copies of ``time``, ``antenna*`` and
 ``feed*``; it and every array argument go to the device of the tensor
@@ -21,6 +35,8 @@ arguments, or to ``device`` (default ``"cuda"``) when all are numpy.
 
 from __future__ import annotations
 
+import os
+import time
 from functools import lru_cache
 
 import numpy as np
@@ -31,10 +47,25 @@ from africanus_tpu_torch.ops.dfloat import compensated_sum, two_sum
 from africanus_tpu_torch.rime.fused.specification import RimeSpecification
 from africanus_tpu_torch.rime.fused.terms import hermitian, term_mul
 from africanus_tpu_torch.rime.fused.transformers import TRANSFORMERS, _host
+from africanus_tpu_torch.utils.profiling import HostCount, span
 
 __all__ = ["rime", "RimeFactory", "consolidate_args"]
 
 REQUIRED_ARGS = ("time", "antenna1", "antenna2", "feed1", "feed2")
+_NCOMP = {"scalar": 1, "diag": 2, "full": 4}
+# a blocked evaluation's bytes beside its blocks' chains, in outputs: the
+# two accumulators while a block is sampled; they, the block's sums and
+# their stack while it is summed; and the block sum's peak (the
+# accumulators, the block's part and two_sum's temporaries)
+ACCUMULATORS = 2
+SUM_OUTPUTS = 4
+SUM_PEAK = 8
+# one grid's pairwise tree (``compensated_sum``) of a component, in complex
+# (row, chan) grids a source: its temporaries, at most 7 (at three
+# sources), and a conjugate's copy
+SUM_TREE = 8
+# the share of the free memory a chosen block may take
+MEMORY_SHARE = 0.85
 
 
 def consolidate_args(args, kwargs):
@@ -65,6 +96,18 @@ def _state_device(kwargs, device="cuda"):
     return plan_device(device)
 
 
+def free_bytes(device):
+    """Bytes free for new tensors on ``device``: on a card the CUDA runtime's
+    free memory and what the caching allocator holds unused; on the CPU
+    the available physical pages."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return free + (torch.cuda.memory_reserved(device)
+                       - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
 def _lookup(values, uniq):
     """The index of each of ``values`` in the sorted unique ``uniq``."""
     lookup = np.full(int(uniq.max()) + 1, -1, np.int64)
@@ -76,6 +119,10 @@ class RimeFactory:
     """Builds and caches the fused evaluation for one specification."""
 
     DEFAULT_SPEC = "(Kpq, Bpq): [I,Q,U,V] -> [XX,XY,YX,YY]"
+    # summed while a profiler records, over every specification
+    calls = HostCount()
+    blocks = HostCount()
+    state_seconds = HostCount()
 
     def __init__(self, rime_spec=None):
         if rime_spec is None:
@@ -86,6 +133,13 @@ class RimeFactory:
 
     def _build_state(self, kwargs, device="cuda"):
         """Pack arguments + index arrays + transformer outputs."""
+        with span("fused.state"):
+            t0 = time.perf_counter()
+            state = self._state(kwargs, device)
+            self.state_seconds.add(time.perf_counter() - t0)
+        return state
+
+    def _state(self, kwargs, device):
         missing = [a for a in REQUIRED_ARGS[:3] if a not in kwargs]
         if missing:
             raise ValueError(f"Missing required argument(s) {missing}")
@@ -197,14 +251,93 @@ class RimeFactory:
                     declared.add(a)
         return declared, nsrc
 
+    def _lines(self, state, one_grid=False):
+        """Lines (bytes, bytes a source) whose largest at a block's source
+        count bounds the bytes an evaluation of ``state`` takes beyond the
+        state, in blocks or (``one_grid``) in one grid of every source:
+        while the chain is sampled and folded (what the terms' sampling
+        shares, and a source's largest step: each term sampled beside the
+        chain so far and the previous term's value, each product beside
+        both factors, a full × full product holding two more grids), while
+        it is summed (the chain beside its masked product, or beside the
+        pairwise tree's ``SUM_TREE`` grids), and in blocks the block sum's
+        peak. Each byte count is linear in the sources: nothing is
+        evaluated."""
+        nrow = state["time_inverse"].shape[0]
+        nchan = state["chan_freq"].shape[0]
+        real = state["chan_freq"].dtype
+        if "uvw" in state:
+            real = torch.promote_types(real, state["uvw"].dtype)
+        itemsize = 2 * torch.finfo(real).bits // 8
+        ncorr = len(self.rime_spec.corrs)
+        out = nrow * nchan * ncorr * itemsize
+
+        def grid(axes):
+            return itemsize * (nrow if "r" in axes else 1) * (
+                nchan if "f" in axes else 1) if "s" in axes else 0
+
+        shared = fold = chain = prev = n = 0
+        axes = ""
+        for term in self.rime_spec.terms:
+            common, sampling = term.sample_bytes(state, nrow, nchan, itemsize)
+            shared += common
+            tn = _NCOMP.get(term.KIND, ncorr)
+            val = tn * grid(term.AXES)
+            fold = max(fold, chain + prev + val + sampling)
+            if n:
+                axes = "".join(sorted(set(axes) | set(term.AXES)))
+                temps = 2 if n == tn == 4 else 0
+                fold = max(fold, chain + val + (max(n, tn) + temps) * grid(axes))
+                chain, n, prev = max(n, tn) * grid(axes), max(n, tn), val
+            else:
+                chain, n, axes = val, tn, term.AXES
+        if one_grid:
+            return [(shared, fold), (2 * out, chain + SUM_TREE * grid("srf"))]
+        return [(ACCUMULATORS * out + shared, fold),
+                (SUM_OUTPUTS * out, chain + grid("srf")), (SUM_PEAK * out, 0)]
+
+    def evaluation_bytes(self, state, block=None):
+        """Bytes an evaluation of ``state`` takes at most beyond the state,
+        in blocks of ``block`` sources or in one grid (None): the largest
+        of :meth:`_lines` at that many sources."""
+        if block is None:
+            block = self._source_keys(state)[1] or 1
+            return max(f + block * p for f, p in self._lines(state, True))
+        return max(f + block * p for f, p in self._lines(state))
+
+    def source_block(self, state, memory_budget):
+        """The source block for ``state`` within ``memory_budget`` bytes:
+        the largest at which every one of :meth:`_lines` fits, made even
+        over the blocks it needs, at least 1; None where no argument is
+        indexed by source."""
+        _, nsrc = self._source_keys(state)
+        if nsrc is None:
+            return None
+        fit = min([nsrc] + [int((memory_budget - f) // p)
+                            for f, p in self._lines(state) if p])
+        fit = max(fit, 1)
+        return -(-nsrc // -(-nsrc // fit))
+
+    def _block(self, state):
+        """The block to evaluate ``state`` in where the caller gives none:
+        None (one grid) where every source's grid fits ``MEMORY_SHARE`` of
+        the device's free memory, else :meth:`source_block` within it."""
+        if self._source_keys(state)[1] is None:
+            return None
+        budget = MEMORY_SHARE * free_bytes(state["time_inverse"].device)
+        if self.evaluation_bytes(state) <= budget:
+            return None
+        return self.source_block(state, budget)
+
     def __call__(self, source_block=None, device="cuda", **kwargs):
         """Evaluate the RIME: a (row, chan, corr) complex tensor.
 
         ``source_block`` bounds the source dimension materialised at once
         (see :meth:`evaluate`); ``device`` takes numpy arguments (see
         :meth:`build_state`)."""
-        state = self._build_state(kwargs, device)
-        return self.evaluate(state, source_block=source_block)
+        with span("fused.call"):
+            state = self._build_state(kwargs, device)
+            return self.evaluate(state, source_block=source_block)
 
     def build_state(self, device="cuda", **kwargs):
         """Public host-side state construction (index arrays, inverse
@@ -224,22 +357,29 @@ class RimeFactory:
         its fused kernel (fused/core.py:97-118). None evaluates all
         sources in one grid, summed by a two-float pairwise tree
         (``compensated_sum``), so that blocked and one-grid evaluation
-        agree to ulps.
+        agree to ulps — unless that grid would not fit the device's free
+        memory: then in the block :meth:`source_block` chooses.
         """
         for term in self.rime_spec.terms:
             term.validate(state)
 
         nrow = state["time_inverse"].shape[0]
         nchan = state["chan_freq"].shape[0]
+        if source_block is None:
+            source_block = self._block(state)
+        self.calls.add(1)
 
         if source_block is None:
-            chain = self._sample_chain(state)
-            outs = []
-            for comp in chain.comps:
-                full = comp.resolve_conj().expand(comp.shape[0], nrow, nchan)
-                outs.append(torch.view_as_complex(
-                    compensated_sum(torch.view_as_real(full), axis=0)))
-            return torch.stack(outs, dim=-1)
+            with span("fused.sample"):
+                chain = self._sample_chain(state)
+            self.blocks.add(1)
+            with span("fused.sum"):
+                outs = []
+                for comp in chain.comps:
+                    full = comp.resolve_conj().expand(comp.shape[0], nrow, nchan)
+                    outs.append(torch.view_as_complex(
+                        compensated_sum(torch.view_as_real(full), axis=0)))
+                return torch.stack(outs, dim=-1)
 
         src_keys, nsrc = self._source_keys(state)
         if nsrc is None:
@@ -267,18 +407,23 @@ class RimeFactory:
             rows = slice(b * block, (b + 1) * block)
             bstate = dict(state)
             bstate.update({k: v[rows] for k, v in padded.items()})
-            chain = self._sample_chain(bstate)
-            real = chain.comps[0].real.dtype
-            mask = valid[rows].to(real)[:, None, None]
-            part = torch.view_as_real(torch.stack([
-                (c.expand(block, nrow, nchan) * mask).sum(dim=0)
-                for c in chain.comps], dim=-1))
-            del chain
-            if acc is None:
-                acc, comp_err = part, torch.zeros_like(part)
-            else:
-                acc, err = two_sum(acc, part)
-                comp_err = comp_err + err
+            with span("fused.sample"):
+                chain = self._sample_chain(bstate)
+            self.blocks.add(1)
+            with span("fused.sum"):
+                real = chain.comps[0].real.dtype
+                mask = valid[rows].to(real)[:, None, None]
+                part = torch.view_as_real(torch.stack([
+                    (c.expand(block, nrow, nchan) * mask).sum(dim=0)
+                    for c in chain.comps], dim=-1))
+                del chain
+                if acc is None:
+                    acc, comp_err = part, torch.zeros_like(part)
+                else:
+                    acc, err = two_sum(acc, part)
+                    comp_err = comp_err + err
+                    del err
+                del part
         return torch.view_as_complex(acc + comp_err)
 
 

@@ -116,11 +116,22 @@ class Term:
     evaluating in source blocks (``rime(..., source_block=N)``). Leave it
     ``None`` (the default) to let the core infer them by matching each
     argument's leading dimension against the source count.
+
+    ``AXES``, ``KIND`` and :meth:`sample_bytes` give the memory a block
+    of sources takes, from which the core chooses a source block: the
+    axes of (source, row, chan) that the sampled components carry, their
+    kind ("scalar", "diag", "full"; None: as many components as the
+    specification's correlations), and the bytes its sampling holds
+    beyond them, shared by a block's sources and a source. The defaults are a custom term's safe guess: full
+    grids and two more complex grids a source while sampling.
     """
 
     ARGS: tuple = ()
     KWARGS: dict = {}
     SOURCE_ARGS: tuple | None = None
+    AXES: str = "srf"
+    KIND: str | None = None
+    SAMPLE_GRIDS: float = 2.0
 
     def __init__(self, configuration: str = "middle"):
         self.configuration = configuration
@@ -135,6 +146,13 @@ class Term:
     def sample(self, state) -> TermValue:
         raise NotImplementedError
 
+    def sample_bytes(self, state, nrow, nchan, itemsize):
+        """Bytes :meth:`sample` holds at most beyond its output: (shared
+        by a block's sources, a source); here none shared and
+        ``SAMPLE_GRIDS`` complex (row, chan) grids of ``itemsize`` a
+        source."""
+        return 0, int(self.SAMPLE_GRIDS * nrow * nchan * itemsize)
+
 
 class Phase(Term):
     """Phase Delay Term (terms/phase.py:9): e^{C·(ul+vm+(n−1)w)·ν}, the
@@ -143,6 +161,8 @@ class Phase(Term):
     ARGS = ("lm", "uvw", "chan_freq")
     SOURCE_ARGS = ("lm",)
     KWARGS = {"convention": "fourier"}
+    KIND = "scalar"
+    SAMPLE_GRIDS = 1.5  # the two-float reduction, cos and sin
 
     def sample(self, state) -> TermValue:
         k = phase_delay(state["lm"], state["uvw"], state["chan_freq"],
@@ -169,6 +189,8 @@ class Brightness(Term):
     ARGS = ("stokes", "chan_freq")
     SOURCE_ARGS = ("stokes", "spi", "ref_freq")
     KWARGS = {"spi": None, "ref_freq": None, "spi_base": "standard"}
+    AXES = "sf"
+    SAMPLE_GRIDS = 0.0
 
     def __init__(self, configuration, stokes, corrs):
         super().__init__(configuration)
@@ -221,6 +243,8 @@ class Gaussian(Term):
 
     ARGS = ("uvw", "chan_freq", "gauss_shape")
     SOURCE_ARGS = ("gauss_shape",)
+    KIND = "scalar"
+    SAMPLE_GRIDS = 1.5  # the envelope's exponent and its real value
 
     def sample(self, state) -> TermValue:
         env = gaussian(state["uvw"], state["chan_freq"], state["gauss_shape"])
@@ -235,6 +259,9 @@ class FeedRotation(Term):
 
     ARGS = ("feed_parangle",)
     SOURCE_ARGS = ()
+    AXES = "r"
+    KIND = "full"
+    SAMPLE_GRIDS = 0.0
 
     def __init__(self, configuration, feed_type, corrs):
         if configuration not in {"left", "right"}:
@@ -309,6 +336,18 @@ class BeamCubeDDE(Term):
             )
         super().__init__(configuration)
         self.corrs = corrs
+
+    def sample_bytes(self, state, nrow, nchan, itemsize):
+        """Shared: the kernels' copy of the cube ((lw, mh, nud) × 3·corr
+        reals); a source: the sampled (time, ant, chan, corr) beam and
+        the kernels' raw (time·ant, nud, 3·corr) sums, before the gather
+        to rows."""
+        beam = state["beam"]
+        ncorr = int(np.prod(beam.shape[3:]))
+        nta = state["utime"].shape[0] * state["uantenna"].shape[0]
+        slabs = 3 * beam.shape[0] * beam.shape[1] * beam.shape[2] * ncorr // 2
+        return (slabs * itemsize,
+                nta * ncorr * (2 * nchan + 3 * beam.shape[2]) * itemsize // 2)
 
     def sample(self, state) -> TermValue:
         beam = state["beam"]

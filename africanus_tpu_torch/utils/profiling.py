@@ -20,7 +20,8 @@ dask ``EstimatingProgressBar``).
 - :func:`span` names a stage of the program in a ``torch.profiler``
   trace, on the trace's own clock; while no profiler records it is a
   shared no-op. :class:`DeviceCount` counts device flags without a
-  kernel or a sync while a profiler records.
+  kernel or a sync while a profiler records; :class:`HostCount` sums a
+  host number while a profiler records.
 
 What a trace of the two entries holds (:func:`trace`, or any
 ``torch.profiler.profile``). Spans, each ``*.call`` the request and the
@@ -36,7 +37,13 @@ stage:
   (``gauss_newton``), ``selfcal.residual`` (``corrupt_vis`` and the
   subtraction), ``selfcal.image`` (``vis_to_im``, the sums and the
   division), ``selfcal.clean`` (``hogbom_clean``) and
-  ``selfcal.predict`` (``im_to_vis``).
+  ``selfcal.predict`` (``im_to_vis``);
+- the fused RIME (``rime.fused.rime``, ``RimeFactory.__call__``):
+  ``fused.call`` around ``fused.state`` (the host state build:
+  ``np.unique``, lookups, the arguments put on the device,
+  transformers), then for each source block ``fused.sample`` (the terms'
+  sampling and the chain's fold) and ``fused.sum`` (the block's sum into
+  the output).
 
 Counters, attributes of what does the work, as each kernel wrapper's
 ``.launches``:
@@ -46,7 +53,12 @@ Counters, attributes of what does the work, as each kernel wrapper's
   a call), and of those that took a component:
   ``hogbom_clean.taken.read()``;
 - ``SelfcalStep.plan_seconds``: host seconds spent planning in the set-up
-  of every ``SelfcalStep`` made (the gather table and the two DFT plans).
+  of every ``SelfcalStep`` made (the gather table and the two DFT plans);
+- ``RimeFactory.calls``, ``RimeFactory.blocks`` and
+  ``RimeFactory.state_seconds``: :class:`HostCount` counts of the fused
+  RIME's evaluations, the source blocks they evaluated (one for a
+  one-grid evaluation) and the host seconds of their state builds,
+  summed over every specification while a profiler records.
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ import numpy as np
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "span", "DeviceCount", "measure", "Roofline",
+__all__ = ["trace", "span", "DeviceCount", "HostCount", "measure", "Roofline",
            "roofline", "HBM_RATE", "FP32_RATE", "FP32_PEAK_FLOPS",
            "TF32_PEAK_FLOPS"]
 
@@ -135,6 +147,19 @@ class DeviceCount:
         """(flags that were true, flags kept) since the count was made."""
         self._fold()
         return sum(int(n) for n in self._sums.values()), self.kept
+
+
+class HostCount:
+    """A host number summed while a profiler records: otherwise
+    :meth:`add` is a flag read. ``value`` is the sum since the count was
+    made."""
+
+    def __init__(self):
+        self.value = 0
+
+    def add(self, x):
+        if _autograd_profiler._is_profiler_enabled:
+            self.value += x
 
 
 def _cuda_device(args):

@@ -136,11 +136,18 @@ twenty-nine phases that each print one line (some several):
    its resident inputs (≤ 4× their bytes), two runs bitwise equal, the
    preserved weighted totals, and a 256-baseline subset against the CPU;
 20. the fused RIME at the flagship's chunk (8064 rows × 4096 channels × 4
-   correlations, 100 gaussian sources): (Kpq, Gpq, Bpq) in source blocks
-   sized from a memory probe (peak under 40 GB) against the float64 oracle
-   on windows; [Ep, (Kpq, Gpq, Bpq), Eq] on config 3's cube with its
-   beam_interp and beam_blend launches counted (two of each per block), a
-   window against the CPU, and two block sizes against each other;
+   correlations, 100 gaussian sources), each call with no source block,
+   so in the block the library chooses from the free memory (its bytes
+   estimate at most the free memory's share, the next larger even block
+   beyond it, the measured peak within the estimate): (Kpq, Gpq, Bpq)
+   against the float64 oracle on windows; [Ep, (Kpq, Gpq, Bpq), Eq] on
+   config 3's cube with its beam_interp and beam_blend launches counted
+   (two of each per block), a window against the CPU, and two block sizes
+   against each other; and the benchmark cell meerkat64pb.beam100's
+   chunk, [Ep, Lp, Kpq, Gpq, Bpq, Lq, Eq] on its 257² × 33 analytic 2×2
+   cube, launches counted, kept rows against the cell's float64 reference
+   at the cell's limit, and beam_interp and beam_blend against their
+   plain versions on a source block's operands of that chunk;
 21. slice times: CUDA-event and host-clock medians of both averagers at
    both cells (Mvis/s), the mapper's and the tables' cold seconds, the
    fused RIME per chunk (Mvis/s), peak device memory and a
@@ -2438,12 +2445,16 @@ AVG_META = ("time", "interval", "antenna1", "antenna2", "uvw", "chan_freq",
 FUSED = dict(nsrc=NSRC, ntime=NTIME, nant=NANT, nchan=NCHAN)
 KGB_SPEC = "(Kpq, Gpq, Bpq): [I,Q,U,V] -> [XX,XY,YX,YY]"
 E_SPEC = "[Ep, (Kpq, Gpq, Bpq), Eq]: [I,Q,U,V] -> [XX,XY,YX,YY]"
-FUSED_SOURCE_ARGS = ("lm", "stokes", "spi", "ref_freq", "gauss_shape")
 FUSED_BOUND = 5e-6  # the flagship's bar against float64 (PERF.md §2)
 FUSED_E_BOUND = 1e-5  # the E chain on the card against the CPU
 FUSED_BLOCKS_BOUND = 1e-6  # two block sizes
-FUSED_MEMORY = 40 * 2**30  # the phase's peak device memory
 FUSED_WINDOW = (256, 16)  # rows × channels held against a reference
+# a chosen block's measured peak over the library's estimate: the
+# allocator's rounding and a block's small index tensors
+FUSED_ESTIMATE_SLACK = 1.02
+# the benchmark cell of the direction-dependent predict, one chunk of it
+DDE_CELL = "meerkat64pb.beam100"
+DDE_SPEC = "[Ep, Lp, Kpq, Gpq, Bpq, Lq, Eq]: [I,Q,U,V] -> [XX,XY,YX,YY]"
 
 
 def _avg_calls(o, data):
@@ -2645,51 +2656,71 @@ def _peak_of(fn):
     return out, torch.cuda.max_memory_allocated() - base
 
 
-def _source_block(spec, tensors, nsrc):
-    """The largest source block whose evaluation keeps the device within
-    60% of FUSED_MEMORY: a block costs ``fixed + per · block`` bytes above
-    the resident state, read from evaluations of blocks of two and four
-    sources (one source's evaluation makes some temporaries of another
-    shape). The linear estimate runs low at large blocks, hence the
-    margin; the phase checks the measured peak."""
+def _chosen_block(spec, device, args, what):
+    """``rime(spec, **args)`` with no source block, the library choosing
+    it: checks the block against the library's estimate and the free
+    memory, and the measured peak against the estimate. Returns (the
+    visibilities, the state, a dict of the block, the blocks, the
+    estimate, the budget, the peak and the first call's seconds)."""
     import torch
-    from africanus_tpu_torch.rime.fused import rime
+    from africanus_tpu_torch.rime.fused import RimeFactory, core
 
-    def first(n):
-        return {k: (v[:n] if k in FUSED_SOURCE_ARGS else v) for k, v in tensors.items()}
+    factory = RimeFactory(spec)
+    state = factory.build_state(device=device, **args)
+    torch.cuda.synchronize()
+    nsrc = state["lm"].shape[0]
+    budget = core.MEMORY_SHARE * core.free_bytes(device)
+    block = factory._block(state)
+    check(block is not None and block < nsrc,
+          f"{what}: {block} of {nsrc} sources a block, not a block chosen")
+    nblocks = -(-nsrc // block)
+    est = factory.evaluation_bytes(state, block)
+    check(est <= budget, f"{what}: block {block} estimated at {est / 2**30:.2f} "
+          f"GiB, over the budget of {budget / 2**30:.2f} GiB")
+    if nblocks > 1:  # one block fewer would not fit
+        larger = -(-nsrc // (nblocks - 1))
+        check(factory.evaluation_bytes(state, larger) > budget,
+              f"{what}: block {larger} would fit beside {block}")
+    t0 = time.perf_counter()
+    vis, peak = _peak_of(lambda: factory.evaluate(state))
+    first_s = time.perf_counter() - t0
+    check(peak <= FUSED_ESTIMATE_SLACK * est,
+          f"{what}: peak {peak / 2**30:.2f} GiB over the estimate {est / 2**30:.2f} GiB")
+    return vis, state, dict(block=block, nblocks=nblocks, est=est, budget=budget,
+                            peak=peak, first_s=first_s)
 
-    _, p2 = _peak_of(lambda: rime(spec, **first(2), source_block=2))
-    _, p4 = _peak_of(lambda: rime(spec, **first(4), source_block=4))
-    per = max((p4 - p2) / 2, 1)
-    room = 0.6 * FUSED_MEMORY - torch.cuda.memory_allocated() - (p2 - 2 * per)
-    return int(min(max(room // per, 1), nsrc)), per
+
+def _fused_line(name, run):
+    return (f"{name}: source block {run['block']} ({run['nblocks']} blocks), "
+            f"estimate {run['est'] / 2**30:.2f} GiB of a budget of "
+            f"{run['budget'] / 2**30:.2f} GiB, peak {run['peak'] / 2**30:.2f} GiB "
+            f"({run['peak'] / run['est']:.3f} of the estimate), first call "
+            f"{run['first_s']:.2f} s")
 
 
 def fused(device, card):
-    """Phase 20: the fused RIME at the flagship's chunk, KGB against the
-    float64 oracle, the E chain against the CPU, its beam launches
-    counted. Returns phase 21's state."""
+    """Phase 20: the fused RIME at the flagship's chunk in the blocks the
+    library chooses, KGB against the float64 oracle, the E chain against
+    the CPU, and the benchmark cell's direction-dependent chunk against
+    its reference, the beam kernels' launches counted and held to their
+    plain versions there. Returns phase 21's state."""
     import torch
+    from africanus_tpu_torch.ops import cuda_beam as cb
+    from africanus_tpu_torch.rime.fast_beam_cubes import beam_cube_dde
     from africanus_tpu_torch.rime.fused import rime
     from africanus_tpu_torch.rime.fused.inputs import (
         from_numpy, fused_inputs, fused_oracle_f64,
     )
+    from perfbench import run as bench
 
     nant = FUSED["nant"]
     nrow, nchan = FUSED["ntime"] * nant * (nant - 1) // 2, FUSED["nchan"]
     wr, wc = FUSED_WINDOW
     runs = {}
-    # KGB: the source block from the memory probe, windows vs float64
+    # KGB: windows vs float64
     args = fused_inputs(**FUSED, seed=SEED)
     t = from_numpy(args, device)
-    block, per = _source_block(KGB_SPEC, t, FUSED["nsrc"])
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    vis = rime(KGB_SPEC, **t, source_block=block)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    check(peak < FUSED_MEMORY, f"KGB peak {peak / 2**30:.2f} GiB")
+    vis, _, runs["KGB"] = _chosen_block(KGB_SPEC, device, t, "KGB")
     check(tuple(vis.shape) == (nrow, nchan, 4) and vis.dtype == torch.complex64,
           f"KGB {tuple(vis.shape)} {vis.dtype}")
     check(bool(torch.isfinite(torch.view_as_real(vis)).all()), "KGB non-finite")
@@ -2699,27 +2730,19 @@ def fused(device, card):
         kgb_err = max(kgb_err, rel_err(vis[r0:r0 + wr, c0:c0 + wc].cpu().numpy(), want))
     check(kgb_err <= FUSED_BOUND, f"KGB vs float64 oracle {kgb_err:.3e}")
     del vis
-    runs["KGB"] = dict(block=block, per=per, peak=peak, first_s=first_s,
-                       fn=lambda: rime(KGB_SPEC, **t, source_block=block))
+    runs["KGB"]["fn"] = lambda: rime(KGB_SPEC, **t)
 
     # the E chain on config 3's cube: launches, a window vs the CPU, two
     # block sizes
     eargs = fused_inputs(**FUSED, seed=SEED, beam_seed=BEAM["seed"])
     te = from_numpy(eargs, device)
-    eblock, eper = _source_block(E_SPEC, te, FUSED["nsrc"])
-    nblocks = -(-FUSED["nsrc"] // eblock)
-    torch.cuda.reset_peak_memory_stats()
     _zero_beam_counts()
-    t0 = time.perf_counter()
-    evis = rime(E_SPEC, **te, source_block=eblock)
-    torch.cuda.synchronize()
-    efirst_s = time.perf_counter() - t0
+    evis, _, erun = _chosen_block(E_SPEC, device, te, "E chain")
     counts = _beam_counts()
-    epeak = torch.cuda.max_memory_allocated()
+    eblock, nblocks = erun["block"], erun["nblocks"]
     check(counts == {"beam_interp": 2 * nblocks, "beam_blend": 2 * nblocks,
                      "beam_blend_cell": 0}, f"E chain launches {counts}, "
           f"{nblocks} blocks")
-    check(epeak < FUSED_MEMORY, f"E chain peak {epeak / 2**30:.2f} GiB")
     check(bool(torch.isfinite(torch.view_as_real(evis)).all()), "E chain non-finite")
     # the window: the first wr rows (time 0, every antenna) and wc
     # channels mid-band, evaluated on the CPU from the same draws
@@ -2740,19 +2763,65 @@ def fused(device, card):
     check(blocks_err <= FUSED_BLOCKS_BOUND,
           f"E chain blocks {eblock} vs {eblock2}: {blocks_err:.3e}")
     del evis, evis2
-    runs["E"] = dict(block=eblock, per=eper, peak=epeak, first_s=efirst_s,
-                     fn=lambda: rime(E_SPEC, **te, source_block=eblock))
-    print(f"[20/{PHASES}] fused RIME: {nrow} rows x {nchan} chan x 4 corr, "
-          f"{FUSED['nsrc']} gaussian sources; {KGB_SPEC!r}: source block {block} "
-          f"({per / 2**30:.2f} GiB a source), first call {first_s:.2f} s, peak device "
-          f"memory {peak / 2**30:.2f} GiB, 3 windows of {wr} rows x {wc} chan vs "
-          f"float64 oracle {kgb_err:.2e} (bound {FUSED_BOUND}); {E_SPEC!r} "
-          f"(129² x 8 x 4 cube): source block {eblock} ({eper / 2**30:.2f} GiB a "
-          f"source), {nblocks} blocks, first call {efirst_s:.2f} s, launches "
-          f"{counts}, peak device memory {epeak / 2**30:.2f} GiB, window vs CPU "
-          f"{e_err:.2e} (bound {FUSED_E_BOUND}), blocks {eblock} vs {eblock2} "
-          f"{blocks_err:.2e} (bound {FUSED_BLOCKS_BOUND})", flush=True)
-    return {"runs": runs, "launches": counts, "nvis": nrow * nchan * 4}
+    runs["E"] = dict(erun, fn=lambda: rime(E_SPEC, **te))
+
+    # the benchmark cell's chunk: the cell's own draws (its entry's set-up
+    # with one chunk in the pool), no block given
+    cell, cfg = bench.cell_spec(DDE_CELL, {"traffic": {"pool_chunks": 1}})
+    entry = bench.load_module("entries", cell["entry"]).setup(
+        cfg, cell["traffic"], SEED, device)
+    dargs = entry.arguments(0)
+    before = _beam_counts()
+    dvis, dstate, drun = _chosen_block(DDE_SPEC, device, dargs, "DDE chunk")
+    dcounts = {k: v - before[k] for k, v in _beam_counts().items()}
+    dblock, dblocks = drun["block"], drun["nblocks"]
+    check(dcounts == {"beam_interp": 2 * dblocks, "beam_blend": 2 * dblocks,
+                      "beam_blend_cell": 0}, f"DDE chunk launches {dcounts}, "
+          f"{dblocks} blocks")
+    for k, v in dcounts.items():
+        counts[k] += v
+    dnvis = dvis.numel()
+    vis_err = entry.readings([entry.keep(0, dvis)])["vis_err"]
+    limit = cell["limits"]["vis_err"]
+    check(vis_err <= limit, f"DDE chunk vs the float64 reference {vis_err:.3e}")
+    del dvis
+    # the beam kernels on the first source block's operands of the chunk
+    ops = {}
+    beam_cube_dde(dstate["beam"], dstate["beam_lm_extents"], dstate["beam_freq_map"],
+                  dstate["lm"][:dblock], dstate["beam_parangle"],
+                  dstate["beam_point_errors"], dstate["beam_antenna_scaling"],
+                  dstate["chan_freq"], operands=ops)
+    check(set(ops) == {"beam_interp", "beam_blend"}, f"DDE chunk route {sorted(ops)}")
+    kernel_err = {}
+    for name, plain in (("beam_interp", cb.beam_interp_reference),
+                        ("beam_blend", cb.beam_blend_reference)):
+        got = getattr(cb, name)(*ops[name])
+        want = plain(*ops[name])
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} at the DDE chunk: {tuple(got.shape)} {got.dtype}")
+        kernel_err[name] = float((got - want).abs().max() / want.abs().max())
+        check(kernel_err[name] <= BEAM_BOUND,
+              f"{name} vs plain at the DDE chunk: {kernel_err[name]:.3e}")
+        del got, want
+    nsamp = ops["beam_interp"][1].shape[0]
+    del ops, dstate
+    runs["DDE"] = dict(drun, fn=lambda: rime(DDE_SPEC, **dargs))
+    print(f"[20/{PHASES}] fused RIME, no block given: {nrow} rows x {nchan} chan x "
+          f"4 corr, {FUSED['nsrc']} gaussian sources; {KGB_SPEC!r}: "
+          + _fused_line("KGB", runs["KGB"]) + f", 3 windows of {wr} rows x {wc} chan "
+          f"vs float64 oracle {kgb_err:.2e} (bound {FUSED_BOUND}); {E_SPEC!r} (129² x "
+          f"8 x 4 cube): " + _fused_line("E", runs["E"]) + f", launches {counts}, "
+          f"window vs CPU {e_err:.2e} (bound {FUSED_E_BOUND}), blocks {eblock} vs "
+          f"{eblock2} {blocks_err:.2e} (bound {FUSED_BLOCKS_BOUND}); {DDE_SPEC!r} at "
+          f"{DDE_CELL}'s chunk ({tuple(entry.beam['beam'].shape)} cube): "
+          + _fused_line("DDE", runs["DDE"]) + f", launches {dcounts}, "
+          f"{cell['traffic']['kept_rows']} kept rows vs the cell's float64 "
+          f"reference {vis_err:.2e} (the cell's limit {limit}); beam_interp and "
+          f"beam_blend on a block's {nsamp} samples vs plain "
+          + ", ".join(f"{k} {v:.2e}" for k, v in kernel_err.items())
+          + f" (bound {BEAM_BOUND})", flush=True)
+    return {"runs": runs, "launches": counts,
+            "nvis": {"KGB": nrow * nchan * 4, "E": nrow * nchan * 4, "DDE": dnvis}}
 
 
 def slice_times(card, avg, fz):
@@ -2769,7 +2838,7 @@ def slice_times(card, avg, fz):
                          f"{_mvis(nvis, ms):.1f} Mvis/s")
     for name, run in fz["runs"].items():
         ms, _ = cuda_median_ms(run["fn"], reps=3, warmup=1)
-        lines.append(f"fused {name} per chunk {ms:.1f} ms = {_mvis(fz['nvis'], ms):.1f} "
+        lines.append(f"fused {name} per chunk {ms:.1f} ms = {_mvis(fz['nvis'][name], ms):.1f} "
                      f"Mvis/s (block {run['block']})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

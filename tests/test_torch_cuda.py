@@ -29,7 +29,9 @@ against the CPU 1e-5·max in float32, 1e-12 in float64. The averagers'
 segmented sums and bda on the card against the CPU 1e-6·max in float32
 and 1e-12 in float64 (each bin summed in another order), two runs
 bitwise equal; the fused RIME's E term on the card 1e-5·max against the
-CPU, its beam_interp and beam_blend launches counted. The Perley-
+CPU, its beam_interp and beam_blend launches counted; the direction-
+dependent predict at the benchmark cell's chunk in the block the core
+chooses, within its memory estimate, 1e-6·max against a block of 3. The Perley-
 polyhedron gridder's conv_nn_scatter route (an accumulating index_put_)
 1e-5·max in complex64 and 1e-12 in complex128 against the CPU, two card
 runs bitwise equal. The sky-model tail: wsclean_predict in float32
@@ -95,7 +97,9 @@ from africanus_tpu_torch.rime.fused import rime  # noqa: E402
 from africanus_tpu_torch.rime.fused.inputs import (  # noqa: E402
     from_numpy as fused_from_numpy, fused_inputs,
 )
+from africanus_tpu_torch.rime.fused.core import RimeFactory  # noqa: E402
 from africanus_tpu_torch.testing.averaging import meerkat_inputs  # noqa: E402
+from africanus_tpu_torch.testing.dde_reference import analytic_beam  # noqa: E402
 
 
 @pytest.fixture
@@ -1343,6 +1347,70 @@ def test_fused_e_term_launches_and_matches_cpu(device):
             cb.beam_blend.launches - before[1]) == (4, 4)
     want = rime(spec, **fused_from_numpy(args, "cpu"), source_block=4)
     _rel_close(got, want, 1e-5)
+
+
+DDE_SPEC = "[Ep, Lp, Kpq, Gpq, Bpq, Lq, Eq]: [I,Q,U,V] -> [XX,XY,YX,YY]"
+
+
+def _dde_chunk(device, nsrc=100, ntime=4, nant=64, nchan=4096, seed=22):
+    """The direction-dependent cell's chunk (8,064 rows x 4,096 channels
+    at 64 dishes), drawn on ``device``: 100 gaussians within +-0.02 rad,
+    the analytic 257^2 x 33 2x2 beam, pointing errors and beam scalings
+    the same in every channel; the host columns numpy."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    f32 = torch.float32
+    a1, a2 = np.triu_indices(nant, 1)
+    nrow = ntime * a1.size
+    freq = torch.linspace(856e6, 1712e6, nchan, dtype=torch.float64, device=device)
+    fmap = torch.linspace(856e6, 1712e6, 33, dtype=torch.float64, device=device)
+    beam = analytic_beam(257, 0.05, fmap, np.radians(57.5 / 60), 1.5e9, 0.02, 0.02,
+                         device=device)
+    pa = (draw(ntime, 1) * 2 - 1).expand(ntime, nant).contiguous() * np.pi
+    sc = torch.stack([torch.sin(pa), torch.cos(pa)], -1)
+    return dict(
+        time=np.repeat(8.0 * np.arange(ntime), a1.size),
+        antenna1=np.tile(a1, ntime), antenna2=np.tile(a2, ntime),
+        uvw=(draw(nrow, 3) * 2 - 1) * 4000, chan_freq=freq.to(f32),
+        lm=(draw(nsrc, 2) * 2 - 1) * 0.02, stokes=draw(nsrc, 4) * 0.1,
+        spi=(draw(nsrc, 1, 1) - 0.7).expand(nsrc, 1, 4).contiguous(),
+        ref_freq=torch.full((nsrc,), 1.284e9, device=device),
+        gauss_shape=draw(nsrc, 3) * torch.tensor([3e-4, 1e-4, 3.14], device=device),
+        beam=beam.to(torch.complex64),
+        beam_lm_extents=torch.tensor([[-0.05, 0.05], [-0.05, 0.05]], device=device),
+        beam_freq_map=fmap.to(f32), beam_parangle=pa,
+        beam_point_errors=((draw(ntime, nant, 1, 2) - 0.5) * 2e-4).expand(
+            ntime, nant, nchan, 2),
+        beam_antenna_scaling=(1 + (draw(nant, 1, 2) - 0.5) * 0.02).expand(nant, nchan, 2),
+        feed_parangle=torch.stack([sc, sc], -2)[:, None])
+
+
+@pytest.mark.cuda
+def test_fused_dde_chosen_block_fits_at_the_cell_chunk(device):
+    """The direction-dependent predict at the benchmark cell's chunk, no
+    block given: the core's chosen block evaluates within the device's
+    memory and its own estimate, and agrees with a block of 3 sources to
+    1e-6 of max (a Kahan sum over other blocks)."""
+    args = _dde_chunk(device)
+    factory = RimeFactory(DDE_SPEC)
+    state = factory.build_state(**args)
+    block = factory._block(state)
+    assert 3 < block < 100
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = rime(DDE_SPEC, **args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= factory.evaluation_bytes(state, block) * 1.02
+    assert torch.cuda.max_memory_allocated() < torch.cuda.get_device_properties(
+        device).total_memory
+    want = rime(DDE_SPEC, **args, source_block=3)
+    _rel_close(got, want, 1e-6)
 
 
 # ------------------------------------------------------------ the PP
