@@ -13,6 +13,7 @@ import torch
 
 from africanus_tpu_torch.ops.cuda_beam import beam_blend, beam_blend_cell, beam_interp
 from africanus_tpu_torch.ops.cuda_dft import dft_adjoint, dft_forward
+from africanus_tpu_torch.ops.cuda_fused import fused_dde, fused_pairs
 from africanus_tpu_torch.ops.cuda_grid2d import degrid_2d, grid_2d
 from africanus_tpu_torch.ops.cuda_gridtab import degrid_table, grid_table
 from africanus_tpu_torch.ops.cuda_hogbom import hogbom
@@ -23,7 +24,7 @@ __all__ = ["WRAPPERS", "counts", "since", "describe", "device_name", "sync"]
 
 WRAPPERS = (predict_kb, dft_forward, dft_adjoint, grid_wstack, degrid_wstack,
             grid_2d, degrid_2d, grid_table, degrid_table, beam_interp,
-            beam_blend, beam_blend_cell, hogbom)
+            beam_blend, beam_blend_cell, hogbom, fused_pairs, fused_dde)
 
 
 def counts():

@@ -11,11 +11,23 @@ import torch
 
 from africanus_tpu_torch.constants import c as lightspeed
 
-__all__ = ["gaussian", "GAUSS_SCALE", "envelope_coordinates"]
+__all__ = ["gaussian", "GAUSS_SCALE", "envelope_axes", "envelope_coordinates"]
 
 # FWHM of a unit-σ gaussian; envelope scale = sqrt(2)·π / (fwhm·c)
 _FWHM = 2.0 * np.sqrt(2.0 * np.log(2.0))
 GAUSS_SCALE = float(np.sqrt(2.0) * np.pi / (_FWHM * lightspeed))
+
+
+def envelope_axes(shape_params):
+    """(em, el, er), each (source,): the major axis's m and l projections
+    and the axis ratio, from (emajor, eminor, angle)."""
+    emaj = shape_params[:, 0]
+    emin = shape_params[:, 1]
+    angle = shape_params[:, 2]
+    el = emaj * torch.sin(angle)
+    em = emaj * torch.cos(angle)
+    er = emin / torch.where(emaj == 0.0, torch.ones_like(emaj), emaj)
+    return em, el, er
 
 
 def envelope_coordinates(uvw, shape_params):
@@ -24,14 +36,7 @@ def envelope_coordinates(uvw, shape_params):
     The envelope at frequency ν is exp(−((u1·sf)² + (v1·sf)²)) with
     sf = ν·:data:`GAUSS_SCALE`.
     """
-    emaj = shape_params[:, 0]
-    emin = shape_params[:, 1]
-    angle = shape_params[:, 2]
-
-    # Major-axis l/m projections and axis ratio
-    el = emaj * torch.sin(angle)
-    em = emaj * torch.cos(angle)
-    er = emin / torch.where(emaj == 0.0, torch.ones_like(emaj), emaj)
+    em, el, er = envelope_axes(shape_params)
 
     u = uvw[:, 0]
     v = uvw[:, 1]

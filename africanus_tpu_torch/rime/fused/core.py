@@ -22,10 +22,23 @@ state's device, made even over the blocks. Nothing is evaluated to
 probe the memory, and the block, so the sum's last bits, follows the
 memory free at the call.
 
+The route is chosen from the specification and the state's devices,
+dtypes and shapes before anything is evaluated (:func:`kernel_route`): a
+CUDA state at float32 whose terms are the built-in E, L, K, G and B in
+the shape ``[Ep, Lp] (Kpq, Gpq, Bpq) [Lq, Eq]`` (any of E and L, G
+optional) takes ``csrc/fused_dde.cu`` (:mod:`~africanus_tpu_torch.ops.cuda_fused`):
+per source block the operands (the pairs kernel's two-float delays and
+envelope coordinates, the brightness, E sampled once for every source
+and both sides, L) and one launch that keeps the chain and a Kahan sum
+over sources in registers; its block is chosen from that route's own
+bytes (:meth:`RimeFactory.kernel_bytes`). Everything else — CPU tensors,
+float64, custom terms, other orders — takes the eager chain above.
+
 A call runs in ``utils.profiling`` spans: ``fused.call`` around
-``fused.state`` and, per block, ``fused.sample`` and ``fused.sum``; the
-class's ``calls``, ``blocks`` and ``state_seconds`` count while a
-profiler records.
+``fused.state`` and, per block, ``fused.sample`` and ``fused.sum`` on the
+eager chain, or one ``fused.kernel`` on the kernel route; the class's
+``calls``, ``blocks``, ``state_seconds`` and ``kernel_evaluations``
+count while a profiler records.
 
 The index state (unique times, antennas and feeds, their inverses) is
 built on the host from numpy copies of ``time``, ``antenna*`` and
@@ -42,14 +55,18 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from africanus_tpu_torch.model.shape.gaussian_shape import GAUSS_SCALE
+from africanus_tpu_torch.ops import cuda_fused
 from africanus_tpu_torch.ops._build import plan_device
 from africanus_tpu_torch.ops.dfloat import compensated_sum, two_sum
 from africanus_tpu_torch.rime.fused.specification import RimeSpecification
-from africanus_tpu_torch.rime.fused.terms import hermitian, term_mul
+from africanus_tpu_torch.rime.fused.terms import (
+    BeamCubeDDE, Brightness, FeedRotation, Gaussian, Phase, hermitian, term_mul,
+)
 from africanus_tpu_torch.rime.fused.transformers import TRANSFORMERS, _host
 from africanus_tpu_torch.utils.profiling import HostCount, span
 
-__all__ = ["rime", "RimeFactory", "consolidate_args"]
+__all__ = ["rime", "RimeFactory", "consolidate_args", "kernel_route"]
 
 REQUIRED_ARGS = ("time", "antenna1", "antenna2", "feed1", "feed2")
 _NCOMP = {"scalar": 1, "diag": 2, "full": 4}
@@ -66,6 +83,11 @@ SUM_PEAK = 8
 SUM_TREE = 8
 # the share of the free memory a chosen block may take
 MEMORY_SHARE = 0.85
+# the kernel route's (channel, correlation) complex grids a source: every
+# allocation of the brightness and the spectral model (40 (source,
+# channel) complex grids, 10 of 4 correlations, in a CPU memory profile)
+SPECTRUM_GRIDS = 10
+LOG2E = 1.4426950408889634
 
 
 def consolidate_args(args, kwargs):
@@ -115,6 +137,47 @@ def _lookup(values, uniq):
     return lookup[values]
 
 
+def kernel_route(spec, device, dtype, beam_corrs=4):
+    """The route of an evaluation of ``spec`` on a state on ``device`` whose
+    floating arguments are all of the real ``dtype`` (None where they
+    differ): the flags of ``csrc/fused_dde.cu``
+    (:class:`~africanus_tpu_torch.ops.cuda_fused.Route`) where the kernel
+    takes it, else None, the eager chain.
+
+    The kernel takes a CUDA state at float32 whose terms are all of the
+    built-in classes (the exact class, not a subclass) in the order
+    [left Jones] [scalar middle] [right Jones] over 4 correlations: on the
+    left ``BeamCubeDDE``, ``FeedRotation``, both (either first) or none;
+    in the middle ``Phase`` and ``Brightness``, with or without
+    ``Gaussian``, each once in any order; on the right the left's terms
+    in the mirror order. ``beam_corrs`` is the beam's correlations, which
+    have to be 2×2. Any number of stations fits: the kernel stages a
+    tile's own (``ops/cuda_fused.row_plan``)."""
+    if torch.device(device).type != "cuda" or dtype != torch.float32:
+        return None
+    if len(spec.corrs) != 4:
+        return None
+    kinds = [type(t) for t in spec.terms]
+    where = [t.configuration for t in spec.terms]
+    nleft, nright = where.count("left"), where.count("right")
+    if where != (["left"] * nleft + ["middle"] * (len(where) - nleft - nright)
+                 + ["right"] * nright):
+        return None
+    left, right = kinds[:nleft], kinds[len(kinds) - nright:]
+    middle = kinds[nleft:len(kinds) - nright]
+    if (left != right[::-1] or len(set(left)) != nleft
+            or not set(left) <= {BeamCubeDDE, FeedRotation}):
+        return None
+    if len(set(middle)) != len(middle) or set(middle) not in (
+            {Phase, Brightness}, {Phase, Gaussian, Brightness}):
+        return None
+    beam, feed = BeamCubeDDE in left, FeedRotation in left
+    if beam and beam_corrs != 4:
+        return None
+    return cuda_fused.Route(beam=beam, feed=feed, envelope=Gaussian in middle,
+                            feed_first=feed and beam and left[0] is FeedRotation)
+
+
 class RimeFactory:
     """Builds and caches the fused evaluation for one specification."""
 
@@ -123,6 +186,7 @@ class RimeFactory:
     calls = HostCount()
     blocks = HostCount()
     state_seconds = HostCount()
+    kernel_evaluations = HostCount()
 
     def __init__(self, rime_spec=None):
         if rime_spec is None:
@@ -136,6 +200,9 @@ class RimeFactory:
         with span("fused.state"):
             t0 = time.perf_counter()
             state = self._state(kwargs, device)
+            if self.route(state) is not None:
+                # the kernel route's block follows the memory free here
+                state["free_bytes"] = free_bytes(state["time_inverse"].device)
             self.state_seconds.add(time.perf_counter() - t0)
         return state
 
@@ -162,8 +229,12 @@ class RimeFactory:
         ants = {name: _host(kwargs[name]) for name in ("antenna1", "antenna2")}
         uant = np.unique(np.concatenate(list(ants.values())))
         state["uantenna"] = on(uant)
+        # the host's copies of the row indices, for the kernel route's
+        # row plan and stations
+        host = {"time_inverse": time_inv}
         for name, ant in ants.items():
-            state[f"{name}_inverse"] = on(_lookup(ant, uant))
+            host[f"{name}_inverse"] = _lookup(ant, uant)
+            state[f"{name}_inverse"] = on(host[f"{name}_inverse"])
 
         # one shared feed table over BOTH columns (like antennas): a
         # per-column unique would leave ufeed holding only feed2's set
@@ -176,7 +247,9 @@ class RimeFactory:
         ufeed = np.unique(np.concatenate(list(feeds.values())))
         state["ufeed"] = on(ufeed)
         for name, feed in feeds.items():
-            state[f"{name}_inverse"] = on(_lookup(feed, ufeed))
+            host[f"{name}_inverse"] = _lookup(feed, ufeed)
+            state[f"{name}_inverse"] = on(host[f"{name}_inverse"])
+        state["host_index"] = host
 
         # antenna_position may drive the parallactic transformer: the beam/
         # feed tables are indexed by the *inverse* antenna index, so subset
@@ -329,6 +402,138 @@ class RimeFactory:
             return None
         return self.source_block(state, budget)
 
+    def route(self, state):
+        """:func:`kernel_route` of this specification on ``state``: read
+        from the state's devices, dtypes and shapes alone."""
+        names = {a for t in self.rime_spec.terms for a in (*t.ARGS, *t.KWARGS)}
+        reals = {(v.real if v.is_complex() else v).dtype for v in
+                 (state.get(a) for a in names)
+                 if isinstance(v, torch.Tensor) and (v.is_floating_point()
+                                                     or v.is_complex())}
+        corrs = 4
+        if any(type(t) is BeamCubeDDE for t in self.rime_spec.terms):
+            corrs = int(np.prod(state["beam"].shape[3:]))
+        return kernel_route(self.rime_spec, state["time_inverse"].device,
+                            reals.pop() if len(reals) == 1 else None, corrs)
+
+    def _kernel_lines(self, state, route):
+        """(bytes, bytes a source) of the kernel route's evaluation beyond
+        the state, counted from what it allocates on the card: shared,
+        the output, the row plan, the frequencies, L, and the beam term's
+        copy of the cube; a source, its (hi, lo, u1, v1) pairs, its
+        brightness and the spectral model's temporaries, and the beam
+        term's own (E's table and the kernels' raw sums). The compensation
+        buffer is :meth:`kernel_bytes`' where there are several blocks."""
+        nrow = state["time_inverse"].shape[0]
+        nchan = state["chan_freq"].shape[0]
+        shared = nrow * nchan * 4 * 8 + 16 * nrow + 16 * nchan
+        per = 16 * nrow + 8 * SPECTRUM_GRIDS * 4 * nchan
+        if route.feed:
+            shared += 2 * state["feed_parangle"].numel() * 8
+        if route.beam:
+            term = next(t for t in self.rime_spec.terms if type(t) is BeamCubeDDE)
+            cube, source = term.sample_bytes(state, nrow, nchan, 8)
+            shared, per = shared + cube, per + source
+        return shared, per
+
+    def kernel_bytes(self, state, block, route=None):
+        """Bytes an evaluation of ``state`` on the kernel route takes at
+        most beyond the state, in blocks of ``block`` sources: with the
+        compensation buffer where there are several."""
+        shared, per = self._kernel_lines(state, route or self.route(state))
+        nsrc = self._source_keys(state)[1]
+        if block < nsrc:
+            shared += state["time_inverse"].shape[0] * state["chan_freq"].shape[0] * 32
+        return shared + block * per
+
+    def _kernel_block(self, state, route, memory_budget):
+        """The kernel route's source block within ``memory_budget`` bytes:
+        every source where they fit, else the largest block that does with
+        the compensation buffer, made even over the blocks, at least 1."""
+        nsrc = self._source_keys(state)[1]
+        if self.kernel_bytes(state, nsrc, route) <= memory_budget:
+            return nsrc
+        shared = self.kernel_bytes(state, 0, route)
+        per = self.kernel_bytes(state, 1, route) - shared
+        fit = max(min(nsrc, int((memory_budget - shared) // per)), 1)
+        return -(-nsrc // -(-nsrc // fit))
+
+    def _kernel_index(self, state, route):
+        """:func:`~africanus_tpu_torch.ops.cuda_fused.row_plan` of the
+        state's rows and their stations (feed·A + antenna with a feed
+        rotation, else the antenna; none without Jones), made on the host
+        and moved in one copy: (order, tiles, stations, local) as int32
+        tensors on the state's device."""
+        host = state["host_index"]
+        nant = state["uantenna"].shape[0]
+        sides = [None, None]
+        if route.beam or route.feed:
+            for i, (ant, feed) in enumerate((("antenna1", "feed1"), ("antenna2", "feed2"))):
+                sides[i] = host[f"{ant}_inverse"]
+                if route.feed:
+                    sides[i] = host[f"{feed}_inverse"] * nant + sides[i]
+        plan = cuda_fused.row_plan(host["time_inverse"], *sides)
+        packed = torch.as_tensor(np.concatenate([x.ravel() for x in plan]),
+                                 device=state["time_inverse"].device)
+        parts, at = [], 0
+        for x in plan:
+            parts.append(packed[at:at + x.size].reshape(x.shape))
+            at += x.size
+        return tuple(parts)
+
+    def kernel_operands(self, state, route=None, index=None):
+        """The operands of :func:`~africanus_tpu_torch.ops.cuda_fused.fused_dde`
+        for every source of ``state``: the two-float delays and envelope
+        coordinates, the brightness, E sampled once for every source, L.
+        ``index`` is :meth:`_kernel_index`'s, made here where None."""
+        route = route or self.route(state)
+        order, tiles, stations, local = index or self._kernel_index(state, route)
+        terms = {type(t): t for t in self.rime_spec.terms}
+        freq = state["chan_freq"].contiguous()
+        shape = gscale = None
+        if route.envelope:
+            shape = state["gauss_shape"]
+            sf = freq * GAUSS_SCALE
+            gscale = (-LOG2E) * (sf * sf)
+        pairs = cuda_fused.fused_pairs(state["lm"], state["uvw"], shape,
+                                       state.get("convention", "fourier"))
+        bright = torch.stack([c[:, 0] for c in terms[Brightness].sample(state).comps],
+                             dim=-1)
+        beam = feed = None
+        if route.beam:
+            beam = terms[BeamCubeDDE].table(state)
+            beam = beam.reshape(beam.shape[:4] + (4,))
+        if route.feed:
+            feed = terms[FeedRotation].table(state).contiguous()
+        return cuda_fused.Operands(pairs, bright, beam, feed, order, tiles, stations, local,
+                                   freq, gscale, route.feed_first)
+
+    def _evaluate_kernel(self, state, route, source_block):
+        """The kernel route: per source block its operands and one launch
+        of the kernel, the sum and its compensation carried from block to
+        block in device memory."""
+        src_keys, nsrc = self._source_keys(state)
+        block = (self._kernel_block(state, route, MEMORY_SHARE * state["free_bytes"])
+                 if source_block is None else max(min(int(source_block), nsrc), 1))
+        nblocks = max(-(-nsrc // block), 1)
+        self.calls.add(1)
+        self.kernel_evaluations.add(1)
+        with span("fused.kernel"):
+            index = self._kernel_index(state, route)
+            nrow = state["time_inverse"].shape[0]
+            nchan = state["chan_freq"].shape[0]
+            out = torch.empty((nrow, nchan, 4), dtype=torch.complex64,
+                              device=state["time_inverse"].device)
+            comp = torch.empty_like(out) if nblocks > 1 else None
+            for b in range(nblocks):
+                bstate = dict(state)
+                bstate.update({k: state[k][b * block:(b + 1) * block] for k in src_keys})
+                ops = self.kernel_operands(bstate, route, index)
+                cuda_fused.fused_dde(ops, out, comp, first=b == 0, last=b == nblocks - 1)
+                del ops
+                self.blocks.add(1)
+        return out
+
     def __call__(self, source_block=None, device="cuda", **kwargs):
         """Evaluate the RIME: a (row, chan, corr) complex tensor.
 
@@ -362,6 +567,9 @@ class RimeFactory:
         """
         for term in self.rime_spec.terms:
             term.validate(state)
+        route = self.route(state)
+        if route is not None:
+            return self._evaluate_kernel(state, route, source_block)
 
         nrow = state["time_inverse"].shape[0]
         nchan = state["chan_freq"].shape[0]

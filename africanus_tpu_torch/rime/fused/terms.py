@@ -282,17 +282,12 @@ class FeedRotation(Term):
         super().__init__(configuration)
         self.feed_type = feed_type
 
-    def sample(self, state) -> TermValue:
-        left = self.configuration == "left"
+    def table(self, state):
+        """L at every (utime, feed, ant): (utime, feed, ant, 4) complex,
+        [00, 01, 10, 11], from ``feed_parangle``."""
         pa = state["feed_parangle"]  # (utime, feed, ant, 2, 2)
-        t = state["time_inverse"]
-        a = state["antenna1_inverse"] if left else state["antenna2_inverse"]
-        f = state["feed1_inverse"] if left else state["feed2_inverse"]
-
-        sin_a = pa[t, f, a, 0, 0][None, :, None]  # (1, row, 1)
-        cos_a = pa[t, f, a, 0, 1][None, :, None]
-        sin_b = pa[t, f, a, 1, 0][None, :, None]
-        cos_b = pa[t, f, a, 1, 1][None, :, None]
+        sin_a, cos_a = pa[..., 0, 0], pa[..., 0, 1]
+        sin_b, cos_b = pa[..., 1, 0], pa[..., 1, 1]
         zero = torch.zeros_like(sin_a)
 
         if self.feed_type == "linear":
@@ -309,7 +304,15 @@ class FeedRotation(Term):
                 torch.complex(0.5 * (cos_a - cos_b), -0.5 * (sin_a - sin_b)),
                 torch.complex(0.5 * (cos_a + cos_b), 0.5 * (sin_a + sin_b)),
             )
-        return TermValue("full", comps)
+        return torch.stack(comps, dim=-1)
+
+    def sample(self, state) -> TermValue:
+        left = self.configuration == "left"
+        t = state["time_inverse"]
+        a = state["antenna1_inverse"] if left else state["antenna2_inverse"]
+        f = state["feed1_inverse"] if left else state["feed2_inverse"]
+        rows = self.table(state)[t, f, a]  # (row, 4)
+        return TermValue("full", tuple(rows[None, :, None, i] for i in range(4)))
 
 
 class BeamCubeDDE(Term):
@@ -349,7 +352,9 @@ class BeamCubeDDE(Term):
         return (slabs * itemsize,
                 nta * ncorr * (2 * nchan + 3 * beam.shape[2]) * itemsize // 2)
 
-    def sample(self, state) -> TermValue:
+    def table(self, state):
+        """E at every (source, utime, ant, chan): (src, utime, ant, chan,
+        corr…) complex, through one :func:`beam_cube_dde` call."""
         beam = state["beam"]
         if not beam.is_complex():
             beam = torch.complex(beam, torch.zeros_like(beam))
@@ -372,11 +377,13 @@ class BeamCubeDDE(Term):
         if ascale is None:
             ascale = torch.ones((nant, nchan, 2), dtype=real, device=dev)
 
-        sampled = beam_cube_dde(
+        return beam_cube_dde(
             beam, state["beam_lm_extents"], state["beam_freq_map"],
             state["lm"], pa, pe, ascale, freq,
-        )  # (src, utime, ant, chan, corr…)
+        )
 
+    def sample(self, state) -> TermValue:
+        sampled = self.table(state)  # (src, utime, ant, chan, corr…)
         t = state["time_inverse"]
         left = self.configuration == "left"
         a = state["antenna1_inverse"] if left else state["antenna2_inverse"]

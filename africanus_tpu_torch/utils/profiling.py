@@ -43,7 +43,8 @@ stage:
   ``np.unique``, lookups, the arguments put on the device,
   transformers), then for each source block ``fused.sample`` (the terms'
   sampling and the chain's fold) and ``fused.sum`` (the block's sum into
-  the output).
+  the output) on the eager chain, or one ``fused.kernel`` (every block's
+  operands and ``fused_dde`` launches) on the kernel route.
 
 Counters, attributes of what does the work, as each kernel wrapper's
 ``.launches``:
@@ -54,10 +55,11 @@ Counters, attributes of what does the work, as each kernel wrapper's
   ``hogbom_clean.taken.read()``;
 - ``SelfcalStep.plan_seconds``: host seconds spent planning in the set-up
   of every ``SelfcalStep`` made (the gather table and the two DFT plans);
-- ``RimeFactory.calls``, ``RimeFactory.blocks`` and
-  ``RimeFactory.state_seconds``: :class:`HostCount` counts of the fused
-  RIME's evaluations, the source blocks they evaluated (one for a
-  one-grid evaluation) and the host seconds of their state builds,
+- ``RimeFactory.calls``, ``RimeFactory.blocks``,
+  ``RimeFactory.state_seconds`` and ``RimeFactory.kernel_evaluations``:
+  :class:`HostCount` counts of the fused RIME's evaluations, the source
+  blocks they evaluated (one for a one-grid evaluation), the host seconds
+  of their state builds and the evaluations that took the kernel route,
   summed over every specification while a profiler records.
 """
 

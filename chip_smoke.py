@@ -136,18 +136,25 @@ twenty-nine phases that each print one line (some several):
    its resident inputs (≤ 4× their bytes), two runs bitwise equal, the
    preserved weighted totals, and a 256-baseline subset against the CPU;
 20. the fused RIME at the flagship's chunk (8064 rows × 4096 channels × 4
-   correlations, 100 gaussian sources), each call with no source block,
-   so in the block the library chooses from the free memory (its bytes
-   estimate at most the free memory's share, the next larger even block
-   beyond it, the measured peak within the estimate): (Kpq, Gpq, Bpq)
-   against the float64 oracle on windows; [Ep, (Kpq, Gpq, Bpq), Eq] on
-   config 3's cube with its beam_interp and beam_blend launches counted
-   (two of each per block), a window against the CPU, and two block sizes
-   against each other; and the benchmark cell meerkat64pb.beam100's
-   chunk, [Ep, Lp, Kpq, Gpq, Bpq, Lq, Eq] on its 257² × 33 analytic 2×2
-   cube, launches counted, kept rows against the cell's float64 reference
-   at the cell's limit, and beam_interp and beam_blend against their
-   plain versions on a source block's operands of that chunk;
+   correlations, 100 gaussian sources) on its kernel route (csrc/
+   fused_dde.cu), each call with no source block, so in the block the
+   library chooses from the free memory read with the state (the route's
+   bytes estimate at most the free memory's share, the next larger even
+   block beyond it, the measured peak within the estimate, one fused_pairs
+   and one fused_dde launch a block):
+   (Kpq, Gpq, Bpq) against the float64 oracle on windows; [Ep, (Kpq, Gpq,
+   Bpq), Eq] on config 3's cube with its beam_interp and beam_blend
+   launches counted (one of each per block: E sampled once for both
+   sides), a window against the CPU, and two block sizes against each
+   other; and the benchmark cell meerkat64pb.beam100's chunk, [Ep, Lp,
+   Kpq, Gpq, Bpq, Lq, Eq] on its 257² × 33 analytic 2×2 cube, launches
+   counted, kept rows against the cell's float64 reference at the cell's
+   limit, beam_interp and beam_blend against their plain versions on a
+   source block's operands of that chunk, fused_pairs alone on the
+   chunk's sources and rows equal to its plain version, and fused_dde
+   alone on the chunk's operands against its plain version, each timed
+   beside its bound (fused_dde's from perfbench/work/fused_dde.py) and the
+   plain version's time;
 21. slice times: CUDA-event and host-clock medians of both averagers at
    both cells (Mvis/s), the mapper's and the tables' cold seconds, the
    fused RIME per chunk (Mvis/s), peak device memory and a
@@ -483,6 +490,41 @@ def kernel_problem(rng, S, R, F, C, compensated, env, device, grid="residual",
     b = (rng.normal(size=(S, F, C)) + 1j * rng.normal(size=(S, F, C))
          ).astype(np.complex64)
     return dot, u1, v1, t(freq), t((freq * 1e-12).astype(np.float32)), t(b)
+
+
+def fused_problem(rng, S, R, F, T, NF, A, beam, feed, env, feed_first, device):
+    """Operands of ``cuda_fused.fused_dde`` from ``rng`` at any shape:
+    delays of a few thousand cycles at the band's top, envelopes down to
+    e^-8, unit-scale E, L and B, rows in random dumps, stations on random
+    feeds and antennas."""
+    import torch
+    from africanus_tpu_torch.ops import cuda_fused as cf
+
+    def real(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device=device)
+
+    def cplx(*shape):
+        return torch.complex(real(*shape), real(*shape))
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    a1, a2 = rng.integers(0, A, R), rng.integers(0, A, R)
+    f1, f2 = rng.integers(0, NF, R), rng.integers(0, NF, R)
+    left, right = (f1 * A + a1, f2 * A + a2) if feed else (a1, a2)
+    if not (beam or feed):
+        left = right = None
+    order, tiles, stations, local = cf.row_plan(rng.integers(0, T, R), left, right)
+    hi = real(S, R, scale=2e-6)
+    lo = hi * real(S, R, scale=3e-8)
+    freq = torch.linspace(0.856e9, 1.712e9, F, device=device)
+    pairs = torch.stack([hi, lo, real(S, R, scale=1e3), real(S, R, scale=1e3)], -1)
+    sf = freq * 1.1e-9
+    return cf.Operands(
+        pairs.contiguous(), cplx(S, F, 4), cplx(S, T, A, F, 4) if beam else None,
+        cplx(T, NF, A, 4) if feed else None, i32(order), i32(tiles), i32(stations),
+        i32(local), freq, -1.4426950408889634 * 1e-6 * sf * sf if env else None, feed_first)
 
 
 def dft_problem(rng, S, P, R, F, C, grid, device):
@@ -2449,6 +2491,14 @@ FUSED_BOUND = 5e-6  # the flagship's bar against float64 (PERF.md §2)
 FUSED_E_BOUND = 1e-5  # the E chain on the card against the CPU
 FUSED_BLOCKS_BOUND = 1e-6  # two block sizes
 FUSED_WINDOW = (256, 16)  # rows × channels held against a reference
+# fused_dde against its plain version at the DDE chunk, of max: sincospif
+# and ex2.approx against torch's cos, sin and exp2 (the card tests' bound)
+FUSED_PLAIN_BOUND = 1e-6
+# the pairs kernel's FP32 instructions a (source, row) pair, by the count
+# of its error-free transformations (n - 1's two_prods, df_add, df_div and
+# df_sqrt with its float64 square root ~120, the dot with w ~80, the delay's
+# df_mul ~25, the envelope 7)
+PAIRS_INSTRUCTIONS = 230
 # a chosen block's measured peak over the library's estimate: the
 # allocator's rounding and a block's small index tensors
 FUSED_ESTIMATE_SLACK = 1.02
@@ -2658,36 +2708,43 @@ def _peak_of(fn):
 
 def _chosen_block(spec, device, args, what):
     """``rime(spec, **args)`` with no source block, the library choosing
-    it: checks the block against the library's estimate and the free
-    memory, and the measured peak against the estimate. Returns (the
-    visibilities, the state, a dict of the block, the blocks, the
-    estimate, the budget, the peak and the first call's seconds)."""
+    it on the kernel route: checks the block against the route's estimate
+    and the free memory read with the state, the launches (the counts set
+    to 0 before the call: one fused_pairs and one fused_dde a block), and
+    the measured peak against the estimate. Returns (the visibilities,
+    the state, a dict of the block, the blocks, the estimate, the budget,
+    the peak, the first call's seconds and the launches)."""
     import torch
+    from africanus_tpu_torch.ops import cuda_fused as cf
     from africanus_tpu_torch.rime.fused import RimeFactory, core
 
     factory = RimeFactory(spec)
     state = factory.build_state(device=device, **args)
     torch.cuda.synchronize()
+    route = factory.route(state)
+    check(route is not None, f"{what}: the kernel route not taken")
     nsrc = state["lm"].shape[0]
-    budget = core.MEMORY_SHARE * core.free_bytes(device)
-    block = factory._block(state)
-    check(block is not None and block < nsrc,
-          f"{what}: {block} of {nsrc} sources a block, not a block chosen")
+    budget = core.MEMORY_SHARE * state["free_bytes"]
+    block = factory._kernel_block(state, route, budget)
     nblocks = -(-nsrc // block)
-    est = factory.evaluation_bytes(state, block)
-    check(est <= budget, f"{what}: block {block} estimated at {est / 2**30:.2f} "
-          f"GiB, over the budget of {budget / 2**30:.2f} GiB")
+    est = factory.kernel_bytes(state, block, route)
+    check(est <= budget or block == 1, f"{what}: block {block} estimated at "
+          f"{est / 2**30:.2f} GiB, over the budget of {budget / 2**30:.2f} GiB")
     if nblocks > 1:  # one block fewer would not fit
         larger = -(-nsrc // (nblocks - 1))
-        check(factory.evaluation_bytes(state, larger) > budget,
+        check(factory.kernel_bytes(state, larger, route) > budget,
               f"{what}: block {larger} would fit beside {block}")
+    cf.fused_dde.launches = cf.fused_pairs.launches = 0
     t0 = time.perf_counter()
     vis, peak = _peak_of(lambda: factory.evaluate(state))
     first_s = time.perf_counter() - t0
+    launches = {"fused_pairs": cf.fused_pairs.launches, "fused_dde": cf.fused_dde.launches}
+    check(launches == {"fused_pairs": nblocks, "fused_dde": nblocks},
+          f"{what}: launches {launches}, {nblocks} blocks")
     check(peak <= FUSED_ESTIMATE_SLACK * est,
           f"{what}: peak {peak / 2**30:.2f} GiB over the estimate {est / 2**30:.2f} GiB")
     return vis, state, dict(block=block, nblocks=nblocks, est=est, budget=budget,
-                            peak=peak, first_s=first_s)
+                            peak=peak, first_s=first_s, launches=launches)
 
 
 def _fused_line(name, run):
@@ -2711,7 +2768,10 @@ def fused(device, card):
     from africanus_tpu_torch.rime.fused.inputs import (
         from_numpy, fused_inputs, fused_oracle_f64,
     )
+    from africanus_tpu_torch.ops import cuda_fused as cf
+    from africanus_tpu_torch.rime.fused import RimeFactory
     from perfbench import run as bench
+    from perfbench.work import fused_dde as work
 
     nant = FUSED["nant"]
     nrow, nchan = FUSED["ntime"] * nant * (nant - 1) // 2, FUSED["nchan"]
@@ -2740,7 +2800,7 @@ def fused(device, card):
     evis, _, erun = _chosen_block(E_SPEC, device, te, "E chain")
     counts = _beam_counts()
     eblock, nblocks = erun["block"], erun["nblocks"]
-    check(counts == {"beam_interp": 2 * nblocks, "beam_blend": 2 * nblocks,
+    check(counts == {"beam_interp": nblocks, "beam_blend": nblocks,
                      "beam_blend_cell": 0}, f"E chain launches {counts}, "
           f"{nblocks} blocks")
     check(bool(torch.isfinite(torch.view_as_real(evis)).all()), "E chain non-finite")
@@ -2775,12 +2835,12 @@ def fused(device, card):
     dvis, dstate, drun = _chosen_block(DDE_SPEC, device, dargs, "DDE chunk")
     dcounts = {k: v - before[k] for k, v in _beam_counts().items()}
     dblock, dblocks = drun["block"], drun["nblocks"]
-    check(dcounts == {"beam_interp": 2 * dblocks, "beam_blend": 2 * dblocks,
+    check(dcounts == {"beam_interp": dblocks, "beam_blend": dblocks,
                       "beam_blend_cell": 0}, f"DDE chunk launches {dcounts}, "
           f"{dblocks} blocks")
     for k, v in dcounts.items():
         counts[k] += v
-    dnvis = dvis.numel()
+    dnvis, dnrow = dvis.numel(), dvis.shape[0]
     vis_err = entry.readings([entry.keep(0, dvis)])["vis_err"]
     limit = cell["limits"]["vis_err"]
     check(vis_err <= limit, f"DDE chunk vs the float64 reference {vis_err:.3e}")
@@ -2804,7 +2864,48 @@ def fused(device, card):
               f"{name} vs plain at the DDE chunk: {kernel_err[name]:.3e}")
         del got, want
     nsamp = ops["beam_interp"][1].shape[0]
-    del ops, dstate
+    del ops
+    # the pairs kernel alone on the chunk's sources and rows: equal to its
+    # plain version bit for bit, timed beside its bound and the plain time
+    convention = dstate.get("convention", "fourier")
+    pair_args = (dstate["lm"], dstate["uvw"], dstate["gauss_shape"], convention)
+    pairs = cf.fused_pairs(*pair_args)
+    plain_pairs, pairs_plain_ms = cuda_once_ms(lambda: cf.fused_pairs_reference(*pair_args))
+    check(pairs.shape == plain_pairs.shape == (dstate["lm"].shape[0], dnrow, 4),
+          f"fused_pairs at the DDE chunk: {tuple(pairs.shape)}")
+    pairs_equal = torch.equal(pairs, plain_pairs)
+    check(pairs_equal, "fused_pairs vs plain at the DDE chunk: not equal, max abs "
+          f"{float((pairs - plain_pairs).abs().max()):.3e}")
+    pairs_ms = kernel_median_ms(lambda: cf.fused_pairs(*pair_args))
+    npairs = pairs.shape[0] * pairs.shape[1]
+    pairs_bound = bound(nbytes(pairs, *pair_args[:3]), PAIRS_INSTRUCTIONS * npairs)
+    del pairs, plain_pairs
+    # the kernel alone on the chunk's operands (every source, one block):
+    # against its plain version, timed beside its bound and the plain time
+    factory = RimeFactory(DDE_SPEC)
+    kops = factory.kernel_operands(dstate)
+    kout = torch.empty((dstate["uvw"].shape[0], dstate["chan_freq"].shape[0], 4),
+                       dtype=torch.complex64, device=device)
+    cf.fused_dde(kops, kout)
+    plain_out = torch.empty_like(kout)
+    _, plain_ms = cuda_once_ms(lambda: cf.fused_dde_reference(kops, plain_out))
+    fused_abs = float((kout - plain_out).abs().max())
+    fused_err = fused_abs / float(plain_out.abs().max())
+    check(fused_err <= FUSED_PLAIN_BOUND,
+          f"fused_dde vs plain at the DDE chunk: {fused_err:.3e}")
+    del plain_out
+    fused_ms = kernel_median_ms(lambda: cf.fused_dde(kops, kout))
+    least, bound_by = work.least_seconds(**work.shape(entry.shapes))
+    source = "africanus_tpu_torch/csrc/fused_dde.cu"
+    kernel_entries = [
+        {"name": "fused_pairs", "route": "cuda", "source": source, "replaces": None,
+         "launches": drun["launches"]["fused_pairs"], "max_abs_err": 0.0,
+         "ms": pairs_ms, "plain_ms": pairs_plain_ms, **pairs_bound, "library_ms": None},
+        {"name": "fused_dde", "route": "cuda", "source": source, "replaces": None,
+         "launches": drun["launches"]["fused_dde"], "max_abs_err": fused_abs,
+         "ms": fused_ms, "plain_ms": plain_ms, "bound_ms": least * 1e3,
+         "bound_by": bound_by, "library_ms": None}]
+    del kops, kout, dstate
     runs["DDE"] = dict(drun, fn=lambda: rime(DDE_SPEC, **dargs))
     print(f"[20/{PHASES}] fused RIME, no block given: {nrow} rows x {nchan} chan x "
           f"4 corr, {FUSED['nsrc']} gaussian sources; {KGB_SPEC!r}: "
@@ -2814,13 +2915,18 @@ def fused(device, card):
           f"window vs CPU {e_err:.2e} (bound {FUSED_E_BOUND}), blocks {eblock} vs "
           f"{eblock2} {blocks_err:.2e} (bound {FUSED_BLOCKS_BOUND}); {DDE_SPEC!r} at "
           f"{DDE_CELL}'s chunk ({tuple(entry.beam['beam'].shape)} cube): "
-          + _fused_line("DDE", runs["DDE"]) + f", launches {dcounts}, "
+          + _fused_line("DDE", runs["DDE"]) + f", launches {dict(dcounts, **drun['launches'])}, "
           f"{cell['traffic']['kept_rows']} kept rows vs the cell's float64 "
           f"reference {vis_err:.2e} (the cell's limit {limit}); beam_interp and "
           f"beam_blend on a block's {nsamp} samples vs plain "
           + ", ".join(f"{k} {v:.2e}" for k, v in kernel_err.items())
-          + f" (bound {BEAM_BOUND})", flush=True)
-    return {"runs": runs, "launches": counts,
+          + f" (bound {BEAM_BOUND}); fused_pairs alone on the chunk's {npairs} pairs "
+          f"{pairs_ms:.4f} ms (bound {pairs_bound['bound_ms']:.4f} ms, "
+          f"{pairs_bound['bound_by']}; plain {pairs_plain_ms:.1f} ms), equal to plain "
+          f"{pairs_equal}; fused_dde alone on the chunk {fused_ms:.3f} ms "
+          f"(bound {least * 1e3:.3f} ms, {bound_by}; plain {plain_ms:.1f} ms), vs "
+          f"plain {fused_err:.2e} (bound {FUSED_PLAIN_BOUND})", flush=True)
+    return {"runs": runs, "launches": counts, "kernels": kernel_entries,
             "nvis": {"KGB": nrow * nchan * 4, "E": nrow * nchan * 4, "DDE": dnvis}}
 
 
@@ -4347,6 +4453,7 @@ def main():
     from africanus_tpu_torch import native
     from africanus_tpu_torch.ops.cuda_beam import build_beam
     from africanus_tpu_torch.ops.cuda_dft import build_dft
+    from africanus_tpu_torch.ops.cuda_fused import build_fused_dde
     from africanus_tpu_torch.ops.cuda_grid2d import build_grid2d
     from africanus_tpu_torch.ops.cuda_gridtab import build_gridtab
     from africanus_tpu_torch.ops.cuda_hogbom import build_hogbom
@@ -4385,7 +4492,8 @@ def main():
                                        pool.submit(build_beam),
                                        pool.submit(build_grid2d),
                                        pool.submit(build_gridtab),
-                                       pool.submit(build_hogbom)]]
+                                       pool.submit(build_hogbom),
+                                       pool.submit(build_fused_dde)]]
         lib, seconds = mappers.result()
     print(f"[2/{PHASES}] built {os.path.relpath(lib)} (g++) in {seconds:.1f} s",
           flush=True)
@@ -4421,6 +4529,7 @@ def main():
     fz = fused(device, card)
     for entry in kernels:
         entry["launches"] += fz["launches"].get(entry["name"], 0)
+    kernels.extend(fz["kernels"])
     slice_times(card, avg, fz)
 
     # 22-25. the WSClean store path (predict_kb once a chunk, counted in

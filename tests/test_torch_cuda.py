@@ -30,8 +30,13 @@ segmented sums and bda on the card against the CPU 1e-6·max in float32
 and 1e-12 in float64 (each bin summed in another order), two runs
 bitwise equal; the fused RIME's E term on the card 1e-5·max against the
 CPU, its beam_interp and beam_blend launches counted; the direction-
-dependent predict at the benchmark cell's chunk in the block the core
-chooses, within its memory estimate, 1e-6·max against a block of 3. The Perley-
+dependent predict at the benchmark cell's chunk in the block the kernel
+route chooses, within its memory estimate, equal to blocks of 3; the
+fused_dde kernel 1e-6·max against its plain version on ragged shapes
+(sincospif and ex2.approx against torch's cos, sin and exp2), blocks and
+reruns bitwise equal, and the DDE route 2e-6·max against the float64
+reference of the same float32 inputs; the pairs kernel equal to
+phase_dot_cycles and envelope_coordinates bit for bit. The Perley-
 polyhedron gridder's conv_nn_scatter route (an accumulating index_put_)
 1e-5·max in complex64 and 1e-12 in complex128 against the CPU, two card
 runs bitwise equal. The sky-model tail: wsclean_predict in float32
@@ -56,7 +61,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
     DFT_FAR_CASES, FAR_PAIRS, beam_problem, dft_far_problem, dft_problem, far_plan,
-    far_warps, grid2d_problem, kernel_problem, pp_nn_grid, pp_nn_problem,
+    far_warps, fused_problem, grid2d_problem, kernel_problem, pp_nn_grid, pp_nn_problem,
     shapelet_problem, spi_problem, table_problem, wgrid_problem, zernike_problem,
 )
 
@@ -78,6 +83,7 @@ from africanus_tpu_torch.gridding.wgridder.imaging import (  # noqa: E402
 )
 from africanus_tpu_torch.ops import cuda_beam as cb  # noqa: E402
 from africanus_tpu_torch.ops import cuda_dft as cd  # noqa: E402
+from africanus_tpu_torch.ops import cuda_fused as cf  # noqa: E402
 from africanus_tpu_torch.ops import cuda_grid2d as g2  # noqa: E402
 from africanus_tpu_torch.ops import cuda_gridtab as gt  # noqa: E402
 from africanus_tpu_torch.ops import cuda_hogbom as ch  # noqa: E402
@@ -95,11 +101,11 @@ from africanus_tpu_torch.rime.flagship import (  # noqa: E402
 )
 from africanus_tpu_torch.rime.fused import rime  # noqa: E402
 from africanus_tpu_torch.rime.fused.inputs import (  # noqa: E402
-    from_numpy as fused_from_numpy, fused_inputs,
+    from_numpy as fused_from_numpy, fused_inputs, fused_oracle_f64,
 )
-from africanus_tpu_torch.rime.fused.core import RimeFactory  # noqa: E402
+from africanus_tpu_torch.rime.fused.core import MEMORY_SHARE, RimeFactory  # noqa: E402
 from africanus_tpu_torch.testing.averaging import meerkat_inputs  # noqa: E402
-from africanus_tpu_torch.testing.dde_reference import analytic_beam  # noqa: E402
+from africanus_tpu_torch.testing.dde_reference import analytic_beam, dde_predict  # noqa: E402
 
 
 @pytest.fixture
@@ -1336,15 +1342,17 @@ def test_time_and_channel_on_card_matches_cpu(device):
 
 @pytest.mark.cuda
 def test_fused_e_term_launches_and_matches_cpu(device):
-    """[Ep, (Kpq, Gpq, Bpq), Eq] on the card: the chan-invariant route,
-    one beam_interp and one beam_blend launch per E term and block."""
+    """[Ep, (Kpq, Gpq, Bpq), Eq] on the card: the kernel route, E sampled
+    once a block for both sides on the chan-invariant route (one
+    beam_interp and one beam_blend launch a block) and one fused_dde
+    launch a block."""
     args = fused_inputs(nsrc=6, ntime=2, nant=7, nchan=64, seed=4, beam_seed=3)
     spec = "[Ep, (Kpq, Gpq, Bpq), Eq]: [I,Q,U,V] -> [XX,XY,YX,YY]"
-    before = (cb.beam_interp.launches, cb.beam_blend.launches)
+    before = (cb.beam_interp.launches, cb.beam_blend.launches, cf.fused_dde.launches)
     got = rime(spec, **fused_from_numpy(args, device), source_block=4)
     torch.cuda.synchronize()
-    assert (cb.beam_interp.launches - before[0],
-            cb.beam_blend.launches - before[1]) == (4, 4)
+    assert (cb.beam_interp.launches - before[0], cb.beam_blend.launches - before[1],
+            cf.fused_dde.launches - before[2]) == (2, 2, 2)
     want = rime(spec, **fused_from_numpy(args, "cpu"), source_block=4)
     _rel_close(got, want, 1e-5)
 
@@ -1392,25 +1400,207 @@ def _dde_chunk(device, nsrc=100, ntime=4, nant=64, nchan=4096, seed=22):
 @pytest.mark.cuda
 def test_fused_dde_chosen_block_fits_at_the_cell_chunk(device):
     """The direction-dependent predict at the benchmark cell's chunk, no
-    block given: the core's chosen block evaluates within the device's
-    memory and its own estimate, and agrees with a block of 3 sources to
-    1e-6 of max (a Kahan sum over other blocks)."""
+    block given: the kernel route's block is every source (its bytes, the
+    E table and the pairs a source, fit the device), the evaluation stays
+    within the device's memory and the route's own estimate, and blocks of
+    3 sources give the same bits (the sum and its compensation carried
+    from block to block)."""
     args = _dde_chunk(device)
     factory = RimeFactory(DDE_SPEC)
     state = factory.build_state(**args)
-    block = factory._block(state)
-    assert 3 < block < 100
+    route = factory.route(state)
+    assert route == cf.Route(beam=True, feed=True, envelope=True)
+    block = factory._kernel_block(state, route, MEMORY_SHARE * state["free_bytes"])
+    assert block == 100
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     got = rime(DDE_SPEC, **args)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    assert peak <= factory.evaluation_bytes(state, block) * 1.02
+    assert peak <= factory.kernel_bytes(state, block) * 1.02
     assert torch.cuda.max_memory_allocated() < torch.cuda.get_device_properties(
         device).total_memory
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     want = rime(DDE_SPEC, **args, source_block=3)
-    _rel_close(got, want, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= factory.kernel_bytes(state, 3) * 1.02
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R,F,T,NF,A", [(7, 300, 37, 3, 2, 9), (1, 129, 9, 1, 1, 5),
+                                          (13, 1000, 130, 5, 1, 64), (0, 10, 10, 1, 1, 3),
+                                          (5, 700, 20, 2, 2, 197)])
+@pytest.mark.parametrize("beam,feed,env,feed_first", [
+    (True, True, True, False), (True, True, True, True), (True, False, True, False),
+    (False, True, False, False), (False, False, True, False), (False, False, False, False)])
+def test_fused_dde_kernel_matches_plain(device, S, R, F, T, NF, A, beam, feed, env,
+                                        feed_first):
+    """The kernel against its plain version on ragged shapes (rows,
+    channels and sources no multiple of a tile; 394 stations drawn at
+    random, so tiles cut to fit MAX_STATIONS), every factor switched on
+    and off: 1e-6 of max (sincospif and ex2.approx against torch's cos,
+    sin and exp2; the same Kahan sum in the same order); one launch a
+    call; two blocks of sources equal one bit for bit; reruns equal."""
+    ops = fused_problem(np.random.default_rng(S * 1000 + R + F), S, R, F, T, NF, A,
+                        beam, feed, env, feed_first, device)
+    out = torch.empty((R, F, 4), dtype=torch.complex64, device=device)
+    before = cf.fused_dde.launches
+    cf.fused_dde(ops, out)
+    torch.cuda.synchronize()
+    assert cf.fused_dde.launches == before + 1
+    want = cf.fused_dde_reference(ops, torch.empty_like(out))
+    if S == 0:
+        assert not out.abs().any()
+        return
+    assert (out - want).abs().max() <= 1e-6 * want.abs().max()
+    h = S // 2
+
+    def part(sl):
+        return ops._replace(pairs=ops.pairs[sl].contiguous(), bright=ops.bright[sl].contiguous(),
+                            beam=None if ops.beam is None else ops.beam[sl].contiguous())
+
+    blocks, comp = torch.empty_like(out), torch.empty_like(out)
+    cf.fused_dde(part(slice(0, h)), blocks, comp, first=True, last=False)
+    cf.fused_dde(part(slice(h, S)), blocks, comp, first=False, last=True)
+    assert torch.equal(blocks, out)
+    assert torch.equal(cf.fused_dde(ops, torch.empty_like(out)), out)
+
+
+def _dde_reference(args):
+    """The float64 reference (``testing/dde_reference.py``) of
+    :func:`_dde_chunk`'s arguments, on the CPU."""
+    t = {k: (v.cpu().double() if not v.is_complex() else v.cpu().to(torch.complex128))
+         if isinstance(v, torch.Tensor) else torch.as_tensor(v) for k, v in args.items()}
+    time_index = torch.as_tensor(np.unique(args["time"], return_inverse=True)[1])
+    sky = {k: t[k] for k in ("lm", "stokes", "spi", "ref_freq", "gauss_shape")}
+    rows = dict(uvw=t["uvw"], time=time_index, antenna1=t["antenna1"],
+                antenna2=t["antenna2"])
+    beam = dict(beam=t["beam"], extents=t["beam_lm_extents"], freq_map=t["beam_freq_map"],
+                parangle=t["beam_parangle"], feed_angle=t["beam_parangle"],
+                point_errors=t["beam_point_errors"], antenna_scaling=t["beam_antenna_scaling"])
+    return dde_predict(sky, rows, t["chan_freq"], beam)
+
+
+@pytest.mark.cuda
+def test_fused_dde_route_matches_reference_on_ragged_shapes(device):
+    """The DDE specification through the kernel on the card, 5 sources
+    over 63 rows (3 dumps of 21 baselines) by 13 channels: 2e-6 of max
+    against the float64 reference of the same float32 inputs (the bound
+    of the CPU's kernel route), and 1e-6 against the same route's plain
+    version on the CPU."""
+    args = _dde_chunk(device, nsrc=5, ntime=3, nant=7, nchan=13, seed=5)
+    got = rime(DDE_SPEC, **args)
+    torch.cuda.synchronize()
+    want = _dde_reference(args)
+    assert (got.cpu().to(torch.complex128) - want).abs().max() <= 2e-6 * want.abs().max()
+    factory = RimeFactory(DDE_SPEC)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in args.items()}
+    state = factory.build_state(device="cpu", **cpu)
+    plain = factory._evaluate_kernel(state, factory.route(factory.build_state(**args)), 5)
+    _rel_close(got, plain, 1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_dde_route_takes_any_number_of_stations(device):
+    """SKA-Mid AA4's 197 dishes through the kernel (a tile stages only its
+    own stations, so no array leaves the route): one launch, 2e-6 of max
+    against the float64 reference."""
+    args = _dde_chunk(device, nsrc=3, ntime=1, nant=197, nchan=9, seed=8)
+    factory = RimeFactory(DDE_SPEC)
+    assert factory.route(factory.build_state(**args)) is not None
+    before = cf.fused_dde.launches
+    got = rime(DDE_SPEC, **args)
+    torch.cuda.synchronize()
+    assert cf.fused_dde.launches == before + 1
+    want = _dde_reference(args)
+    assert (got.cpu().to(torch.complex128) - want).abs().max() <= 2e-6 * want.abs().max()
+
+
+def _fused_spans(prof):
+    return [e.name for e in prof.events() if e.name.startswith("fused.")
+            and e.device_type == torch.autograd.DeviceType.CPU]
+
+
+@pytest.mark.cuda
+def test_fused_dde_launch_a_block_and_spans(device):
+    """One fused_dde launch a source block (5 sources in blocks of 2: 3),
+    E sampled once a block; under a profiler a ``fused.call`` around
+    ``fused.state`` and one ``fused.kernel`` a call, no ``fused.sample``
+    or ``fused.sum``, and the kernel evaluations counted."""
+    args = _dde_chunk(device, nsrc=5, ntime=2, nant=6, nchan=40, seed=6)
+    before = (cf.fused_dde.launches, cb.beam_blend.launches)
+    plain = rime(DDE_SPEC, **args, source_block=2)
+    torch.cuda.synchronize()
+    assert (cf.fused_dde.launches - before[0], cb.beam_blend.launches - before[1]) == (3, 3)
+    counts = (RimeFactory.calls.value, RimeFactory.blocks.value,
+              RimeFactory.kernel_evaluations.value)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        outs = [rime(DDE_SPEC, **args, source_block=2) for _ in range(2)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(o, plain) for o in outs)
+    names = _fused_spans(prof)
+    assert names.count("fused.call") == 2 and names.count("fused.state") == 2
+    assert names.count("fused.kernel") == 2
+    assert "fused.sample" not in names and "fused.sum" not in names
+    assert (RimeFactory.calls.value - counts[0], RimeFactory.blocks.value - counts[1],
+            RimeFactory.kernel_evaluations.value - counts[2]) == (2, 6, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("convention", ["fourier", "casa"])
+@pytest.mark.parametrize("envelope", [True, False])
+def test_fused_pairs_equal_the_torch_prologue(device, convention, envelope):
+    """The pairs kernel gives phase_dot_cycles' two-float delays and
+    envelope_coordinates' u1, v1 on the card bit for bit, over 37 sources
+    (one at the phase centre, one beyond the horizon) and 1,003 rows; one
+    launch."""
+    from africanus_tpu_torch.model.shape.gaussian_shape import envelope_coordinates
+    from africanus_tpu_torch.rime.phase import phase_dot_cycles
+
+    rng = np.random.default_rng(37)
+    lm = rng.uniform(-0.05, 0.05, (37, 2))
+    lm[0], lm[1] = 0.0, (0.8, 0.75)
+    lm = torch.as_tensor(lm, dtype=torch.float32, device=device)
+    uvw = torch.as_tensor(rng.uniform(-8e3, 8e3, (1003, 3)), dtype=torch.float32,
+                          device=device)
+    shape = torch.as_tensor(np.column_stack([rng.uniform(0, 3e-4, 37),
+                                             rng.uniform(0, 1e-4, 37),
+                                             rng.uniform(0, np.pi, 37)]),
+                            dtype=torch.float32, device=device)
+    shape[2, 0] = 0.0
+    before = cf.fused_pairs.launches
+    got = cf.fused_pairs(lm, uvw, shape if envelope else None, convention)
+    torch.cuda.synchronize()
+    assert cf.fused_pairs.launches == before + 1
+    hi, lo = phase_dot_cycles(lm, uvw, convention)
+    assert torch.equal(got[..., 0], hi) and torch.equal(got[..., 1], lo)
+    if envelope:
+        u1, v1 = envelope_coordinates(uvw, shape)
+        assert torch.equal(got[..., 2], u1) and torch.equal(got[..., 3], v1)
+    else:
+        assert not got[..., 2:].any()
+
+
+@pytest.mark.cuda
+def test_fused_kgb_through_the_kernel(device):
+    """(Kpq, Gpq, Bpq) on the card takes the kernel (one launch, no
+    beam), 1e-6 of max against the eager chain on the CPU and 5e-6 against
+    the float64 oracle on a window."""
+    args = fused_inputs(nsrc=9, ntime=2, nant=9, nchan=70, seed=7)
+    spec = "(Kpq, Gpq, Bpq): [I,Q,U,V] -> [XX,XY,YX,YY]"
+    before = (cf.fused_dde.launches, cb.beam_blend.launches)
+    got = rime(spec, **fused_from_numpy(args, device))
+    torch.cuda.synchronize()
+    assert (cf.fused_dde.launches - before[0], cb.beam_blend.launches - before[1]) == (1, 0)
+    _rel_close(got, rime(spec, **fused_from_numpy(args, "cpu")), 1e-6)
+    rows, chans = slice(10, 40), slice(5, 30)
+    want = fused_oracle_f64(args, rows, chans)
+    diff = np.abs(got[rows, chans].cpu().numpy() - want).max()
+    assert diff <= 5e-6 * np.abs(want).max()
 
 
 # ------------------------------------------------------------ the PP
