@@ -40,7 +40,6 @@ tests hold against the Pallas kernels in interpret mode and
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -51,9 +50,7 @@ from africanus_tpu_torch.ops.jones import mul2x2
 
 __all__ = ["beam_slabs", "beam_interp", "beam_blend", "beam_blend_cell",
            "apply_feed", "beam_interp_reference", "beam_blend_reference",
-           "beam_blend_cell_reference", "build_beam", "interp_layout", "CORRS"]
-
-_SOURCES = ("beam.cu",)
+           "beam_blend_cell_reference", "interp_layout", "CORRS"]
 
 # correlation counts csrc/beam.cu is instantiated for (feed rotation: 4);
 # the wrappers split other counts into launches of these
@@ -65,32 +62,6 @@ _BLEND_SMEM = 48 * 1024
 # samples a lane at most
 _INTERP_THREADS = 256
 _MAX_SPT = 8
-
-
-def build_beam():
-    """Compile ``csrc/beam.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("beam", _SOURCES)
-
-
-def _library():
-    return _bind(_build.load("beam", _SOURCES))
-
-
-def _bind(lib):
-    """The three launch functions of a build of ``csrc/beam.cu``, typed."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    interp, blend, cell = (lib.beam_interp_launch, lib.beam_blend_launch,
-                           lib.beam_blend_cell_launch)
-    if interp.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        interp.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
-        blend.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-        cell.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-        for fn in (interp, blend, cell):
-            fn.restype = ctypes.c_int
-    return interp, blend, cell
 
 
 def _complex(dtype):
@@ -111,17 +82,6 @@ def _check(name, dtype, device, **tensors):
             raise ValueError(f"{name}: {key} is on {x.device}, the rest on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _launch(fn, name, device, *args):
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
-def _ptr(x):
-    return None if x is None else x.data_ptr()
 
 
 def _aligned(name, **tensors):
@@ -293,13 +253,10 @@ def beam_interp(slabs, vl, vm, gc0, gc1, wlo, normalize=True):
         outs.append(out)
         if out.numel() == 0:
             continue
-        interp, _, _ = _library()
         lay = interp_layout(nsamp, nrows, normalize, _sm_count(slabs.device.index))
-        _launch(interp, "beam_interp", slabs.device, part.data_ptr(), vl.data_ptr(),
-                vm.data_ptr(), gc0.data_ptr(), gc1.data_ptr(), wlo.data_ptr(),
-                out.data_ptr(), nsamp, nrows, vl.shape[1], nud, lw, mh, k,
-                int(normalize), int(slabs.dtype == torch.float64), lay.rows,
-                lay.lanes, lay.spt)
+        _build.launch("beam_interp", slabs.device, part, vl, vm, gc0, gc1, wlo, out, nsamp,
+                      nrows, vl.shape[1], nud, lw, mh, k, int(normalize),
+                      int(slabs.dtype == torch.float64), lay.rows, lay.lanes, lay.spt)
         beam_interp.launches += 1
     if len(outs) == 1:
         return outs[0]
@@ -379,11 +336,11 @@ def _check_blend_smem(name, nterms, nud, k, real_bytes):
                          f"a block's {_BLEND_SMEM} bytes of shared memory")
 
 
-def _blend(fn, wrapper, coef, nterms, ncorr, nchan, nta, operands, feed):
-    """Launch a blend kernel ``fn`` once per correlation group, on that
-    group's columns of ``coef`` (the pointers ``operands`` and ``feed``
-    after them), counting each launch on ``wrapper``: (nsamp, nchan, C)
-    complex."""
+def _blend(wrapper, coef, nterms, ncorr, nchan, nta, operands, feed):
+    """Launch ``wrapper``'s blend kernel (the entry of its name) once per
+    correlation group, on that group's columns of ``coef`` (the tensors
+    ``operands`` and ``feed`` after them), counting each launch on
+    ``wrapper``: (nsamp, nchan, C) complex."""
     name = wrapper.__name__
     nsamp, nud = coef.shape[0], coef.shape[-2]
     outs = []
@@ -395,9 +352,8 @@ def _blend(fn, wrapper, coef, nterms, ncorr, nchan, nta, operands, feed):
             continue
         _check_blend_smem(name, nterms, nud, k, coef.element_size())
         part = _columns(coef, ncorr, c0, k)
-        _launch(fn, name, coef.device, part.data_ptr(),
-                *(x.data_ptr() for x in operands), _ptr(feed), out.data_ptr(),
-                nsamp, nud, nchan, k, nta, int(coef.dtype == torch.float64))
+        _build.launch(name, coef.device, part, *operands, feed, out, nsamp, nud, nchan, k,
+                      nta, int(coef.dtype == torch.float64))
         wrapper.launches += 1
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
@@ -426,8 +382,7 @@ def beam_blend(raw, gc0, wlo, feed=None):
     if raw.device.type == "cpu":
         return beam_blend_reference(raw, gc0, wlo, feed)
     _aligned("beam_blend", feed=feed)
-    _, blend, _ = _library()
-    return _blend(blend, beam_blend, raw, 1, ncorr, nchan, nta, (gc0, wlo), feed)
+    return _blend(beam_blend, raw, 1, ncorr, nchan, nta, (gc0, wlo), feed)
 
 
 beam_blend.launches = 0
@@ -465,8 +420,7 @@ def beam_blend_cell(bterms, lda, mda, gc0, wlo, feed=None):
     if bterms.device.type == "cpu":
         return beam_blend_cell_reference(bterms, lda, mda, gc0, wlo, feed)
     _aligned("beam_blend_cell", feed=feed)
-    _, _, cell = _library()
-    return _blend(cell, beam_blend_cell, bterms, 4, ncorr, nchan, nta,
+    return _blend(beam_blend_cell, bterms, 4, ncorr, nchan, nta,
                   (lda, mda, gc0, wlo), feed)
 
 

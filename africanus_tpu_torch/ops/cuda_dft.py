@@ -75,8 +75,6 @@ of the values and the outputs are concatenated.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 from torch import nn
@@ -90,9 +88,7 @@ from africanus_tpu_torch.rime.phase import _sign_for, phase_dot_cycles
 
 __all__ = ["DftPlan", "dft_forward", "dft_adjoint", "dft_forward_reference",
            "dft_adjoint_reference", "chan_group_tables",
-           "measured_delay_max", "build_dft", "DELAY_MAX"]
-
-_SOURCES = ("dft.cu",)
+           "measured_delay_max", "DELAY_MAX"]
 
 # residual-mode engagement (pallas_dft.py:72-80): the small-angle
 # polynomial holds while |2π·delay·δ_f| ≤ _X_MAX rad; DELAY_MAX (1e-4 s,
@@ -128,33 +124,6 @@ _TARGET_BLOCKS = 4096
 _REF_SOURCE_BLOCK = 64
 _REF_PIXEL_BLOCK = 256
 _DELAY_BLOCK = 512
-
-
-def build_dft():
-    """Compile ``csrc/dft.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("dft", _SOURCES)
-
-
-def _library():
-    return _bind(_build.load("dft", _SOURCES))
-
-
-def _bind(lib):
-    """The two launch functions of a build of ``csrc/dft.cu``, typed:
-    (forward, adjoint)."""
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fwd, adj = lib.dft_forward_launch, lib.dft_adjoint_launch
-    if fwd.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        fwd.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3 + [i32] * 4
-                        + [f32] * 4 + [ptr] + [i32] * 4 + [ptr])
-        fwd.restype = ctypes.c_int
-        adj.argtypes = ([ptr] * 9 + [i32] * 4 + [f32] * 4 + [ptr] * 2
-                        + [i32] * 6 + [ptr])
-        adj.restype = ctypes.c_int
-    return fwd, adj
 
 
 # ------------------------------------------------------------ host tables
@@ -468,19 +437,9 @@ def _channel_phasors(dhi, dlo, plan, g):
         yield rotated(f0 + k, dre, dim)
 
 
-def _launch(fn, name, plan, *args):
-    """Call a ``dft.cu`` entry point on the plan's device and stream."""
-    with torch.cuda.device(plan.lm.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
 def _tables(plan):
     """The plan's channel tables and groups, as the kernels take them."""
-    return (plan.ftab_dev.data_ptr(), plan.rtab_dev.data_ptr(),
-            plan.gtab_dev.data_ptr(), plan.cg, plan.ngroups,
+    return (plan.ftab_dev, plan.rtab_dev, plan.gtab_dev, plan.cg, plan.ngroups,
             _groups_a_block(plan.ngroups), _MODES[plan.mode])
 
 
@@ -515,12 +474,9 @@ def dft_forward(plan, uvw, image):
                       device=uvw.device)
     if nsrc == 0 or nrow == 0 or nchan == 0:
         return out.zero_()
-    fwd, _ = _library()
-    _launch(fwd, "dft_forward", plan, plan.l.data_ptr(), plan.m.data_ptr(),
-            plan.n1h.data_ptr(), plan.n1l.data_ptr(), uvw.data_ptr(),
-            image.data_ptr(), int(image.is_complex()), *_tables(plan),
-            *plan.sign, plan.delay_small, plan.delay_far, out.data_ptr(), nsrc,
-            nrow, nchan, ncorr)
+    _build.launch("dft_forward", uvw.device, plan.l, plan.m, plan.n1h, plan.n1l, uvw,
+                  image, int(image.is_complex()), *_tables(plan), *plan.sign,
+                  plan.delay_small, plan.delay_far, out, nsrc, nrow, nchan, ncorr)
     dft_forward.launches += 1
     return out
 
@@ -611,12 +567,9 @@ def dft_adjoint(plan, uvw, vis):
     rows, nchunks = _row_chunks(npix, nrow, plan.ngroups)
     partial = torch.empty((nchunks, nchan, ncorr, npix), dtype=torch.float32,
                           device=uvw.device)
-    _, adj = _library()
-    _launch(adj, "dft_adjoint", plan, plan.l.data_ptr(), plan.m.data_ptr(),
-            plan.n1h.data_ptr(), plan.n1l.data_ptr(), uvw.data_ptr(),
-            vis.data_ptr(), *_tables(plan), *plan.sign, plan.delay_small,
-            plan.delay_far, partial.data_ptr(), out.data_ptr(), npix, nrow, nchan, ncorr,
-            rows, nchunks)
+    _build.launch("dft_adjoint", uvw.device, plan.l, plan.m, plan.n1h, plan.n1l, uvw, vis,
+                  *_tables(plan), *plan.sign, plan.delay_small, plan.delay_far, partial,
+                  out, npix, nrow, nchan, ncorr, rows, nchunks)
     dft_adjoint.launches += 1
     return out
 

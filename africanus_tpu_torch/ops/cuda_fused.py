@@ -47,7 +47,6 @@ kernel reproduces.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -63,10 +62,8 @@ from africanus_tpu_torch.ops.jones import mul2x2, mul2x2_hr
 from africanus_tpu_torch.rime.phase import _sign_for as _sign, phase_dot_cycles
 
 __all__ = ["Route", "Operands", "fused_dde", "fused_dde_reference", "fused_pairs",
-           "fused_pairs_reference", "row_plan",
-           "shared_bytes", "build_fused_dde", "ROWS", "CHANS", "MAX_STATIONS"]
-
-_SOURCES = ("fused_dde.cu",)
+           "fused_pairs_reference", "row_plan", "shared_bytes", "ROWS", "CHANS",
+           "MAX_STATIONS"]
 
 THREADS = 256      # a block's threads (csrc/fused_dde.cu's THREADS)
 CHANS = 8          # channels of a block, one a lane
@@ -173,23 +170,6 @@ def row_plan(time_index, left=None, right=None):
             (lp | (lq << 16)).astype(np.int32))
 
 
-def build_fused_dde():
-    """Compile ``csrc/fused_dde.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("fused_dde", _SOURCES)
-
-
-def _library():
-    fn = _build.load("fused_dde", _SOURCES).fused_dde_launch
-    if fn.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 12 + [i32] * 12 + [ptr]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _stations(ops):
     """(stations, antennas, dumps) of the operands' Jones tables."""
     if ops.feed is not None:
@@ -237,15 +217,6 @@ def _check(ops, out, comp, first, last):
             raise ValueError(f"fused_dde: {key} must be contiguous on {dev}")
 
 
-def _pairs_library():
-    fn = _build.load("fused_dde", _SOURCES).fused_pairs_launch
-    if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 4 + [i32, i32, f32, f32, ptr]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_pairs(lm, uvw, shape=None, convention="fourier"):
     """The ``pairs`` operand: (S, R, 4) float32 (hi, lo, u1, v1), the
     two-float delay of :func:`~africanus_tpu_torch.rime.phase.phase_dot_cycles`
@@ -265,12 +236,7 @@ def fused_pairs(lm, uvw, shape=None, convention="fourier"):
     chi, clo = (float(x) for x in df_const(_sign(convention) / lightspeed))
     S, R = lm.shape[0], uvw.shape[0]
     pairs = torch.empty((S, R, 4), dtype=torch.float32, device=lm.device)
-    fn = _pairs_library()
-    with torch.cuda.device(lm.device):
-        rc = fn(lm.data_ptr(), uvw.data_ptr(), None if axes is None else axes.data_ptr(),
-                pairs.data_ptr(), S, R, chi, clo, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_pairs launch failed: CUDA error {rc}")
+    _build.launch("fused_pairs", lm.device, lm, uvw, axes, pairs, S, R, chi, clo)
     fused_pairs.launches += 1
     return pairs
 
@@ -298,21 +264,11 @@ def fused_dde(ops, out, comp=None, first=True, last=True):
     width = ops.stations.shape[1]
     S, R = ops.pairs.shape[:2]
     F = ops.freq.shape[0]
-    fn = _library()
-    _build.init_once("fused_dde", _SOURCES, out.device)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ptr(ops.pairs), ptr(ops.bright), ptr(ops.beam), ptr(ops.feed),
-                ptr(ops.stations), ptr(ops.local), ptr(ops.order), ptr(ops.tiles),
-                ptr(ops.freq), ptr(ops.gscale), ptr(out), ptr(comp), S, R, F, T, A,
-                stations, width, ops.tiles.shape[0], int(ops.feed_first), int(first),
-                int(last), shared_bytes(width, ops.feed is not None), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_dde launch failed: CUDA error {rc}")
+    _build.launch("fused_dde", out.device, ops.pairs, ops.bright, ops.beam, ops.feed,
+                  ops.stations, ops.local, ops.order, ops.tiles, ops.freq, ops.gscale, out,
+                  comp, S, R, F, T, A, stations, width, ops.tiles.shape[0],
+                  int(ops.feed_first), int(first), int(last),
+                  shared_bytes(width, ops.feed is not None))
     fused_dde.launches += 1
     return out
 

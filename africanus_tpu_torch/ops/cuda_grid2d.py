@@ -39,17 +39,13 @@ card.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from africanus_tpu_torch.ops import _build
 from africanus_tpu_torch.ops import cuda_wgrid as cw
 
 __all__ = ["grid_2d", "degrid_2d", "grid_2d_reference", "degrid_2d_reference",
-           "build_grid2d", "CORRS", "MAX_GRID_CORRS"]
-
-_SOURCES = ("grid2d.cu",)
+           "CORRS", "MAX_GRID_CORRS"]
 
 # the correlation counts csrc/grid2d.cu's degrid kernel is instantiated
 # for (its supports are cuda_wgrid.SUPPORTS); the grid kernel takes 1 to
@@ -81,26 +77,6 @@ def _gather_smem(plan, ncorr):
             + _GATHER_SLOTS * 2 * w * rb)
 
 
-def build_grid2d():
-    """Compile ``csrc/grid2d.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("grid2d", _SOURCES)
-
-
-def _library():
-    lib = _build.load("grid2d", _SOURCES)
-    ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    spread, degrid = lib.grid2d_spread_launch, lib.grid2d_degrid_launch
-    if spread.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 7 + [i64, i64, ptr] + [i32] * 11 + [f64, i32, ptr]
-        degrid.argtypes = [ptr] * 9 + [i32] * 8 + [f64, i32, ptr]
-        for fn in (spread, degrid):
-            fn.restype = ctypes.c_int
-    return spread, degrid
-
-
 def _check_plan(name, plan):
     if not isinstance(plan, cw.WGridPlan):
         raise ValueError(f"{name} takes a WGridPlan")
@@ -129,14 +105,11 @@ def _spread(plan, vis, grid):
     each holding all k correlations (a tap's position and ES product
     formed once per sample)."""
     ncorr = vis.shape[0]
-    spread, _ = _library()
-    _build.init_once("grid2d", _SOURCES, vis.device)
-    _build.launch(spread, "grid_2d", plan, plan.ent_pos.data_ptr(),
-                  plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
-                  plan.order.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
-                  vis.data_ptr(), vis.stride(0), vis.stride(1), grid.data_ptr(),
+    _build.launch("grid2d_spread", plan.device, plan.ent_pos, plan.ent_off, plan.ent_start,
+                  plan.order, plan.uf, plan.vf, vis, vis.stride(0), vis.stride(1), grid,
                   plan.nsamples, plan.nu, plan.nv, plan.support, ncorr, plan.tile_u,
-                  plan.tile_v, plan.ntiles, plan.ntv, 1, cw._CHUNK, plan.beta)
+                  plan.tile_v, plan.ntiles, plan.ntv, 1, cw._CHUNK, plan.beta,
+                  int(plan.dtype == torch.float64))
 
 
 def grid_2d(plan, vis):
@@ -206,16 +179,12 @@ def degrid_2d(plan, grid):
     outs = [torch.empty((plan.nsamples, k), dtype=plan.complex_dtype,
                         device=grid.device) for _, k in groups]
     if plan.nsamples:
-        _, degrid = _library()
-        _build.init_once("grid2d", _SOURCES, grid.device)
         for (c0, k), out in zip(groups, outs):
-            _build.launch(degrid, "degrid_2d", plan, plan.gather_tiles.data_ptr(),
-                          plan.home_start.data_ptr(), plan.order.data_ptr(),
-                          plan.iu0.data_ptr(), plan.iv0.data_ptr(),
-                          plan.uf.data_ptr(), plan.vf.data_ptr(),
-                          grid[c0].data_ptr(), out.data_ptr(), plan.ngather,
-                          plan.nu, plan.nv, plan.tile_u, plan.tile_v, plan.ntv,
-                          plan.support, k, plan.beta)
+            _build.launch("grid2d_degrid", plan.device, plan.gather_tiles, plan.home_start,
+                          plan.order, plan.iu0, plan.iv0, plan.uf, plan.vf, grid[c0], out,
+                          plan.ngather, plan.nu, plan.nv, plan.tile_u, plan.tile_v,
+                          plan.ntv, plan.support, k, plan.beta,
+                          int(plan.dtype == torch.float64))
             degrid_2d.launches += 1
     return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).T
 

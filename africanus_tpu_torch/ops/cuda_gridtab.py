@@ -31,8 +31,6 @@ card.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 from torch import nn
@@ -41,9 +39,7 @@ from africanus_tpu_torch.ops import _build
 from africanus_tpu_torch.ops import cuda_wgrid as cw
 
 __all__ = ["TableGridPlan", "grid_table", "degrid_table", "grid_table_reference",
-           "degrid_table_reference", "build_gridtab", "SUPPORTS"]
-
-_SOURCES = ("gridtab.cu",)
+           "degrid_table_reference", "SUPPORTS"]
 
 # the odd supports csrc/gridtab.cu is instantiated for. The plan and the
 # plain versions take any support (the JAX package's PP gridder has no
@@ -77,26 +73,6 @@ def _gather_smem(tile, support, real_bytes, ntab=0):
     pitch), and ``ntab`` staged table values."""
     side = tile + 2 * (support - 1)
     return side * (side | 1) * 2 * real_bytes + ntab * real_bytes
-
-
-def build_gridtab():
-    """Compile ``csrc/gridtab.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("gridtab", _SOURCES)
-
-
-def _library():
-    lib = _build.load("gridtab", _SOURCES)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    spread, degrid = lib.gridtab_spread_launch, lib.gridtab_degrid_launch
-    if spread.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
-        degrid.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
-        for fn in (spread, degrid):
-            fn.restype = ctypes.c_int
-    return spread, degrid
 
 
 class TableGridPlan(nn.Module):
@@ -284,14 +260,10 @@ def grid_table(plan, table, values):
     grid = torch.empty((plan.nband, plan.npix, plan.npix), dtype=plan.complex_dtype,
                        device=values.device)
     tab_smem = _spread_table_smem(plan)
-    spread, _ = _library()
-    _build.init_once("gridtab", _SOURCES, values.device)
-    _build.launch(spread, "grid_table", plan, plan.ent_pos.data_ptr(),
-                  plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
-                  plan.order.data_ptr(), plan.fr.data_ptr(), plan.fc.data_ptr(),
-                  table.data_ptr(), values.data_ptr(), grid.data_ptr(), plan.support,
-                  plan.ntab, plan.oversample, tab_smem, plan.npix, plan.nband,
-                  plan.tile, plan.ntr * plan.ntc, plan.ntc, cw._CHUNK)
+    _build.launch("gridtab_spread", plan.device, plan.ent_pos, plan.ent_off, plan.ent_start,
+                  plan.order, plan.fr, plan.fc, table, values, grid, plan.support, plan.ntab,
+                  plan.oversample, tab_smem, plan.npix, plan.nband, plan.tile,
+                  plan.ntr * plan.ntc, plan.ntc, cw._CHUNK, int(plan.dtype == torch.float64))
     grid_table.launches += 1
     return grid
 
@@ -362,15 +334,11 @@ def degrid_table(plan, table, grid):
     _check_support("degrid_table", plan)
     if plan.nkeep:
         tab_smem = _gather_table_smem(plan)
-        _, degrid = _library()
-        _build.init_once("gridtab", _SOURCES, grid.device)
-        _build.launch(degrid, "degrid_table", plan, plan.gather_blocks.data_ptr(),
-                      plan.home_start.data_ptr(), plan.order.data_ptr(),
-                      plan.pir0.data_ptr(), plan.pic0.data_ptr(), plan.pfr.data_ptr(),
-                      plan.pfc.data_ptr(), table.data_ptr(), grid.data_ptr(),
-                      out.data_ptr(), plan.support, plan.ntab, plan.oversample,
-                      tab_smem, plan.ngather, plan.npix, plan.nband, plan.tile,
-                      plan.ntc)
+        _build.launch("gridtab_degrid", plan.device, plan.gather_blocks, plan.home_start,
+                      plan.order, plan.pir0, plan.pic0, plan.pfr, plan.pfc, table, grid, out,
+                      plan.support, plan.ntab, plan.oversample, tab_smem, plan.ngather,
+                      plan.npix, plan.nband, plan.tile, plan.ntc,
+                      int(plan.dtype == torch.float64))
         degrid_table.launches += 1
     return out
 

@@ -23,16 +23,12 @@ against the card's limits.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from africanus_tpu_torch.ops import _build
 
-__all__ = ["hogbom", "layout", "shared_bytes", "build_hogbom", "THREADS",
-           "MAX_CTAS", "SMEM_BYTES", "BAND_PIXELS"]
-
-_SOURCES = ("hogbom.cu",)
+__all__ = ["hogbom", "layout", "shared_bytes", "THREADS", "MAX_CTAS", "SMEM_BYTES",
+           "BAND_PIXELS"]
 
 THREADS = 1024        # a block's threads (csrc/hogbom.cu's THREADS)
 MAX_CTAS = 16         # the largest cluster an H100 schedules (non-portable)
@@ -64,23 +60,6 @@ def layout(npix, itemsize):
     rows = -(-npix // ctas)
     in_smem = shared_bytes(npix, itemsize, ctas, rows, True) <= SMEM_BYTES
     return ctas, rows, in_smem, shared_bytes(npix, itemsize, ctas, rows, in_smem)
-
-
-def build_hogbom():
-    """Compile ``csrc/hogbom.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("hogbom", _SOURCES)
-
-
-def _library():
-    fn = _build.load("hogbom", _SOURCES).hogbom_launch
-    if fn.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [ptr] * 5 + [f64, f64] + [i32] * 7 + [ptr]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def hogbom(dirty, psf, gamma, frac, niter):
@@ -116,16 +95,9 @@ def hogbom(dirty, psf, gamma, frac, niter):
     clean, residual = torch.empty_like(dirty), torch.empty_like(dirty)
     flags = torch.empty(max(niter + 1, 0), dtype=torch.bool, device=dirty.device)
     ctas, rows, in_smem, smem = layout(npix, dirty.element_size())
-    fn = _library()
-    _build.init_once("hogbom", _SOURCES, dirty.device)
-    with torch.cuda.device(dirty.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(dirty.data_ptr(), psf.data_ptr(), clean.data_ptr(),
-                residual.data_ptr(), flags.data_ptr(), float(gamma), float(frac),
-                int(niter), npix, ctas, rows, int(in_smem), smem,
-                int(dirty.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(f"hogbom launch failed: CUDA error {rc}")
+    _build.launch("hogbom", dirty.device, dirty, psf, clean, residual, flags,
+                  float(gamma), float(frac), int(niter), npix, ctas, rows, int(in_smem),
+                  smem, int(dirty.dtype == torch.float64))
     hogbom.launches += 1
     return clean, residual, flags
 

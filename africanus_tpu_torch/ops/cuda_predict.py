@@ -42,7 +42,6 @@ outputs concatenated.
 
 from __future__ import annotations
 
-import ctypes
 import math
 import weakref
 
@@ -53,10 +52,8 @@ from torch import nn
 from africanus_tpu_torch.ops import _build
 from africanus_tpu_torch.ops.dfloat import frac_cycles
 
-__all__ = ["predict_kb", "predict_kb_reference", "build_predict_kb",
-           "PredictPlan", "plan_for"]
+__all__ = ["predict_kb", "predict_kb_reference", "PredictPlan", "plan_for"]
 
-_SOURCES = ("predict_kb.cu",)
 # the correlation counts csrc/predict_kb.cu is instantiated for
 _KERNEL_CORRS = (1, 2, 4)
 # channels per group (csrc/predict_kb.cu's SLOTS): the recurrence's
@@ -69,31 +66,6 @@ CG_MAX = 16
 X_MAX = 0.1
 X_SMALL = 4e-4
 _MODES = {"direct": 0, "exact": 1, "residual": 2}
-
-
-def build_predict_kb():
-    """Compile ``csrc/predict_kb.cu`` if needed: (library path, seconds
-    spent compiling, compiler log)."""
-    return _build.build("predict_kb", _SOURCES)
-
-
-def _library():
-    return _bind(_build.load("predict_kb", _SOURCES))
-
-
-def _bind(lib):
-    """The two launch functions of a build of ``csrc/predict_kb.cu``,
-    typed: the compensated phase's and the plain phase's."""
-    comp, plain = lib.predict_kb_launch, lib.predict_kb_plain_launch
-    if comp.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        comp.argtypes = [ptr] * 9 + [i32] * 3 + [f32, f32, ptr] + [i32] * 4 + [ptr]
-        comp.restype = ctypes.c_int
-        plain.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-        plain.restype = ctypes.c_int
-    return comp, plain
 
 
 class PredictPlan(nn.Module):
@@ -254,10 +226,6 @@ def _unpack(phase_dot, u1, v1, freq, scaled_freq, b):
     return hi, lo, u1, v1
 
 
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
 def _check_plan(plan, freq):
     """Raise ValueError unless ``plan``, given to :func:`predict_kb` with
     ``freq``, is the plan of ``freq``'s float32 values on ``freq``'s
@@ -326,27 +294,18 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
 
     nsrc, nrow = hi.shape
     nchan, ncorr = b.shape[1], b.shape[2]
-    comp, plain = _library()
     out = torch.empty((nrow, nchan, ncorr), dtype=torch.complex64,
                       device=hi.device)
-    with torch.cuda.device(hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if lo is None:
-            rc = plain(hi.data_ptr(), _ptr(u1), _ptr(v1), freq.data_ptr(),
-                       scaled_freq.data_ptr(), b.data_ptr(), out.data_ptr(),
-                       nsrc, nrow, nchan, ncorr, stream)
-        else:
-            if plan is None:
-                plan = plan_for(freq)
-            rc = comp(hi.data_ptr(), lo.data_ptr(), _ptr(u1), _ptr(v1),
-                      scaled_freq.data_ptr(), b.data_ptr(),
-                      plan.ftab_dev.data_ptr(), plan.rtab_dev.data_ptr(),
-                      plan.gtab_dev.data_ptr(), *plan.launch_groups,
-                      _MODES[plan.mode], plan.delay_max, plan.delay_small,
-                      out.data_ptr(),
-                      nsrc, nrow, nchan, ncorr, stream)
-    if rc != 0:
-        raise RuntimeError(f"predict_kb launch failed: CUDA error {rc}")
+    if lo is None:
+        _build.launch("predict_kb_plain", hi.device, hi, u1, v1, freq, scaled_freq, b,
+                      out, nsrc, nrow, nchan, ncorr)
+    else:
+        if plan is None:
+            plan = plan_for(freq)
+        _build.launch("predict_kb", hi.device, hi, lo, u1, v1, scaled_freq, b,
+                      plan.ftab_dev, plan.rtab_dev, plan.gtab_dev, *plan.launch_groups,
+                      _MODES[plan.mode], plan.delay_max, plan.delay_small, out, nsrc,
+                      nrow, nchan, ncorr)
     predict_kb.launches += 1
     return out
 

@@ -38,8 +38,6 @@ tests hold against the Pallas kernels in interpret mode and
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 from torch import nn
@@ -48,10 +46,7 @@ from africanus_tpu_torch.ops import _build
 from africanus_tpu_torch.ops.es import es_np, es_torch
 
 __all__ = ["WGridPlan", "sample_geometry", "grid_wstack", "degrid_wstack",
-           "grid_wstack_reference", "degrid_wstack_reference", "build_wgrid",
-           "SUPPORTS"]
-
-_SOURCES = ("wgrid.cu",)
+           "grid_wstack_reference", "degrid_wstack_reference", "SUPPORTS"]
 
 # the supports csrc/wgrid.cu is instantiated for: those the w-gridder's
 # _kernel_params chooses
@@ -94,26 +89,6 @@ _GROUPS = 6
 # tap elements per chunk of the plain versions, which bounds their peak
 # memory (~0.5 GB of index and weight planes)
 _REF_TAPS = 1 << 24
-
-
-def build_wgrid():
-    """Compile ``csrc/wgrid.cu`` if needed: (library path, seconds spent
-    compiling, compiler log)."""
-    return _build.build("wgrid", _SOURCES)
-
-
-def _library():
-    lib = _build.load("wgrid", _SOURCES)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    spread, degrid = lib.wgrid_spread_launch, lib.wgrid_degrid_launch
-    if spread.argtypes is None:
-        # c_void_p for every pointer and the stream: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the address
-        spread.argtypes = [ptr] * 10 + [i32] * 13 + [f64, i32, ptr]
-        degrid.argtypes = [ptr] * 11 + [i32] * 11 + [f64, i32, ptr]
-        for fn in (spread, degrid):
-            fn.restype = ctypes.c_int
-    return spread, degrid
 
 
 # ------------------------------------------------------------ host planning
@@ -505,15 +480,11 @@ def grid_wstack(plan, vis):
                        device=vis.device)
     if plan.nsamples == 0:  # nothing to launch (as degrid_wstack)
         return grid.zero_()
-    spread, _ = _library()
-    _build.init_once("wgrid", _SOURCES, vis.device)
-    _build.launch(spread, "grid_wstack", plan, plan.ent_pos.data_ptr(),
-                  plan.ent_off.data_ptr(), plan.ent_start.data_ptr(),
-                  plan.order.data_ptr(), plan.p0.data_ptr(), plan.uf.data_ptr(),
-                  plan.vf.data_ptr(), plan.wsc.data_ptr(), vis.data_ptr(),
-                  grid.data_ptr(), plan.nsamples, plan.nu, plan.nv, plan.nplanes,
-                  plan.support, plan.wsup, plan.tile_u, plan.tile_v, plan.ntiles,
-                  plan.ntv, plan.plane_block, plan.groups, _CHUNK, plan.beta)
+    _build.launch("wgrid_spread", plan.device, plan.ent_pos, plan.ent_off, plan.ent_start,
+                  plan.order, plan.p0, plan.uf, plan.vf, plan.wsc, vis, grid, plan.nsamples,
+                  plan.nu, plan.nv, plan.nplanes, plan.support, plan.wsup, plan.tile_u,
+                  plan.tile_v, plan.ntiles, plan.ntv, plan.plane_block, plan.groups, _CHUNK,
+                  plan.beta, int(plan.dtype == torch.float64))
     grid_wstack.launches += 1
     return grid
 
@@ -588,16 +559,12 @@ def degrid_wstack(plan, grid):
     out = torch.empty(plan.nsamples, dtype=plan.complex_dtype, device=grid.device)
     if plan.nsamples == 0:
         return out
-    _, degrid = _library()
-    _build.init_once("wgrid", _SOURCES, grid.device)
-    pos = plan.stack_pos.data_ptr() if plan.stack_pos.numel() else None
-    _build.launch(degrid, "degrid_wstack", plan, plan.stack_blocks.data_ptr(), pos,
-                  plan.order.data_ptr(), plan.iu0.data_ptr(), plan.iv0.data_ptr(),
-                  plan.p0.data_ptr(), plan.uf.data_ptr(), plan.vf.data_ptr(),
-                  plan.wsc.data_ptr(), grid.data_ptr(), out.data_ptr(), plan.nstack,
-                  plan.nsamples, plan.nu, plan.nv, plan.nplanes, plan.tile_u,
-                  plan.tile_v, plan.ntv, plan.stack_block, plan.support, plan.wsup,
-                  plan.beta)
+    pos = plan.stack_pos if plan.stack_pos.numel() else None
+    _build.launch("wgrid_degrid", plan.device, plan.stack_blocks, pos, plan.order, plan.iu0,
+                  plan.iv0, plan.p0, plan.uf, plan.vf, plan.wsc, grid, out, plan.nstack,
+                  plan.nsamples, plan.nu, plan.nv, plan.nplanes, plan.tile_u, plan.tile_v,
+                  plan.ntv, plan.stack_block, plan.support, plan.wsup, plan.beta,
+                  int(plan.dtype == torch.float64))
     degrid_wstack.launches += 1
     return out
 

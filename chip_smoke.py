@@ -4451,14 +4451,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from africanus_tpu_torch import native
-    from africanus_tpu_torch.ops.cuda_beam import build_beam
-    from africanus_tpu_torch.ops.cuda_dft import build_dft
-    from africanus_tpu_torch.ops.cuda_fused import build_fused_dde
-    from africanus_tpu_torch.ops.cuda_grid2d import build_grid2d
-    from africanus_tpu_torch.ops.cuda_gridtab import build_gridtab
-    from africanus_tpu_torch.ops.cuda_hogbom import build_hogbom
-    from africanus_tpu_torch.ops.cuda_predict import build_predict_kb
-    from africanus_tpu_torch.ops.cuda_wgrid import build_wgrid
+    from africanus_tpu_torch.ops import _build
 
     # full-f32 references: no TF32 in any matmul or convolution
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4484,20 +4477,13 @@ def main():
               f"{native.load_error()}")
         return native.library_path(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(1) as pool:
         mappers = pool.submit(build_native)
-        builds = [f.result() for f in [pool.submit(build_predict_kb),
-                                       pool.submit(build_dft),
-                                       pool.submit(build_wgrid),
-                                       pool.submit(build_beam),
-                                       pool.submit(build_grid2d),
-                                       pool.submit(build_gridtab),
-                                       pool.submit(build_hogbom),
-                                       pool.submit(build_fused_dde)]]
+        builds = _build.build_all()
         lib, seconds = mappers.result()
     print(f"[2/{PHASES}] built {os.path.relpath(lib)} (g++) in {seconds:.1f} s",
           flush=True)
-    for lib, seconds, log in builds:
+    for lib, seconds, log in builds.values():
         ptxas = "; ".join(ln.split("ptxas info    : ")[-1]
                           for ln in log.splitlines() if "Used" in ln)
         print(f"[2/{PHASES}] built {os.path.relpath(lib)} in {seconds:.1f} s "

@@ -5,7 +5,7 @@
 
 Builds variants of africanus_tpu_torch/csrc/beam.cu, each with one stage
 of beam_interp switched off or done another way (text substitutions of
-the source), with the port's nvcc flags into build/variants/, and times
+the source), as the port builds the source, into build/variants/, and times
 each on the three routes of config 3's beam chain (chip_smoke.BEAM: the
 general route's 512 samples x 4096 channels, the channel-invariant and
 the cell-corner launches), in turns (the list, then the list reversed),
@@ -16,7 +16,6 @@ first; the variants' errors against the plain version show which of
 them still compute the map.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -85,27 +84,15 @@ def build(name):
         if old not in text:
             raise RuntimeError(f"variant {name!r}: the source has no {old!r}")
         text = text.replace(old, new)
-    d = _build.BUILD_DIR / "variants" / name.replace(" ", "_").replace(",", "")
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "beam.cu").write_text(text)
-    lib = d / "libbeam.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(d / "beam.cu")],
-                   check=True, capture_output=True, text=True)
-    return name, lib
-
-
-def use(lib):
-    """Point the beam wrappers at the library ``lib``."""
-    from africanus_tpu_torch.ops import cuda_beam as cb
-
-    fns = cb._bind(ctypes.CDLL(str(lib)))
-    cb._library = lambda: fns
+    _build.build("beam", text)
+    return name, text
 
 
 def main():
     import torch
 
     import chip_smoke as cs
+    from africanus_tpu_torch.ops import _build
     from africanus_tpu_torch.ops import cuda_beam as cb
     from africanus_tpu_torch.rime.beam_chain import beam_inputs, from_numpy
 
@@ -137,11 +124,11 @@ def main():
     print(f"empty kernel {cs.kernel_median_ms(lambda: torch.cuda._sleep(0)):.4f} ms",
           flush=True)
     for name in list(VARIANTS) + list(VARIANTS)[::-1]:
-        use(libs[name])
+        _build.use("beam", libs[name])
         print(f"{name}: " + ", ".join(
             "{} {:.4f} ms (vs plain {:.1e})".format(r, *run(r)) for r in ops), flush=True)
 
-    use(libs["kernel"])
+    _build.use("beam", libs["kernel"])
     layout = cb.interp_layout
     for route, cases in (("general", GENERAL), ("chan-invariant", SMALL),
                          ("cell corners", SMALL)):

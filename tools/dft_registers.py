@@ -4,9 +4,8 @@ several checkouts side by side, on one CUDA machine.
 
     python3 tools/dft_registers.py ROOT [ROOT ...]
 
-Compiles each ROOT's africanus_tpu_torch/csrc/dft.cu with this
-checkout's nvcc flags (``-Xptxas -v``) into build/registers/, all at
-once, and prints one line an instance (dft_adjoint_kernel<C, MODE,
+Compiles each ROOT's africanus_tpu_torch/csrc/dft.cu as this checkout
+builds its own (``-Xptxas -v``), into build/variants/, all at once, and prints one line an instance (dft_adjoint_kernel<C, MODE,
 STAGE>, dft_forward_kernel<C, MODE, IMAG, STAGE>, dft_adjoint_sum;
 MODE 0 direct, 1 exact, 2 residual): its registers and spill stores in
 each ROOT, the first ROOT's differences marked. Ends with the instances
@@ -14,7 +13,6 @@ that spill more than in the first ROOT.
 """
 
 import re
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -43,23 +41,16 @@ def instances(log):
     return out
 
 
-def build(i, root):
+def build(root):
     from africanus_tpu_torch.ops import _build
 
-    d = _build.BUILD_DIR / "registers" / str(i)
-    d.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "libdft.so"),
-                           str(Path(root) / "africanus_tpu_torch" / "csrc" / "dft.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{root}: dft.cu did not build:\n{proc.stderr}")
-    return instances(proc.stdout + proc.stderr)
+    return instances(_build.build("dft", root / "africanus_tpu_torch" / "csrc" / "dft.cu")[2])
 
 
 def main(argv):
     roots = [Path(r).resolve() for r in argv] or [ROOT]
     with ThreadPoolExecutor(len(roots)) as pool:
-        found = list(pool.map(build, range(len(roots)), roots))
+        found = list(pool.map(build, roots))
     print("instance: " + " | ".join(r.name for r in roots) + " (registers, spill bytes)")
     more = []
     for k in sorted(found[0]):

@@ -4,7 +4,7 @@
     python3 tools/dft_variants.py
 
 Builds variants of africanus_tpu_torch/csrc/dft.cu (text substitutions of
-the source) with the port's nvcc flags into build/variants/dft/, and
+the source) as the port builds the source, into build/variants/, and
 times each in turns (the list, then the list reversed), as chip_smoke.py
 times a kernel (a CUDA graph of 10 launches), at the config-5 selfcal
 step's shapes with the step's plans: dft_adjoint on the residual image
@@ -27,7 +27,6 @@ is not built: variant_source raises. Each variant's registers and spills
 Prints the card's name and power limit first.
 """
 
-import ctypes
 import re
 import subprocess
 import sys
@@ -129,16 +128,7 @@ def build(name):
     from africanus_tpu_torch.ops import _build
 
     text = variant_source(name, (_build.CSRC / "dft.cu").read_text())
-    d = _build.BUILD_DIR / "variants" / "dft" / "".join(
-        c if c.isalnum() else "_" for c in name)
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "dft.cu").write_text(text)
-    lib = d / "libdft.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(d / "dft.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"variant {name!r} did not build:\n{proc.stderr}")
-    return name, (lib, registers(proc.stdout + proc.stderr))
+    return name, (text, registers(_build.build("dft", text)[2]))
 
 
 def main():
@@ -149,6 +139,7 @@ def main():
         from_numpy, make_data, selfcal_inputs,
     )
     from africanus_tpu_torch.dft import dft_plan
+    from africanus_tpu_torch.ops import _build
     from africanus_tpu_torch.ops import cuda_dft as cd
 
     if not torch.cuda.is_available():
@@ -182,9 +173,8 @@ def main():
         return cs.kernel_median_ms(lambda: fn(*ops)), err
 
     for name in list(VARIANTS) + list(VARIANTS)[::-1]:
-        lib, regs = libs[name]
-        fns = cd._bind(ctypes.CDLL(str(lib)))
-        cd._library = lambda fns=fns: fns
+        text, regs = libs[name]
+        _build.use("dft", text)
         for k, v in {**defaults, **VARIANTS[name][1]}.items():
             setattr(cd, k, v)
         print(f"{name}: " + ", ".join(

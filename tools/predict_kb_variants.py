@@ -4,8 +4,8 @@
     python3 tools/predict_kb_variants.py
 
 Builds variants of africanus_tpu_torch/csrc/predict_kb.cu (text
-substitutions of the source) with the port's nvcc flags into
-build/variants/predict_kb/, and times each in turns (the list, then the
+substitutions of the source) as the port builds the source, into
+build/variants/, and times each in turns (the list, then the
 list reversed), as chip_smoke.py times a kernel (a CUDA graph of 10
 launches), at two shapes: the flagship chunk (chip_smoke.py's phase 6:
 100 gaussian sources x 8064 rows x 4096 channels, C = 4) and a chunk of
@@ -21,7 +21,6 @@ raises.
 Prints the card's name and power limit first.
 """
 
-import ctypes
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -77,16 +76,8 @@ def build(name):
     from africanus_tpu_torch.ops import _build
 
     text = variant_source(name, (_build.CSRC / "predict_kb.cu").read_text())
-    d = _build.BUILD_DIR / "variants" / "predict_kb" / "".join(
-        c if c.isalnum() else "_" for c in name)
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "predict_kb.cu").write_text(text)
-    lib = d / "libpredict_kb.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(d / "predict_kb.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"variant {name!r} did not build:\n{proc.stderr}")
-    return name, lib
+    _build.build("predict_kb", text)
+    return name, text
 
 
 def store_shaped(device):
@@ -118,6 +109,7 @@ def main():
     import torch
 
     import chip_smoke as cs
+    from africanus_tpu_torch.ops import _build
     from africanus_tpu_torch.ops import cuda_predict as cp
     from africanus_tpu_torch.rime.flagship import from_numpy
 
@@ -150,8 +142,7 @@ def main():
         return cs.kernel_median_ms(lambda: cp.predict_kb(*shapes[shape])), err
 
     for name in list(VARIANTS) + list(VARIANTS)[::-1]:
-        fns = cp._bind(ctypes.CDLL(str(libs[name])))
-        cp._library = lambda fns=fns: fns
+        _build.use("predict_kb", libs[name])
         print(f"{name}: " + ", ".join(
             "{} {:.3f} ms (vs plain {:.1e})".format(k, *run(k)) for k in shapes),
             flush=True)
