@@ -77,6 +77,21 @@
 // this one was chosen over (CUDA cores at C = 4, other register caps, two
 // buffers of sources).
 //
+// The DIE gains (GAINS, both kernels): a caller that multiplies V by
+// diagonal direction-independent gains, G_p V G_q^H with (T, A, F, C)
+// tables g1, g2, hands them to the kernel, which applies them as it
+// stores V:
+//   out[r,f,c] = (g1[t,p,f,c] * V[r,f,c]) * conj(g2[t,q,f,c]),
+// (t, p, q) row r's dump (less the chunk's first), antenna1 and antenna2,
+// loaded once a thread for each of its rows. Without it the map costs a
+// pass of its own over the output: V written, read back and written again
+// (2 x 1.06 GB at the MeerKAT-64 chunk, >= 0.63 ms of HBM time), besides
+// the gathered gain planes; in the store it reads only the gains, whose
+// rows a block's 32 rows (consecutive baselines of a dump) share in L1 and
+// L2 (a MeerKAT-64 chunk's table is 33.5 MB). The sums and their order
+// are untouched, so reruns stay bitwise; the epilogue is compiled only
+// into the GAINS = true instances.
+//
 // The plain-phase kernel (predict_kb_plain_kernel; no caller on a main
 // path) keeps the direct per-term evaluation: a thread a channel, ROWS rows
 // of accumulators, sincosf and expf per term.
@@ -292,6 +307,43 @@ __device__ __forceinline__ void advance(float& zr, float& zi, const Pair& q) {
     zr = nr;
 }
 
+// The DIE gains of the store (GAINS; the header says how): the rows'
+// dumps (less the chunk's first) and antennas, and the two (T, A, F, C)
+// complex64 tables, which may be one.
+struct Gains {
+    const long long* time;
+    const long long* a1;
+    const long long* a2;
+    const float2* g1;
+    const float2* g2;
+    int T, A;
+};
+
+// g1[t, p, f0 .., :] and g2[t, q, f0 .., :] of output row r, or NULL
+// where r's indices lie outside the tables (its outputs are then NaN)
+template <int C>
+__device__ __forceinline__ void gain_rows(const Gains& gn, int r, int F, size_t f0,
+                                          const float2*& g1, const float2*& g2) {
+    const long long t = gn.time[r], p = gn.a1[r], q = gn.a2[r];
+    if (t < 0 || t >= gn.T || p < 0 || p >= gn.A || q < 0 || q >= gn.A) {
+        g1 = g2 = nullptr;
+        return;
+    }
+    g1 = gn.g1 + ((size_t)t * gn.A + p) * F * C + f0 * C;
+    g2 = gn.g2 + ((size_t)t * gn.A + q) * F * C + f0 * C;
+}
+
+// (g1 * v) * conj(g2), in the order of rime/predict.py's predict_vis
+__device__ __forceinline__ float2 sandwich(float2 g1, float2 v, float2 g2) {
+    const float pr = g1.x * v.x - g1.y * v.y, pi = g1.x * v.y + g1.y * v.x;
+    return make_float2(pr * g2.x + pi * g2.y, pi * g2.x - pr * g2.y);
+}
+
+__device__ __forceinline__ float2 nan2() {
+    const float x = __int_as_float(0x7fc00000);
+    return make_float2(x, x);
+}
+
 #define PREDICT_ARGS                                                          \
     const float* __restrict__ hi, const float* __restrict__ lo,               \
         const float* __restrict__ u1, const float* __restrict__ v1,           \
@@ -303,9 +355,9 @@ __device__ __forceinline__ void advance(float& zr, float& zi, const Pair& q) {
 
 // C = 1, 2 on the CUDA cores: a thread keeps its row's SLOTS x C
 // accumulators and its warp's channel tables in registers.
-template <int C, int MODE, bool ENV>
+template <int C, int MODE, bool ENV, bool GAINS>
 __global__ void __launch_bounds__(LANES * GPB, C == 1 ? CORE_MIN_BLOCKS : CORE2_MIN_BLOCKS)
-predict_kb_kernel(PREDICT_ARGS) {
+predict_kb_kernel(PREDICT_ARGS, Gains gn) {
     __shared__ Pair s_pair[STAGES][SRC_TILE][LANES];
     __shared__ __align__(16) float2 s_b[STAGES][SRC_TILE][GPB][SLOTS * C];
     __shared__ float4 s_freq[GPB][SLOTS];  // [nu, hh, hl, lo] (DIRECT)
@@ -409,12 +461,19 @@ predict_kb_kernel(PREDICT_ARGS) {
     const int r = r0 + lane;
     if (!active || r >= R) return;
     float2* op = out + ((size_t)r * F + (size_t)g * cg) * C;
+    const float2 *g1r = nullptr, *g2r = nullptr;
+    if constexpr (GAINS) gain_rows<C>(gn, r, F, (size_t)g * cg, g1r, g2r);
 #pragma unroll
     for (int k = 0; k < SLOTS; ++k) {
         if (sl.chan(w, k) < 0) break;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-            op[k * C + c] = make_float2(acc_re[k][c], acc_im[k][c]);
+        for (int c = 0; c < C; ++c) {
+            float2 v = make_float2(acc_re[k][c], acc_im[k][c]);
+            if constexpr (GAINS)
+                v = g1r == nullptr ? nan2()
+                                   : sandwich(__ldg(g1r + k * C + c), v, __ldg(g2r + k * C + c));
+            op[k * C + c] = v;
+        }
     }
 }
 
@@ -439,9 +498,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0, unsigned a1
 // C = 4 on the tensor cores (the header says how). A warp owns one 16-row
 // tile of one channel group and takes NSLICE slices of 4 sources together;
 // pair (u, j) of a thread is source 4u + t and row g + 8j of its tile.
-template <int MODE, bool ENV>
+template <int MODE, bool ENV, bool GAINS>
 __global__ void __launch_bounds__(LANES * 2 * MMA_GROUPS, MMA_MIN_BLOCKS)
-predict_kb_mma_kernel(PREDICT_ARGS) {
+predict_kb_mma_kernel(PREDICT_ARGS, Gains gn) {
     constexpr int C = 4;
     __shared__ Pair s_pair[STAGES][SRC_TILE][LANES];
     __shared__ __align__(16) float2 s_b[STAGES][SRC_TILE][MMA_GROUPS][SLOTS * C];
@@ -583,6 +642,30 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
     // D: d0, d1 at (row g, columns 2t, 2t+1), d2, d3 at (row g+8, ...); the
     // lane t ^ 2 holds the other halves of the same correlations
     const int ra = r0 + 16 * tile + gq, rb = ra + 8;
+    // GAINS: the gain rows of rows ra and rb, read as the output is stored
+    const float2 *g1a = nullptr, *g2a = nullptr, *g1b = nullptr, *g2b = nullptr;
+    if constexpr (GAINS) {
+        if (tq < 2 && ra < R) gain_rows<C>(gn, ra, F, 0, g1a, g2a);
+        if (tq < 2 && rb < R) gain_rows<C>(gn, rb, F, 0, g1b, g2b);
+    }
+    // correlations 2 tq, 2 tq + 1 of a row and channel f, as (re, im, re, im)
+    auto store = [&](size_t r, int f, float4 v, const float2* g1, const float2* g2) {
+        if constexpr (GAINS) {
+            if (g1 == nullptr) {
+                const float2 n = nan2();
+                v = make_float4(n.x, n.y, n.x, n.y);
+            } else {
+                const float4 x1 = __ldg(reinterpret_cast<const float4*>(g1 + f * C + 2 * tq));
+                const float4 x2 = __ldg(reinterpret_cast<const float4*>(g2 + f * C + 2 * tq));
+                const float2 c0 = sandwich(make_float2(x1.x, x1.y), make_float2(v.x, v.y),
+                                           make_float2(x2.x, x2.y));
+                const float2 c1 = sandwich(make_float2(x1.z, x1.w), make_float2(v.z, v.w),
+                                           make_float2(x2.z, x2.w));
+                v = make_float4(c0.x, c0.y, c1.x, c1.y);
+            }
+        }
+        *reinterpret_cast<float4*>(out + (r * F + f) * C + 2 * tq) = v;
+    };
 #pragma unroll
     for (int k = 0; k < SLOTS; ++k) {
         const int f = sl.chan(wg, k);
@@ -590,40 +673,46 @@ predict_kb_mma_kernel(PREDICT_ARGS) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) x[i] = __shfl_xor_sync(0xffffffffu, acc[k][i], 2);
         if (f < 0 || tq >= 2) continue;
-        if (ra < R)
-            *reinterpret_cast<float4*>(out + ((size_t)ra * F + f) * C + 2 * tq) =
-                make_float4(acc[k][0], x[0], acc[k][1], x[1]);
-        if (rb < R)
-            *reinterpret_cast<float4*>(out + ((size_t)rb * F + f) * C + 2 * tq) =
-                make_float4(acc[k][2], x[2], acc[k][3], x[3]);
+        if (ra < R) store(ra, f, make_float4(acc[k][0], x[0], acc[k][1], x[1]), g1a, g2a);
+        if (rb < R) store(rb, f, make_float4(acc[k][2], x[2], acc[k][3], x[3]), g1b, g2b);
     }
 }
 
-template <int C, int MODE, bool ENV>
-void launch(PREDICT_ARGS, cudaStream_t stream) {
+template <int C, int MODE, bool ENV, bool GAINS>
+void launch(PREDICT_ARGS, Gains gn, cudaStream_t stream) {
     const int ng = C == 4 ? MMA_GROUPS : GPB;
     const int gpb = min(ng, ngroups);
     const dim3 grid((R + LANES - 1) / LANES, (ngroups + gpb - 1) / gpb);
     if constexpr (C == 4)
-        predict_kb_mma_kernel<MODE, ENV><<<grid, 2 * LANES * gpb, 0, stream>>>(
+        predict_kb_mma_kernel<MODE, ENV, GAINS><<<grid, 2 * LANES * gpb, 0, stream>>>(
             hi, lo, u1, v1, sf, b, ftab, rtab, gtab, cg, ngroups, delay_max,
-            delay_small, out, S, R, F);
+            delay_small, out, S, R, F, gn);
     else
-        predict_kb_kernel<C, MODE, ENV><<<grid, LANES * gpb, 0, stream>>>(
+        predict_kb_kernel<C, MODE, ENV, GAINS><<<grid, LANES * gpb, 0, stream>>>(
             hi, lo, u1, v1, sf, b, ftab, rtab, gtab, cg, ngroups, delay_max,
-            delay_small, out, S, R, F);
+            delay_small, out, S, R, F, gn);
 }
 
-template <int C>
-void dispatch(int mode, PREDICT_ARGS, cudaStream_t stream) {
-#define LAUNCH(M, E) launch<C, M, E>(hi, lo, u1, v1, sf, b, ftab, rtab, gtab, \
-                                     cg, ngroups, delay_max, delay_small, out, \
-                                     S, R, F, stream)
+template <int C, bool GAINS>
+void dispatch_modes(int mode, PREDICT_ARGS, Gains gn, cudaStream_t stream) {
+#define LAUNCH(M, E) launch<C, M, E, GAINS>(hi, lo, u1, v1, sf, b, ftab, rtab, gtab, \
+                                            cg, ngroups, delay_max, delay_small, out, \
+                                            S, R, F, gn, stream)
     const bool env = u1 != nullptr;
     if (mode == DIRECT) { if (env) LAUNCH(DIRECT, true); else LAUNCH(DIRECT, false); }
     else if (mode == EXACT) { if (env) LAUNCH(EXACT, true); else LAUNCH(EXACT, false); }
     else { if (env) LAUNCH(RESIDUAL, true); else LAUNCH(RESIDUAL, false); }
 #undef LAUNCH
+}
+
+template <int C>
+void dispatch(int mode, PREDICT_ARGS, Gains gn, cudaStream_t stream) {
+    if (gn.g1 != nullptr)
+        dispatch_modes<C, true>(mode, hi, lo, u1, v1, sf, b, ftab, rtab, gtab, cg,
+                                ngroups, delay_max, delay_small, out, S, R, F, gn, stream);
+    else
+        dispatch_modes<C, false>(mode, hi, lo, u1, v1, sf, b, ftab, rtab, gtab, cg,
+                                 ngroups, delay_max, delay_small, out, S, R, F, gn, stream);
 }
 
 // ------------------------------------------------------------ plain phase
@@ -735,8 +824,11 @@ void plain(const float* dot, const float* u1, const float* v1, const float* freq
 // the grid's step as [nu, hh, hl, lo]; cg channels in each of ngroups
 // groups (cg <= 16; cg * ngroups == F, or in the DIRECT mode the last
 // group ragged); mode 0 direct, 1 exact, 2 residual; delay_max (s) and
-// delay_small (s, the bound of the first-order rotation).
-// Launches on `stream`; returns cudaGetLastError().
+// delay_small (s, the bound of the first-order rotation). The DIE gains,
+// all NULL for none: time_index, antenna1, antenna2 (R,) int64, the dump
+// less the chunk's first; g1, g2 (T, A, F, C) complex64, 16-byte aligned
+// at C = 4, possibly one table. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int predict_kb_launch(const float* hi, const float* lo,
                                  const float* u1, const float* v1,
                                  const float* sf, const void* b,
@@ -744,21 +836,30 @@ extern "C" int predict_kb_launch(const float* hi, const float* lo,
                                  const float* gtab, int cg, int ngroups,
                                  int mode, float delay_max, float delay_small,
                                  void* out, int S, int R, int F, int C,
-                                 void* stream) {
+                                 const long long* time_index,
+                                 const long long* antenna1,
+                                 const long long* antenna2, const void* g1,
+                                 const void* g2, int T, int A, void* stream) {
     if (R <= 0 || F <= 0) return (int)cudaSuccess;
+    const bool gains = g1 != nullptr;
     if (mode < DIRECT || mode > RESIDUAL || cg < 1 || cg > SLOTS ||
         (mode == DIRECT ? (cg * ngroups < F || cg * (ngroups - 1) >= F)
-                        : cg * ngroups != F))
+                        : cg * ngroups != F) ||
+        gains != (g2 != nullptr) || gains != (time_index != nullptr) ||
+        gains != (antenna1 != nullptr) || gains != (antenna2 != nullptr) ||
+        (gains && (T < 1 || A < 1)))
         return (int)cudaErrorInvalidValue;
+    const Gains gn = {time_index, antenna1, antenna2, static_cast<const float2*>(g1),
+                      static_cast<const float2*>(g2), T, A};
     const float2* bb = static_cast<const float2*>(b);
     const float4* ft = reinterpret_cast<const float4*>(ftab);
     const float4* gt = reinterpret_cast<const float4*>(gtab);
     float2* oo = static_cast<float2*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (C) {
-        case 1: dispatch<1>(mode, hi, lo, u1, v1, sf, bb, ft, rtab, gt, cg, ngroups, delay_max, delay_small, oo, S, R, F, st); break;
-        case 2: dispatch<2>(mode, hi, lo, u1, v1, sf, bb, ft, rtab, gt, cg, ngroups, delay_max, delay_small, oo, S, R, F, st); break;
-        case 4: dispatch<4>(mode, hi, lo, u1, v1, sf, bb, ft, rtab, gt, cg, ngroups, delay_max, delay_small, oo, S, R, F, st); break;
+        case 1: dispatch<1>(mode, hi, lo, u1, v1, sf, bb, ft, rtab, gt, cg, ngroups, delay_max, delay_small, oo, S, R, F, gn, st); break;
+        case 2: dispatch<2>(mode, hi, lo, u1, v1, sf, bb, ft, rtab, gt, cg, ngroups, delay_max, delay_small, oo, S, R, F, gn, st); break;
+        case 4: dispatch<4>(mode, hi, lo, u1, v1, sf, bb, ft, rtab, gt, cg, ngroups, delay_max, delay_small, oo, S, R, F, gn, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

@@ -55,7 +55,8 @@ _F, _D = ctypes.c_float, ctypes.c_double
 # it exports one, raises its kernels' dynamic shared-memory limits.
 LIBRARIES = {
     "predict_kb": (("predict_kb.cu",), {
-        "predict_kb": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P] + [_I] * 4 + [_P],
+        "predict_kb": ([_P] * 9 + [_I] * 3 + [_F] * 2 + [_P] + [_I] * 4 + [_P] * 5
+                       + [_I] * 2 + [_P]),
         "predict_kb_plain": [_P] * 7 + [_I] * 4 + [_P],
     }),
     "dft": (("dft.cu",), {

@@ -38,6 +38,12 @@ C are accepted: the TPU's tile divisibility rules and padding do not
 carry over, and the kernel takes C ∈ {1, 2, 4} at a time, so another C is
 split into such groups on the card (3 = 2 + 1), one launch each, the
 outputs concatenated.
+
+Diagonal DIE gains, G_p·V·G_qᴴ (``gains=``), are applied by the kernel
+as it stores V (its header says why), counted in
+``predict_kb.gains_launches``; on the CPU they are
+:func:`~africanus_tpu_torch.rime.predict.predict_vis`'s, after the plain
+version, so that one call gives one map on both.
 """
 
 from __future__ import annotations
@@ -245,8 +251,41 @@ def _check_plan(plan, freq):
                          "card would read the plan's and the CPU freq's")
 
 
-def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
-    """Fused K[×env]×B predict.
+def _unpack_gains(gains, hi, b):
+    """Validate :func:`predict_kb`'s ``gains`` against the delay ``hi``
+    (src, row) and the brightness ``b``; return them as a tuple."""
+    if not isinstance(gains, (tuple, list)) or len(gains) != 5:
+        raise ValueError("gains is (time_index, antenna1, antenna2, g1, g2)")
+    nrow, (nchan, ncorr) = hi.shape[1], b.shape[1:]
+    for name, x in zip(("time_index", "antenna1", "antenna2"), gains[:3]):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int64
+                or tuple(x.shape) != (nrow,)):
+            raise ValueError(f"{name} must be an int64 (row,) = ({nrow},) tensor, "
+                             f"got {getattr(x, 'dtype', type(x))} "
+                             f"{tuple(getattr(x, 'shape', ()))}")
+    g1 = gains[3]
+    for name, g in zip(("g1", "g2"), gains[3:]):
+        if (not isinstance(g, torch.Tensor) or g.dtype != torch.complex64
+                or g.ndim != 4 or tuple(g.shape[2:]) != (nchan, ncorr)
+                or g.shape[:2] != g1.shape[:2]):
+            raise ValueError(
+                f"{name} must be complex64 diagonal gains (time, ant, chan, corr) "
+                f"with (chan, corr) = {(nchan, ncorr)}, g1's (time, ant), and no "
+                f"(2, 2) layout; got {getattr(g, 'dtype', type(g))} "
+                f"{tuple(getattr(g, 'shape', ()))}")
+    if any(x.device != hi.device for x in gains):
+        raise ValueError("the gains must be on the operands' device")
+    if not all(x.is_contiguous() for x in gains):
+        raise ValueError("the gains must be contiguous")
+    if any(g.data_ptr() % 16 for g in gains[3:]):
+        raise ValueError("g1 and g2 must start on 16 bytes (the kernel reads "
+                         "two correlations at a time)")
+    return tuple(gains)
+
+
+def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None, gains=None):
+    """Fused K[×env]×B predict, with diagonal DIE gains applied as V is
+    stored where they are given.
 
     Parameters
     ----------
@@ -270,10 +309,17 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
         is planned by :func:`plan_for` (a tensor on the card read once,
         host values never), and a plan of other frequencies, channels or
         device raises ValueError
+    gains : None, or diagonal DIE gains ``(time_index, antenna1,
+        antenna2, g1, g2)``: (row,) int64 indices (``time_index`` less
+        its minimum indexes the tables) and (time, ant, chan, corr)
+        complex64 tables, which may be one tensor; then the result is
+        g1[t, p]·V·conj(g2[t, q]) per row, as
+        :func:`~africanus_tpu_torch.rime.predict.predict_vis` computes
+        it. The compensated phase only: with the plain phase it raises
 
     Every operand is contiguous and on one device. CUDA tensors launch
     ``csrc/predict_kb.cu`` (once per group of 1, 2 or 4 correlations);
-    CPU tensors take :func:`predict_kb_reference`.
+    CPU tensors take :func:`predict_kb_reference`, then ``predict_vis``.
 
     Returns
     -------
@@ -282,16 +328,42 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
     hi, lo, u1, v1 = _unpack(phase_dot, u1, v1, freq, scaled_freq, b)
     if plan is not None:
         _check_plan(plan, freq)
+    if gains is not None:
+        if lo is None:
+            raise ValueError("the DIE gains are applied on the compensated "
+                             "phase's route only: pass the delay as (hi, lo)")
+        gains = _unpack_gains(gains, hi, b)
     if hi.device.type == "cpu":
-        return predict_kb_reference(phase_dot, u1, v1, freq, scaled_freq, b)
+        vis = predict_kb_reference(phase_dot, u1, v1, freq, scaled_freq, b)
+        if gains is None:
+            return vis
+        # imported here: rime imports the flagship, which imports this
+        from africanus_tpu_torch.rime.predict import predict_vis
+
+        time_index, antenna1, antenna2, g1, g2 = gains
+        return predict_vis(time_index, antenna1, antenna2, die1_jones=g1,
+                           base_vis=vis, die2_jones=g2)
     if hi.device.type != "cuda":
         raise ValueError(f"predict_kb runs on cuda or cpu, not {hi.device}")
-    if b.shape[2] not in _KERNEL_CORRS:
-        return torch.cat([predict_kb(phase_dot, u1, v1, freq, scaled_freq,
-                                     b[..., c0:c0 + k].contiguous(), plan)
-                          for c0, k in _build.groups(b.shape[2], _KERNEL_CORRS)],
-                         dim=-1)
+    if lo is not None and plan is None:
+        plan = plan_for(freq)
+    if gains is not None:
+        time_index, antenna1, antenna2, g1, g2 = gains
+        gains = (time_index - time_index.min(), antenna1, antenna2, g1, g2)
+    if b.shape[2] in _KERNEL_CORRS:
+        return _launch(hi, lo, u1, v1, freq, scaled_freq, b, plan, gains)
+    outs = []
+    for c0, k in _build.groups(b.shape[2], _KERNEL_CORRS):
+        part = None if gains is None else (
+            *gains[:3], *(g[..., c0:c0 + k].contiguous() for g in gains[3:]))
+        outs.append(_launch(hi, lo, u1, v1, freq, scaled_freq,
+                            b[..., c0:c0 + k].contiguous(), plan, part))
+    return torch.cat(outs, dim=-1)
 
+
+def _launch(hi, lo, u1, v1, freq, scaled_freq, b, plan, gains):
+    """One launch of the kernel on checked CUDA operands (C ∈ {1, 2, 4}),
+    ``gains`` with the time index less its minimum."""
     nsrc, nrow = hi.shape
     nchan, ncorr = b.shape[1], b.shape[2]
     out = torch.empty((nrow, nchan, ncorr), dtype=torch.complex64,
@@ -300,17 +372,21 @@ def predict_kb(phase_dot, u1, v1, freq, scaled_freq, b, plan=None):
         _build.launch("predict_kb_plain", hi.device, hi, u1, v1, freq, scaled_freq, b,
                       out, nsrc, nrow, nchan, ncorr)
     else:
-        if plan is None:
-            plan = plan_for(freq)
+        time_index, antenna1, antenna2, g1, g2 = (None,) * 5 if gains is None else gains
+        ntime, nant = (0, 0) if gains is None else g1.shape[:2]
         _build.launch("predict_kb", hi.device, hi, lo, u1, v1, scaled_freq, b,
                       plan.ftab_dev, plan.rtab_dev, plan.gtab_dev, *plan.launch_groups,
                       _MODES[plan.mode], plan.delay_max, plan.delay_small, out, nsrc,
-                      nrow, nchan, ncorr)
+                      nrow, nchan, ncorr, time_index, antenna1, antenna2, g1, g2,
+                      ntime, nant)
+        if gains is not None:
+            predict_kb.gains_launches += 1
     predict_kb.launches += 1
     return out
 
 
 predict_kb.launches = 0
+predict_kb.gains_launches = 0
 
 
 def predict_kb_reference(phase_dot, u1, v1, freq, scaled_freq, b,

@@ -5,13 +5,17 @@ Twin of ``__graft_entry__._predict_step_pallas`` (and of its XLA form
 ``_predict_step``): spectral model → Stokes→correlation conversion →
 two-float geometric delay → envelope coordinates → the fused source
 contraction (:func:`africanus_tpu_torch.ops.cuda_predict.predict_kb`,
-the CUDA kernel on the card) → :func:`predict_vis` with diagonal 4-corr
-DIE gains.
+the CUDA kernel on the card) with diagonal 4-corr DIE gains, which the
+kernel applies as it stores the visibilities (on the CPU,
+:func:`~africanus_tpu_torch.rime.predict.predict_vis` after the plain
+contraction).
 
 :class:`FlagshipPredict` holds the sky model as buffers and predicts one
 row chunk per call, its stages in the profiler spans ``flagship.sky``,
-``flagship.contract`` and ``flagship.gains`` under ``flagship.call``
-(:mod:`africanus_tpu_torch.utils.profiling`); :func:`flagship_inputs`
+``flagship.gains`` (the gain phasors) and ``flagship.contract`` under
+``flagship.call`` (:mod:`africanus_tpu_torch.utils.profiling`), and
+counts its calls and those whose gains the kernel applied
+(``FlagshipPredict.calls``, ``.gains_fused``); :func:`flagship_inputs`
 makes the same seeded numpy inputs as ``__graft_entry__._flagship``;
 :func:`from_numpy` turns such an input tuple into the module and its
 tensors; :func:`predict_oracle_f64`
@@ -31,10 +35,10 @@ from africanus_tpu_torch.model.shape.gaussian_shape import (
     GAUSS_SCALE, envelope_coordinates,
 )
 from africanus_tpu_torch.model.spectral.spec_model import spectral_model
+from africanus_tpu_torch.ops import cuda_predict
 from africanus_tpu_torch.ops.cuda_predict import predict_kb
 from africanus_tpu_torch.rime.phase import phase_dot_cycles
-from africanus_tpu_torch.rime.predict import predict_vis
-from africanus_tpu_torch.utils.profiling import span
+from africanus_tpu_torch.utils.profiling import HostCount, span
 
 __all__ = ["FlagshipPredict", "flagship_inputs", "from_numpy",
            "predict_oracle_f64"]
@@ -49,7 +53,14 @@ class FlagshipPredict(nn.Module):
     Buffers (float32): ``lm`` (src, 2), ``stokes`` (src, 4) I/Q/U/V,
     ``spi`` (src, spi-comps, 4), ``ref_freq`` (src,), ``gauss_shape``
     (src, 3) (emajor, eminor, angle).
+
+    ``calls`` and ``gains_fused``: :class:`HostCount` counts, while a
+    profiler records, of every instance's forwards and of those whose
+    gains ``predict_kb``'s kernel applied in its store.
     """
+
+    calls = HostCount()
+    gains_fused = HostCount()
 
     def __init__(self, lm, stokes, spi, ref_freq, gauss_shape):
         super().__init__()
@@ -78,7 +89,7 @@ class FlagshipPredict(nn.Module):
 
         Parameters
         ----------
-        time_index, antenna1, antenna2 : (row,) integer tensors
+        time_index, antenna1, antenna2 : (row,) int64 tensors
         uvw : (row, 3) float32, metres
         frequency : (chan,) float32, Hz
         gain_phase : (time, ant, chan, 4) float32 — diagonal DIE gain
@@ -89,15 +100,18 @@ class FlagshipPredict(nn.Module):
         (row, chan, 4) complex64 visibilities (XX, XY, YX, YY).
         """
         with span("flagship.call"):
+            FlagshipPredict.calls.add(1)
             with span("flagship.sky"):
                 operands = self.kernel_operands(uvw, frequency)
-            with span("flagship.contract"):
-                coh = predict_kb(*operands)
             with span("flagship.gains"):
                 gains = torch.polar(torch.ones_like(gain_phase), gain_phase)
-                return predict_vis(time_index, antenna1, antenna2,
-                                   die1_jones=gains, base_vis=coh,
-                                   die2_jones=gains)
+            with span("flagship.contract"):
+                fused = cuda_predict.predict_kb.gains_launches
+                vis = predict_kb(*operands, gains=(time_index, antenna1, antenna2,
+                                                   gains, gains))
+                FlagshipPredict.gains_fused.add(
+                    int(cuda_predict.predict_kb.gains_launches > fused))
+                return vis
 
 
 def flagship_inputs(nsrc, ntime, nant, nchan, seed):

@@ -30,9 +30,9 @@ stage:
 
 - ``FlagshipPredict.forward``: ``flagship.call`` around ``flagship.sky``
   (``kernel_operands``: spectra, brightness, delays, envelope
-  coordinates), ``flagship.contract`` (``predict_kb``) and
-  ``flagship.gains`` (``torch.polar`` of the gain phases and
-  ``predict_vis``);
+  coordinates), ``flagship.gains`` (``torch.polar`` of the gain phases)
+  and ``flagship.contract`` (``predict_kb``, which applies the gains as
+  it stores the visibilities);
 - ``SelfcalStep.forward``: ``selfcal.call`` around ``selfcal.solve``
   (``gauss_newton``), ``selfcal.residual`` (``corrupt_vis`` and the
   subtraction), ``selfcal.image`` (``vis_to_im``, the sums and the
@@ -53,6 +53,9 @@ Counters, attributes of what does the work, as each kernel wrapper's
   run while a profiler records (one (niter + 1,) tensor of running flags
   a call), and of those that took a component:
   ``hogbom_clean.taken.read()``;
+- ``FlagshipPredict.calls`` and ``FlagshipPredict.gains_fused``:
+  :class:`HostCount` counts of the flagship's forwards and of those whose
+  DIE gains ``predict_kb``'s kernel applied in its store;
 - ``SelfcalStep.plan_seconds``: host seconds spent planning in the set-up
   of every ``SelfcalStep`` made (the gather table and the two DFT plans);
 - ``RimeFactory.calls``, ``RimeFactory.blocks``,

@@ -34,12 +34,16 @@ twenty-nine phases that each print one line (some several):
 5. the flagship: FlagshipPredict over 3 row chunks of 4 time steps
    (64 antennas, 2016 baselines, 8064 rows, 4096 channels 0.856-1.712
    GHz, 4 correlations, 100 gaussian sources), counting the predict
-   kernel's launches and checking windows of every chunk against a
-   float64 oracle;
+   kernel's launches (each chunk's DIE gains applied in its store) and
+   checking windows of every chunk against a float64 oracle;
 6. flagship times: CUDA-event medians of the kernel (beside its bound
-   and the previous design's time) and of the whole forward at that
-   shape, one forward under set_sync_debug_mode("error"), two kernel
-   runs bitwise equal, and one run of the plain version;
+   and the previous design's time), of the kernel with the chunk's DIE
+   gains in its store, of the kernel followed by predict_vis (the gains
+   as torch ops) and of the whole forward at that shape, one forward
+   under set_sync_debug_mode("error"), two kernel runs bitwise equal,
+   the gains epilogue within 1e-6 of max of predict_vis, one run of the
+   plain version, and each kernel instance's registers and spills with
+   and without the gains;
 7. the selfcal step (bench.py config 5): SelfcalStep at 197 antennas
    (19306 baselines), 2 times (38612 rows), 16 channels, 2
    correlations, 20 sources, 10 Gauss-Newton iterations, a 64² residual
@@ -1046,20 +1050,50 @@ def slice_chunks():
     return chunks
 
 
+def predict_kb_instances(log):
+    """{(kernel, C, mode, envelope, gains): (registers, spill store
+    bytes)} of csrc/predict_kb.cu's compensated kernels from a build's
+    ptxas log; predict_kb_mma_kernel's C is 4, and an instance of a source
+    without the gains flag has gains 0."""
+    import re
+
+    out, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            k = re.search(r"(predict_kb_(?:mma_)?kernel)I((?:L[ib]\d+E)+)E", fn)
+            if k:
+                args = [int(a) for a in re.findall(r"L[ib](\d+)E", k.group(2))]
+                if k.group(1) == "predict_kb_mma_kernel":
+                    args.insert(0, 4)
+                args += [0] * (4 - len(args))
+                out[(k.group(1), *args)] = (int(m.group(1)), spill)
+            fn, spill = None, 0
+    return out
+
+
 def flagship(device, card):
     """Phases 5-6: the flagship predict. Returns its predict_kb entry of
     the kernels line."""
     import torch
+    from africanus_tpu_torch.ops import _build
     from africanus_tpu_torch.ops.cuda_predict import (
         predict_kb, predict_kb_reference,
     )
     from africanus_tpu_torch.rime.flagship import from_numpy, predict_oracle_f64
+    from africanus_tpu_torch.rime.predict import predict_vis
 
     chunks = slice_chunks()
     model, _ = from_numpy(chunks[0], device)
     inputs = [from_numpy(c, device)[1] for c in chunks]
     torch.cuda.synchronize()
-    predict_kb.launches = 0
+    predict_kb.launches = predict_kb.gains_launches = 0
     t0 = time.perf_counter()
     outs = [model(*x) for x in inputs]
     torch.cuda.synchronize()
@@ -1067,6 +1101,9 @@ def flagship(device, card):
     launches = predict_kb.launches
     check(launches == NCHUNK, f"predict_kb launched {launches} times, "
                               f"expected {NCHUNK}")
+    check(predict_kb.gains_launches == NCHUNK,
+          f"{predict_kb.gains_launches} of {NCHUNK} chunks' DIE gains in "
+          "predict_kb's store")
 
     nrow = chunks[0][1].size
     rows = np.unique(np.linspace(0, nrow - 1, 256).round().astype(int))
@@ -1097,8 +1134,22 @@ def flagship(device, card):
 
     # times at the slice's shape (chunk 0), on this card
     ops = model.kernel_operands(inputs[0][3], inputs[0][4])
+    ti, a1, a2, _, _, phases = inputs[0]
+    g = torch.polar(torch.ones_like(phases), phases)
+    gains = (ti, a1, a2, g, g)
     kernel_ms, _ = cuda_median_ms(lambda: predict_kb(*ops))
+    gains_ms, _ = cuda_median_ms(lambda: predict_kb(*ops, gains=gains))
+    torch_gains_ms, _ = cuda_median_ms(lambda: predict_vis(
+        ti, a1, a2, die1_jones=g, base_vis=predict_kb(*ops), die2_jones=g))
     forward_ms, _ = cuda_median_ms(lambda: model(*inputs[0]))
+    fused = predict_kb(*ops, gains=gains)
+    check(torch.equal(fused, predict_kb(*ops, gains=gains)),
+          "predict_kb with gains: reruns at the flagship chunk not bitwise equal")
+    unfused = predict_vis(ti, a1, a2, die1_jones=g, base_vis=predict_kb(*ops),
+                          die2_jones=g)
+    gains_err = float((fused - unfused).abs().max() / unfused.abs().max())
+    check(gains_err <= 1e-6, f"gains epilogue vs predict_vis: {gains_err:.3e} > 1e-6")
+    del fused, unfused
     # a forward never waits for the card: the frequencies' plan was made
     # at the first call, and the kernel sums in a fixed order
     torch.cuda.synchronize()
@@ -1132,6 +1183,17 @@ def flagship(device, card):
           f"predict_kb_reference {plain_ms:.1f} ms ({nvis / plain_ms / 1e3:.1f} "
           f"Mvis/s, peak {plain_peak:.1f} GiB); kernel vs plain max abs err "
           f"{max_abs:.3e} (max|V| {scale:.3e})", flush=True)
+    regs = predict_kb_instances(_build.build("predict_kb")[2])
+    pairs = "; ".join(
+        f"{name}<{', '.join(map(str, args))}> {regs[(name, *args, 0)]} / "
+        f"{regs.get((name, *args, 1))}"
+        for name, *args, gained in sorted(regs) if not gained)
+    print(f"[6/{PHASES}] DIE gains on {card}: predict_kb with the chunk's gains in "
+          f"its store {gains_ms:.3f} ms, without {kernel_ms:.3f} ms, then "
+          f"predict_vis {torch_gains_ms:.3f} ms (the gains as torch ops); epilogue "
+          f"vs predict_vis {gains_err:.2e} of max, reruns bitwise; registers, "
+          f"spill bytes of each instance (C, mode, envelope) without / with the "
+          f"gains: {pairs}", flush=True)
     return {
         "name": "predict_kb",
         "route": "cuda",
@@ -1141,6 +1203,7 @@ def flagship(device, card):
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": kernel_ms,
+        "gains_ms": gains_ms,
         "plain_ms": plain_ms,
         **entry_bound,
         "library_ms": None,

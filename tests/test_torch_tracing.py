@@ -25,7 +25,7 @@ from africanus_tpu_torch.rime.flagship import (
 from africanus_tpu_torch.utils import profiling
 
 STAGES = {
-    "flagship": ("flagship.sky", "flagship.contract", "flagship.gains"),
+    "flagship": ("flagship.sky", "flagship.gains", "flagship.contract"),
     "selfcal": ("selfcal.solve", "selfcal.residual", "selfcal.image",
                 "selfcal.clean", "selfcal.predict"),
 }
