@@ -7,7 +7,10 @@ Port of ``africanus_tpu/gridding/wgridder/api.py`` (reference
 ducc0 ``nthreads`` knob accepted and ignored. ``uvw`` and ``freq`` are
 host metadata (numpy or CPU tensors); the values are torch tensors on
 the device to run on. ``double_accum`` accumulates in float64 (ducc0's
-double_precision_accumulation).
+double_precision_accumulation). Each band runs on one cached plan
+(``core.make_plan``), its w-stack in blocks of planes where it does not
+fit the card (``core``); :func:`residual`'s band is the span
+``wgridder.residual``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from africanus_tpu_torch.gridding.wgridder.core import (
     _dtype, _host, degrid, grid_adjoint, make_plan,
 )
+from africanus_tpu_torch.utils.profiling import span
 
 __all__ = ["dirty", "model", "residual", "hessian"]
 
@@ -78,15 +82,16 @@ def residual(uvw, freq, image, vis, freq_bin_idx, freq_bin_counts, cell,
            or image.dtype == torch.float64)
     out = []
     for b, band in enumerate(_bands(freq_bin_idx, freq_bin_counts)):
-        plan = _band_plan(uvw, freq[band], image, cell, celly, epsilon,
-                          do_wstacking, f64)
-        mvis = degrid(uvw, freq[band], image[b], None, cell, celly, epsilon,
-                      do_wstacking, plan=plan)
-        out.append(grid_adjoint(uvw, freq[band], vis[:, band] - mvis,
-                                _band(weights, band), image.shape[1],
-                                image.shape[2], cell, celly, epsilon,
-                                do_wstacking, mask=_band(flag, band),
-                                plan=plan, double_accum=double_accum))
+        with span("wgridder.residual"):
+            plan = _band_plan(uvw, freq[band], image, cell, celly, epsilon,
+                              do_wstacking, f64)
+            mvis = degrid(uvw, freq[band], image[b], None, cell, celly, epsilon,
+                          do_wstacking, plan=plan)
+            out.append(grid_adjoint(uvw, freq[band], vis[:, band] - mvis,
+                                    _band(weights, band), image.shape[1],
+                                    image.shape[2], cell, celly, epsilon,
+                                    do_wstacking, mask=_band(flag, band),
+                                    plan=plan, double_accum=double_accum))
     return torch.stack(out)
 
 

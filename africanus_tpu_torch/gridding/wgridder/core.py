@@ -21,9 +21,30 @@ The spreading and its adjoint run in the hand-written CUDA kernels of
 CPU), on a :class:`~africanus_tpu_torch.ops.cuda_wgrid.WGridPlan` built
 on the host from concrete uvw and frequencies, one entry per sample —
 without w-stacking too (one plane, a unit w-tap). An
-:class:`ImagingPlan` (:func:`make_plan`) holds it beside the image-plane
-data. The FFTs are ``torch.fft``; the phase screens, tapers, pad and crop
-are torch ops. ``degrid_ri`` folds into :func:`degrid` (torch complex).
+:class:`ImagingPlan` (:func:`make_plan`) holds the samples' geometry
+beside the image-plane data. The FFTs are ``torch.fft``; the phase
+screens, tapers, pad and crop are torch ops. ``degrid_ri`` folds into
+:func:`degrid` (torch complex).
+
+Plane blocks: a w-stack is gridded, transformed and degridded whole
+where it fits ``MEMORY_SHARE`` of the device's free memory when the plan
+is built (:func:`block_bytes`), on the whole stack's ``WGridPlan`` and
+phase screens, both kept on the plan. Else it runs in blocks of
+consecutive planes (:meth:`ImagingPlan.plane_blocks`, chosen from the
+free memory read once a call), each with its own ``WGridPlan`` of the
+samples whose w-window meets it and its phase screens made for it. A
+window that straddles a block boundary is split: each block carries the
+sample's taps on its own planes (:func:`block_taps`), so every tap is
+deposited and gathered exactly once. Planes no window meets are in no
+block. The blocks' images are summed, and a sample's gathered parts
+added, in block order: a fixed order, so reruns on one layout are
+bitwise equal.
+
+Spans (:func:`~africanus_tpu_torch.utils.profiling.span`):
+``wgridder.grid`` and ``wgridder.degrid`` around the spreading kernels'
+launches, ``wgridder.transform`` around the FFTs, crop or pad, phase
+screens and tapers. ``ImagingPlan.calls``, ``.blocks`` and ``.planes``
+count gridding and degridding calls, blocks and planes transformed.
 
 Precision follows the plan: float32 (complex64), or float64 (complex128)
 when the values are float64 or ``double_accum`` is set — the ducc0
@@ -33,23 +54,30 @@ contract behind the reference's ``double_precision_accumulation``
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 from torch import nn
 
 from africanus_tpu_torch.constants import c as lightspeed
-from africanus_tpu_torch.ops._build import plan_device
+from africanus_tpu_torch.ops._build import MEMORY_SHARE, free_bytes, plan_device
 from africanus_tpu_torch.ops.cuda_wgrid import (
     WGridPlan, degrid_wstack, grid_wstack, sample_geometry,
 )
 from africanus_tpu_torch.ops.es import es_torch
 from africanus_tpu_torch.utils.plancache import LRUCache, content_key
+from africanus_tpu_torch.utils.profiling import HostCount, span
 
 __all__ = ["grid_adjoint", "degrid", "es_kernel", "kernel_taper", "make_plan",
-           "build_plan", "plan_geometry", "ImagingPlan", "grid_to_image",
-           "image_to_grid"]
+           "build_plan", "plan_geometry", "ImagingPlan", "PlaneBlock", "PlaneScreens",
+           "block_taps", "block_bytes", "grid_to_image", "image_to_grid"]
 
 _SIGMA = 2  # oversampling factor
+# threads that plan the samples and the blocks of planes on the host (the
+# cores the process may run on, at most 8)
+_THREADS = max(1, min(8, len(os.sched_getaffinity(0))))
 
 
 def _kernel_params(epsilon):
@@ -159,40 +187,186 @@ def _host(x):
     return np.asarray(x)
 
 
+class PlaneScreens(nn.Module):
+    """The w-planes' phase screens e^{−2πi·w_p·(n−1)}, w_p = w0 + p·dw:
+    ``screens(first, count)`` is the (count, nx, ny) block of them in
+    ``complex_dtype``, sliced from ``stack`` where the whole stack's are
+    kept (:meth:`keep`), else made for the call a plane at a time (a
+    whole stack of them can outgrow the card). Each is formed in float64
+    from the product w_p·(n−1) and ``polar``, then rounded. Buffers: the
+    planes' ``w`` (nplanes,) and ``nm1`` (nx, ny), float64, and
+    ``stack`` (nplanes, nx, ny) or None."""
+
+    def __init__(self, w, nm1, complex_dtype, device):
+        super().__init__()
+        self.complex_dtype = complex_dtype
+        self.register_buffer("w", torch.as_tensor(w, dtype=torch.float64, device=device),
+                             persistent=False)
+        self.register_buffer("nm1", torch.as_tensor(nm1, dtype=torch.float64,
+                                                    device=device), persistent=False)
+        self.register_buffer("stack", None, persistent=False)
+
+    def keep(self):
+        """Make and keep the whole stack's screens."""
+        if self.stack is None:
+            phase = -2.0 * np.pi * self.w[:, None, None] * self.nm1[None, :, :]
+            self.stack = torch.polar(torch.ones_like(phase), phase).to(self.complex_dtype)
+
+    def forward(self, first, count):
+        if self.stack is not None:
+            return self.stack[first:first + count]
+        out = torch.empty((count,) + tuple(self.nm1.shape), dtype=self.complex_dtype,
+                          device=self.nm1.device)
+        for k in range(count):
+            phase = -2.0 * np.pi * self.w[first + k] * self.nm1
+            out[k] = torch.polar(torch.ones_like(phase), phase)
+        return out
+
+
+class PlaneBlock(nn.Module):
+    """Planes ``first`` … ``first + count − 1`` of a w-stack and the
+    samples whose w-window meets them: the buffer ``samples`` (n,) int64,
+    their indices in the flattened (row·chan) order, ascending, and
+    ``wgrid`` their :class:`~africanus_tpu_torch.ops.cuda_wgrid.WGridPlan`
+    on a stack of max(count, W) planes whose first ``count`` are the
+    block's, each sample carrying only its w-taps inside the block
+    (:func:`block_taps`)."""
+
+    def __init__(self, first, count, samples, wgrid):
+        super().__init__()
+        self.first, self.count, self.wgrid = int(first), int(count), wgrid
+        self.register_buffer("samples", torch.as_tensor(samples, device=wgrid.device),
+                             persistent=False)
+
+
+def block_taps(p0, wsc, first, count, stack):
+    """The w-taps of samples with first planes ``p0`` (n,) and taps
+    ``wsc`` (wsup, n) inside the planes ``first`` … ``first + count −
+    1``, on a stack of ``stack`` ≥ wsup planes whose plane 0 is
+    ``first``: (p0', wsc') with each window start moved into [0, stack −
+    wsup] and its taps with it, those outside the block zero. Each tap
+    of a sample lies in exactly one block, so the blocks of a stack
+    deposit (and gather) each tap once."""
+    wsup = wsc.shape[0]
+    rel = p0 - first
+    start = np.clip(rel, 0, stack - wsup)
+    t = np.arange(wsup)[:, None] + (start - rel)[None, :]   # the original tap
+    inside = (t >= 0) & (t < wsup) & (start[None, :] + np.arange(wsup)[:, None] < count)
+    taps = np.where(inside, np.take_along_axis(wsc, np.clip(t, 0, wsup - 1), 0), 0.0)
+    return start, taps
+
+
 class ImagingPlan(nn.Module):
     """One gridding problem of the w-gridder, planned once: the
-    per-sample :class:`~africanus_tpu_torch.ops.cuda_wgrid.WGridPlan` the
-    kernels take (``wgrid``) and the image-plane data around it, from a
-    :func:`_plan` dict ``p``.
+    per-sample geometry (host numpy, in the plan's precision) and the
+    image-plane data around it, from a :func:`_plan` dict ``p``.
 
-    Buffers (moved by ``.to()``, with ``wgrid``'s): the (nx, ny) ``n``,
-    ``uv_taper`` and ``w_taper`` in the plan's dtype and, on a w-stack,
-    the (nplanes, nx, ny) complex ``screen`` e^{−2πi·w_p·(n−1)},
-    w_p = w0 + p·dw. ``crop_u0`` and ``crop_v0`` are the first grid row
-    and column of the image before the FFT shift.
+    ``wgrid`` is the whole stack's
+    :class:`~africanus_tpu_torch.ops.cuda_wgrid.WGridPlan` (:func:`build_plan`
+    builds it where the stack fits the card; else it is built on first
+    use); :meth:`plane_blocks` the blocks of planes a stack is gridded in
+    where it does not fit (each block's plan built once, the last layout
+    kept). Buffers (moved by ``.to()``, with ``wgrid``'s and the blocks'
+    where built): the (nx, ny) ``n``, ``uv_taper`` and ``w_taper`` in the
+    plan's dtype; on a w-stack ``screen`` (a :class:`PlaneScreens`), else
+    None. ``crop_u0`` and ``crop_v0`` are the first grid row and column of
+    the image before the FFT shift.
+
+    ``calls``, ``blocks`` and ``planes``: :class:`HostCount` counts, over
+    every plan while a profiler records, of the gridding and degridding
+    calls, the blocks of planes they ran and the planes they
+    transformed.
     """
 
-    def __init__(self, wgrid, p, nx, ny):
+    calls = HostCount()
+    blocks = HostCount()
+    planes = HostCount()
+
+    def __init__(self, geometry, p, nx, ny, dtype, device):
         super().__init__()
-        self.wgrid, self.nx, self.ny = wgrid, int(nx), int(ny)
-        self.dtype, self.complex_dtype = wgrid.dtype, wgrid.complex_dtype
-        device = wgrid.device
+        self.nx, self.ny = int(nx), int(ny)
+        self.nu, self.nv, self.nplanes = int(p["nu"]), int(p["nv"]), int(p["nplanes"])
+        self.support, self.beta = int(p["support"]), float(p["beta"])
+        self.dtype = dtype
+        self.complex_dtype = (torch.complex64 if dtype == torch.float32
+                              else torch.complex128)
+        self.nsamples = int(geometry["iu0"].size)
+        real = np.float32 if dtype == torch.float32 else np.float64
+        self._geometry = {k: v.astype(np.int32 if k in ("iu0", "iv0", "p0") else real)
+                          for k, v in geometry.items()}
         for name in ("n", "uv_taper", "w_taper"):
             self.register_buffer(name, torch.as_tensor(p[name]).to(
                 device=device, dtype=self.dtype), persistent=False)
         # the first grid row and column that fftshift moves into the
         # centred (nx, ny) crop (and ifftshift out of it): fftshift(x)[k] =
         # x[(k − n//2) mod n]
-        self.crop_u0 = ((wgrid.nu - self.nx) // 2 - wgrid.nu // 2) % wgrid.nu
-        self.crop_v0 = ((wgrid.nv - self.ny) // 2 - wgrid.nv // 2) % wgrid.nv
-        screen = None
-        if wgrid.nplanes > 1:
-            w_p = torch.as_tensor(p["w0"] + p["dw"] * np.arange(wgrid.nplanes),
-                                  dtype=torch.float64, device=device)
-            nm1 = torch.as_tensor(p["nm1"], dtype=torch.float64, device=device)
-            phase = -2.0 * np.pi * w_p[:, None, None] * nm1[None, :, :]
-            screen = torch.polar(torch.ones_like(phase), phase).to(self.complex_dtype)
-        self.register_buffer("screen", screen, persistent=False)
+        self.crop_u0 = ((self.nu - self.nx) // 2 - self.nu // 2) % self.nu
+        self.crop_v0 = ((self.nv - self.ny) // 2 - self.nv // 2) % self.nv
+        self.screen = None
+        if self.nplanes > 1:
+            self.screen = PlaneScreens(p["w0"] + p["dw"] * np.arange(self.nplanes),
+                                       p["nm1"], self.complex_dtype, device)
+        self.layout, self._planes = None, None  # the blocks of planes, once built
+
+    @property
+    def device(self):
+        return self.n.device
+
+    def _wgrid(self, sel=None, first=0, count=None):
+        g = self._geometry
+        if sel is None:
+            return WGridPlan(g["iu0"], g["iv0"], g["uf"], g["vf"], g["p0"], g["wsc"],
+                             self.nu, self.nv, self.nplanes, self.support, self.beta,
+                             dtype=self.dtype, device=self.device)
+        stack = max(count, g["wsc"].shape[0])
+        p0, wsc = block_taps(g["p0"][sel].astype(np.int64), g["wsc"][:, sel], first,
+                             count, stack)
+        return WGridPlan(g["iu0"][sel], g["iv0"][sel], g["uf"][sel], g["vf"][sel], p0,
+                         wsc, self.nu, self.nv, stack, self.support, self.beta,
+                         dtype=self.dtype, device=self.device)
+
+    @property
+    def wgrid(self):
+        """The whole stack's :class:`WGridPlan` (built on first use)."""
+        if "whole" not in self._modules:
+            self.whole = self._wgrid()
+        return self._modules["whole"]
+
+    def touched(self):
+        """(nplanes,) bool: the planes some sample's w-window meets."""
+        p0, wsup = self._geometry["p0"], self._geometry["wsc"].shape[0]
+        starts = np.bincount(p0, minlength=self.nplanes)
+        return np.convolve(starts, np.ones(wsup, np.int64))[:self.nplanes] > 0
+
+    def plane_blocks(self, planes):
+        """The blocks of at most ``planes`` planes (≥ 1) the touched planes
+        are gridded in (:class:`PlaneBlock` list): each run of touched
+        planes cut into the fewest blocks, of near-equal size; untouched
+        planes in none. Built once for a block size and kept (as the
+        submodule ``layout``) until another is asked for."""
+        if self._planes != planes:
+            touched = np.r_[False, self.touched(), False]
+            edges = np.flatnonzero(np.diff(touched.astype(np.int8)))
+            p0, wsup = self._geometry["p0"], self._geometry["wsc"].shape[0]
+            self.layout = None
+            spans = []
+            for a, b in zip(edges[::2], edges[1::2]):
+                nblk = -(-(b - a) // planes)
+                cuts = a + ((b - a) * np.arange(nblk + 1)) // nblk
+                spans += zip(cuts[:-1].tolist(), cuts[1:].tolist())
+
+            def block(span):
+                first, end = span
+                sel = np.flatnonzero((p0 < end) & (p0 + wsup > first))
+                return PlaneBlock(first, end - first, sel,
+                                  self._wgrid(sel, first, end - first))
+
+            # the blocks' host plans are numpy sorts and gathers, which
+            # release the interpreter lock: planned side by side
+            with ThreadPoolExecutor(max(1, min(len(spans), _THREADS))) as ex:
+                out = list(ex.map(block, spans))
+            self.layout, self._planes = nn.ModuleList(out), planes
+        return list(self.layout)
 
 
 def plan_geometry(uvw, freq, nx, ny, cellx, celly, epsilon,
@@ -232,13 +406,24 @@ def build_plan(uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking=True,
         uvw, freq, nx, ny, cellx, celly, epsilon, do_wstacking)
     u_l, v_l, w_l = _wavelength_coords(uvw.astype(np.float64),
                                        freq.astype(np.float64))
-    geo = sample_geometry(u_l, v_l, w_l, p["nu"], p["nv"], cellx, celly,
-                          p["support"], p["beta"], p["nplanes"], p["w0"],
-                          p["dw"])
-    wgrid = WGridPlan(geo["iu0"], geo["iv0"], geo["uf"], geo["vf"], geo["p0"],
-                      geo["wsc"], p["nu"], p["nv"], p["nplanes"], p["support"],
-                      p["beta"], dtype=dtype, device=device)
-    return ImagingPlan(wgrid, p, nx, ny)
+    # per sample, elementwise: slices of ~1M samples planned side by side
+    # (numpy's loops release the interpreter lock)
+    cuts = np.linspace(0, u_l.size, max(1, min(_THREADS, u_l.size >> 20)) + 1,
+                       dtype=np.int64)
+    with ThreadPoolExecutor(cuts.size - 1) as ex:
+        parts = list(ex.map(lambda a, b: sample_geometry(
+            u_l[a:b], v_l[a:b], w_l[a:b], p["nu"], p["nv"], cellx, celly, p["support"],
+            p["beta"], p["nplanes"], p["w0"], p["dw"]), cuts[:-1], cuts[1:]))
+    geo = {k: np.concatenate([g[k] for g in parts], axis=-1) for k in parts[0]}
+    wsup = geo["wsc"].shape[0]
+    if geo["p0"].size and (geo["p0"].min() < 0 or geo["p0"].max() + wsup > p["nplanes"]):
+        raise ValueError(
+            f"w-plane window out of stack: p0 in [{geo['p0'].min()}, "
+            f"{geo['p0'].max()}], {wsup} taps, nplanes {p['nplanes']}")
+    plan = ImagingPlan(geo, p, nx, ny, dtype, device)
+    if _layout(plan) is None:
+        plan.wgrid  # the whole stack fits: planned whole now, as a call runs it
+    return plan
 
 
 _MAKE_PLAN_CACHE = LRUCache(4)
@@ -275,26 +460,74 @@ def _blocks(plan):
         return out
 
     return [(gu, gv, iu, iv)
-            for gu, iu in runs(plan.crop_u0, plan.nx, plan.wgrid.nu)
-            for gv, iv in runs(plan.crop_v0, plan.ny, plan.wgrid.nv)]
+            for gu, iu in runs(plan.crop_u0, plan.nx, plan.nu)
+            for gv, iv in runs(plan.crop_v0, plan.ny, plan.nv)]
+
+
+def _plane_sum(plan, grid, first=0):
+    """Planes ``first`` … of a w-stack (count, nu, nv) → the (nx, ny) sum
+    of their phased images: the FFT with the e^{+2πi} convention
+    (unnormalised), the centred crop of its fftshift (copied in blocks;
+    the whole shift is never made), each plane times its phase screen,
+    the real parts summed (one plane's real part without a w-stack)."""
+    full = torch.fft.ifft2(grid, norm="forward")
+    img = torch.empty((grid.shape[0], plan.nx, plan.ny),
+                      dtype=full.dtype, device=full.device)
+    for gu, gv, iu, iv in _blocks(plan):
+        img[:, iu, iv] = full[:, gu, gv]
+    del full
+    if plan.screen is None:
+        return img[0].real
+    return (img * plan.screen(first, grid.shape[0])).real.sum(dim=0)
+
+
+def _image(plan, total):
+    """The dirty image of a :func:`_plane_sum` (over every block): the w
+    and uv tapers and n divided out."""
+    if plan.screen is not None:
+        total = total / plan.w_taper / plan.n
+    return total / plan.uv_taper
 
 
 def grid_to_image(plan, grid):
     """(nplanes, nu, nv) w-stack → (nx, ny) dirty image: the FFT with the
-    e^{+2πi} convention (unnormalised), the centred crop of its fftshift
-    (copied in blocks; the whole shift is never made), the planes' phase
-    screens summed, the w and uv tapers and n divided out. ``plan`` is an
-    :class:`ImagingPlan`."""
-    full = torch.fft.ifft2(grid, norm="forward")
-    img = torch.empty((plan.wgrid.nplanes, plan.nx, plan.ny),
-                      dtype=full.dtype, device=full.device)
-    for gu, gv, iu, iv in _blocks(plan):
-        img[:, iu, iv] = full[:, gu, gv]
+    e^{+2πi} convention (unnormalised), the centred crop of its fftshift,
+    the planes' phase screens summed, the w and uv tapers and n divided
+    out. ``plan`` is an :class:`ImagingPlan`."""
+    return _image(plan, _plane_sum(plan, grid))
+
+
+def _tapered(plan, image):
+    """The (nx, ny) real image with the tapers (and, on a w-stack, n)
+    divided out, in the plan's dtype: what each plane is phased from."""
+    img = image.to(plan.dtype) / plan.uv_taper
     if plan.screen is not None:
-        dirty = (img * plan.screen).real.sum(dim=0) / plan.w_taper / plan.n
+        img = img / (plan.w_taper * plan.n)
+    return img
+
+
+def _stack_of(plan, img, first, count, stack=None):
+    """Planes ``first`` … ``first + count − 1`` of the w-stack of a
+    :func:`_tapered` image: each plane phased by e^{+2πi·w_p·(n−1)},
+    zero-padded centred and ifftshifted (copied in blocks straight to
+    its shifted place), FFT with e^{−2πi}; followed by zero planes up to
+    ``stack`` planes where that is more (a block's ``WGridPlan`` has at
+    least W)."""
+    if plan.screen is not None:
+        planes = img[None] * plan.screen(first, count).conj()
     else:
-        dirty = img[0].real
-    return dirty / plan.uv_taper
+        planes = img[None].to(plan.complex_dtype)
+    padded = torch.zeros((count, plan.nu, plan.nv), dtype=plan.complex_dtype,
+                         device=img.device)
+    for gu, gv, iu, iv in _blocks(plan):
+        padded[:, gu, gv] = planes[:, iu, iv]
+    del planes
+    if stack is None or stack <= count:
+        return torch.fft.fft2(padded)
+    out = torch.zeros((stack, plan.nu, plan.nv), dtype=plan.complex_dtype,
+                      device=img.device)
+    torch.fft.fft2(padded, out=out[:count])
+    return out
 
 
 def image_to_grid(plan, image):
@@ -302,18 +535,99 @@ def image_to_grid(plan, image):
     :func:`grid_to_image` (taper and n divided out, each plane phased by
     e^{+2πi·w_p·(n−1)}, zero-padded centred and ifftshifted — copied in
     blocks straight to its shifted place —, FFT with e^{−2πi})."""
-    img = image.to(plan.dtype) / plan.uv_taper
-    if plan.screen is not None:
-        img = img / (plan.w_taper * plan.n)
-        planes = img[None] * plan.screen.conj()
+    return _stack_of(plan, _tapered(plan, image), 0, plan.nplanes)
+
+
+def block_bytes(plan, planes):
+    """Bytes a gridding or degridding call in blocks of ``planes`` planes
+    takes at most beyond the plan and its values: a block's grid of
+    max(planes, W) planes (a ``WGridPlan``'s stack holds a whole window),
+    and a plane's FFT input or output and FFT work area, its image-sized
+    crop, phase screen and their product; once, the samples' values
+    gathered, gathered and summed, and one screen plane in the making
+    (its float64 phase and ones, and complex128 polar)."""
+    c = torch.empty((), dtype=plan.complex_dtype).element_size()
+    grids = max(planes, plan.support) + 2 * planes
+    return (grids * plan.nu * plan.nv * c + 3 * planes * plan.nx * plan.ny * c
+            + 3 * plan.nsamples * c + 32 * plan.nx * plan.ny)
+
+
+def _layout(plan):
+    """None where the whole stack runs as one block, else the
+    :class:`PlaneBlock` list it runs in. A plan whose whole stack was
+    chosen (its phase screens kept) runs whole from then on, as a plan
+    always did. Otherwise the choice is made from the device's free
+    memory, read once a call: the whole stack where it fits
+    ``MEMORY_SHARE`` of it (its screens then made and kept); else the
+    largest blocks that do (at least one plane). Blocks already built are
+    kept while they fit the free memory whole, so that calls at about the
+    same free memory keep one layout (and one summation order)."""
+    if plan.screen is None or plan.screen.stack is not None:
+        return None
+    free = free_bytes(plan.device)
+    if plan.layout is not None and block_bytes(plan, plan._planes) <= free:
+        return list(plan.layout)
+    budget = MEMORY_SHARE * free
+    fits = [p for p in range(1, plan.nplanes + 1) if block_bytes(plan, p) <= budget]
+    if fits and fits[-1] == plan.nplanes:
+        plan.screen.keep()
+        return None
+    return plan.plane_blocks(fits[-1] if fits else 1)
+
+
+def _count(blocks, planes):
+    ImagingPlan.calls.add(1)
+    ImagingPlan.blocks.add(blocks)
+    ImagingPlan.planes.add(planes)
+
+
+def _grid(plan, vis):
+    """(N,) weighted values → (nx, ny) dirty image, as one block or in
+    the plan's blocks of planes, their sums added in block order."""
+    blocks = _layout(plan)
+    if blocks is None:
+        with span("wgridder.grid"):
+            grid = grid_wstack(plan.wgrid, vis)
+        with span("wgridder.transform"):
+            total = _plane_sum(plan, grid)
+        _count(1, plan.nplanes)
     else:
-        planes = img[None].to(plan.complex_dtype)
-    wgrid = plan.wgrid
-    padded = torch.zeros((wgrid.nplanes, wgrid.nu, wgrid.nv),
-                         dtype=plan.complex_dtype, device=image.device)
-    for gu, gv, iu, iv in _blocks(plan):
-        padded[:, gu, gv] = planes[:, iu, iv]
-    return torch.fft.fft2(padded)
+        total = None
+        for b in blocks:
+            with span("wgridder.grid"):
+                grid = grid_wstack(b.wgrid, vis.index_select(0, b.samples))
+            with span("wgridder.transform"):
+                part = _plane_sum(plan, grid[:b.count], b.first)
+                total = part if total is None else total + part
+            del grid
+        _count(len(blocks), sum(b.count for b in blocks))
+    with span("wgridder.transform"):
+        return _image(plan, total)
+
+
+def _degrid(plan, image):
+    """(nx, ny) real image → (N,) visibilities, as one block or in the
+    plan's blocks of planes, each sample's parts added in block order."""
+    blocks = _layout(plan)
+    with span("wgridder.transform"):
+        img = _tapered(plan, image)
+    if blocks is None:
+        with span("wgridder.transform"):
+            grid = _stack_of(plan, img, 0, plan.nplanes)
+        with span("wgridder.degrid"):
+            vis = degrid_wstack(plan.wgrid, grid)
+        _count(1, plan.nplanes)
+        return vis
+    vis = torch.zeros(plan.nsamples, dtype=plan.complex_dtype, device=image.device)
+    for b in blocks:
+        with span("wgridder.transform"):
+            grid = _stack_of(plan, img, b.first, b.count, b.wgrid.nplanes)
+        with span("wgridder.degrid"):
+            part = degrid_wstack(b.wgrid, grid)
+            vis.index_copy_(0, b.samples, vis.index_select(0, b.samples) + part)
+        del grid
+    _count(len(blocks), sum(b.count for b in blocks))
+    return vis
 
 
 def _dtype(f64, double_accum):
@@ -346,7 +660,8 @@ def grid_adjoint(uvw, freq, vis, wgt, nx, ny, cellx, celly, epsilon,
         whatever the visibility dtype
 
     Returns the (nx, ny) image, float32 — float64 for complex128 values
-    or ``double_accum``.
+    or ``double_accum``. The w-stack runs whole or in blocks of planes,
+    as the device's free memory allows (module docstring).
     """
     vis = torch.as_tensor(vis)
     if not vis.is_complex():
@@ -357,8 +672,7 @@ def grid_adjoint(uvw, freq, vis, wgt, nx, ny, cellx, celly, epsilon,
                                               double_accum), vis.device)
     elif double_accum and plan.dtype != torch.float64:
         raise ValueError("double_accum=True needs a float64 plan")
-    return grid_to_image(plan, grid_wstack(plan.wgrid,
-                                           _weighted(plan, vis, wgt, mask)))
+    return _grid(plan, _weighted(plan, vis, wgt, mask))
 
 
 def degrid(uvw, freq, image, wgt, cellx, celly, epsilon, do_wstacking=True,
@@ -370,7 +684,8 @@ def degrid(uvw, freq, image, wgt, cellx, celly, epsilon, do_wstacking=True,
 
     ``image`` is a real tensor on the device to run on (float64 runs in
     float64); ``wgt``/``mask`` multiply the output. Returns (row, chan)
-    complex64, or complex128 for a float64 image or plan.
+    complex64, or complex128 for a float64 image or plan. The w-stack
+    runs whole or in blocks of planes, as :func:`grid_adjoint`'s.
     """
     image = torch.as_tensor(image)
     if image.is_complex():
@@ -380,6 +695,6 @@ def degrid(uvw, freq, image, wgt, cellx, celly, epsilon, do_wstacking=True,
         plan = make_plan(uvw, freq, nx, ny, cellx, celly, epsilon,
                          do_wstacking, _dtype(image.dtype == torch.float64, False),
                          image.device)
-    vis = degrid_wstack(plan.wgrid, image_to_grid(plan, image))
+    vis = _degrid(plan, image)
     nrow, nchan = len(uvw), len(freq)
     return _weighted(plan, vis, wgt, mask).reshape(nrow, nchan)

@@ -18,10 +18,7 @@ import torch
 from torch import nn
 
 from africanus_tpu_torch.constants import c as lightspeed
-from africanus_tpu_torch.gridding.wgridder.core import (
-    build_plan, grid_to_image, image_to_grid,
-)
-from africanus_tpu_torch.ops.cuda_wgrid import degrid_wstack, grid_wstack
+from africanus_tpu_torch.gridding.wgridder.core import _degrid, _grid, build_plan
 
 __all__ = ["WStackImaging", "imaging_inputs", "from_numpy", "dirty_oracle_f64"]
 
@@ -42,7 +39,8 @@ class WStackImaging(nn.Module):
     :meth:`forward` grids (row, chan) complex64 visibilities into the
     (nx, ny) dirty image; :meth:`degrid` predicts (row, chan) complex64
     visibilities of an (nx, ny) image. On the card both run the kernels
-    of ``csrc/wgrid.cu``.
+    of ``csrc/wgrid.cu``, in blocks of planes where the stack does not fit
+    (as ``core.grid_adjoint`` and ``core.degrid``).
     """
 
     def __init__(self, uvw, freq, nx, ny, cellx, celly=None, epsilon=1e-4,
@@ -55,11 +53,10 @@ class WStackImaging(nn.Module):
 
     def forward(self, vis):
         v = vis.reshape(-1).to(self.plan.complex_dtype).contiguous()
-        return grid_to_image(self.plan, grid_wstack(self.plan.wgrid, v))
+        return _grid(self.plan, v)
 
     def degrid(self, image):
-        vis = degrid_wstack(self.plan.wgrid, image_to_grid(self.plan, image))
-        return vis.reshape(self.nrow, self.nchan)
+        return _degrid(self.plan, image).reshape(self.nrow, self.nchan)
 
 
 def imaging_inputs(nrow, nchan, nx, seed, w_div=20):

@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "build", "build_all",
-           "use", "launch", "groups", "plan_device"]
+           "use", "launch", "groups", "plan_device", "free_bytes", "MEMORY_SHARE"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -261,3 +261,21 @@ def plan_device(device):
         if d.index is None:
             d = torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+# the share of the free memory (:func:`free_bytes`) a block of work chosen
+# from it may take: the fused RIME's source blocks, the w-gridder's blocks
+# of planes
+MEMORY_SHARE = 0.85
+
+
+def free_bytes(device):
+    """Bytes free for new tensors on ``device``: on a card the CUDA runtime's
+    free memory and what the caching allocator holds unused; on the CPU
+    the available physical pages."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return free + (torch.cuda.memory_reserved(device)
+                       - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

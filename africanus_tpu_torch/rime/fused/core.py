@@ -48,7 +48,6 @@ arguments, or to ``device`` (default ``"cuda"``) when all are numpy.
 
 from __future__ import annotations
 
-import os
 import time
 from functools import lru_cache
 
@@ -57,7 +56,7 @@ import torch
 
 from africanus_tpu_torch.model.shape.gaussian_shape import GAUSS_SCALE
 from africanus_tpu_torch.ops import cuda_fused
-from africanus_tpu_torch.ops._build import plan_device
+from africanus_tpu_torch.ops._build import MEMORY_SHARE, free_bytes, plan_device
 from africanus_tpu_torch.ops.dfloat import compensated_sum, two_sum
 from africanus_tpu_torch.rime.fused.specification import RimeSpecification
 from africanus_tpu_torch.rime.fused.terms import (
@@ -81,8 +80,6 @@ SUM_PEAK = 8
 # (row, chan) grids a source: its temporaries, at most 7 (at three
 # sources), and a conjugate's copy
 SUM_TREE = 8
-# the share of the free memory a chosen block may take
-MEMORY_SHARE = 0.85
 # the kernel route's (channel, correlation) complex grids a source: every
 # allocation of the brightness and the spectral model (40 (source,
 # channel) complex grids, 10 of 4 correlations, in a CPU memory profile)
@@ -116,18 +113,6 @@ def _state_device(kwargs, device="cuda"):
         if isinstance(v, torch.Tensor):
             return v.device
     return plan_device(device)
-
-
-def free_bytes(device):
-    """Bytes free for new tensors on ``device``: on a card the CUDA runtime's
-    free memory and what the caching allocator holds unused; on the CPU
-    the available physical pages."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return free + (torch.cuda.memory_reserved(device)
-                       - torch.cuda.memory_allocated(device))
-    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
 def _lookup(values, uniq):

@@ -45,6 +45,12 @@ stage:
   sampling and the chain's fold) and ``fused.sum`` (the block's sum into
   the output) on the eager chain, or one ``fused.kernel`` (every block's
   operands and ``fused_dde`` launches) on the kernel route.
+- the w-gridder (``gridding.wgridder``): ``wgridder.residual`` around
+  each band of ``api.residual``; inside ``core.grid_adjoint`` and
+  ``core.degrid``, for the whole stack or each block of planes,
+  ``wgridder.grid`` (``grid_wstack``) or ``wgridder.degrid``
+  (``degrid_wstack`` and the sum of a sample's parts) and
+  ``wgridder.transform`` (the FFTs, crop or pad, phase screens, tapers).
 
 Counters, attributes of what does the work, as each kernel wrapper's
 ``.launches``:
@@ -63,7 +69,11 @@ Counters, attributes of what does the work, as each kernel wrapper's
   :class:`HostCount` counts of the fused RIME's evaluations, the source
   blocks they evaluated (one for a one-grid evaluation), the host seconds
   of their state builds and the evaluations that took the kernel route,
-  summed over every specification while a profiler records.
+  summed over every specification while a profiler records;
+- ``ImagingPlan.calls``, ``ImagingPlan.blocks`` and ``ImagingPlan.planes``
+  (``gridding.wgridder.core``): :class:`HostCount` counts of the
+  w-gridder's gridding and degridding calls, the blocks of w-planes they
+  ran (one where a stack fits whole) and the planes they transformed.
 """
 
 from __future__ import annotations

@@ -1,0 +1,18 @@
+"""``grid_wstack_roofline`` (%): the least time the card needs for one
+call's w-stack gridding (``perfbench/work/grid_wstack.py``: the map's
+bytes over HBM's rate or its operations over dense TF32, the larger),
+over the device time per call of ``tile_spread_kernel`` (the spreading
+kernel of ``csrc/gridding.cuh``, every block of planes) in the traced
+sub-window. Nothing to read where the entry has no w-stack or no such
+kernel ran."""
+
+from perfbench.work import grid_wstack as work
+
+
+def read(rec):
+    spent = rec.kernel_seconds(lambda n: n == "tile_spread_kernel")
+    sizes = work.shape(rec.shapes)
+    if not spent or sizes is None:
+        return None
+    least, _ = work.least_seconds(**sizes)
+    return 100.0 * least * rec.calls / spent

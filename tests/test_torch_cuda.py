@@ -19,7 +19,9 @@ takes the bounds and the two cases (converged, and a model that lacks a
 source) of tests/test_torch_selfcal.py. The wgrid kernels 1e-5·max|out| in
 float32 and 1e-12 in float64 (sums in another order than the plain
 versions' index_add_ and gather-sum); w-stacked imaging on the card
-1e-5·max against the CPU. The beam kernels 1e-5·max|out| in float32 and
+1e-5·max against the CPU, and in blocks of planes 1e-6·max against one
+block (a straddling sample's parts summed in another order), reruns
+bitwise. The beam kernels 1e-5·max|out| in float32 and
 1e-12 in float64 (the same operations, contracted into FMAs by nvcc);
 the beam chain's routes on the card 1e-5·max against the CPU. The 2D
 multi-correlation and table gridder kernels 1e-5·max|out| in float32
@@ -695,6 +697,47 @@ def test_wgridder_api_on_card_matches_cpu(device):
     got = model(uvw, freq, image.to(device), *bands, cell, epsilon=1e-4)
     assert got.dtype == torch.complex64
     _assert_close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [4, 5])
+def test_wgridder_blocks_of_planes_on_card(device, planes, monkeypatch):
+    """The residual with its w-stack in blocks of ``planes`` planes (the
+    free memory the plan reads cut to hold no more) on the card: against
+    the same problem as one block on the card 1e-6·max (a straddling
+    sample's parts summed in another order), a launch of each kernel a
+    block, and two blocked runs bitwise equal."""
+    from africanus_tpu_torch.gridding.wgridder import core, residual
+    from africanus_tpu_torch.utils.plancache import LRUCache
+
+    args = imaging_inputs(nrow=2000, nchan=4, nx=64, seed=8, w_div=0.1)
+    uvw, freq, cell = args["uvw"], args["freq"], args["cell"]
+    image = torch.as_tensor(args["image"][None]).to(device)
+    vis = torch.as_tensor(args["vis"]).to(device)
+
+    def run(free):
+        monkeypatch.setattr(core, "_MAKE_PLAN_CACHE", LRUCache(4))
+        plan = core.make_plan(uvw, freq, 64, 64, cell, cell, 1e-5, device=device)
+        per = core.block_bytes(plan, 1) - core.block_bytes(plan, 0)
+        budget = 1e15 if free is None else (
+            core.block_bytes(plan, free) + per / 2) / core.MEMORY_SHARE
+        if free is not None:
+            plan.screen.stack = None  # as a plan built at that free memory
+        monkeypatch.setattr(core, "free_bytes", lambda d: budget)
+        before = (cw.grid_wstack.launches, cw.degrid_wstack.launches)
+        out = residual(uvw, freq, image, vis, [0], [4], cell, epsilon=1e-5)
+        torch.cuda.synchronize()
+        blocks = 1 if plan.layout is None else len(plan.layout)
+        assert (cw.grid_wstack.launches, cw.degrid_wstack.launches) == (
+            before[0] + blocks, before[1] + blocks)
+        return out, blocks, plan
+
+    whole, one, _ = run(None)
+    got, blocks, plan = run(planes)
+    assert one == 1 and blocks > 2 and plan.nplanes > 2 * planes
+    _assert_close(got.cpu(), whole.cpu(), 1e-6)
+    again = residual(uvw, freq, image, vis, [0], [4], cell, epsilon=1e-5)
+    assert torch.equal(again, got)
 
 
 def _launched(fn, *args):
